@@ -1,0 +1,126 @@
+"""Raw YUV (luma plane) frame I/O and host-side frame ops (numpy only).
+
+Reference semantics reproduced:
+
+* ``yuvReadFrame`` reads exactly H*W bytes from the start of the file.
+* ``yuvWriteFrame`` narrows int -> u8 with a plain C cast (modulo 256).
+* ``frameDiff`` is |a - b|.
+* ``imagePSNR`` uses the *observed* max pixel of either frame (not 255),
+  double-precision MSE, returns 99.0 when MSE == 0, and
+  psnr = 20*log10(MAX) - 10*log10(MSE).
+* The emitted artifact is a 5-frame vertical stack
+  [ref, cur, compensated, |ref-cur|, |comp-cur|] named
+  ``output_<blk>_<span>.yuv``.
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+
+
+def load_yuv(path: str | os.PathLike, height: int, width: int) -> np.ndarray:
+    """Read the first H*W bytes of a raw YUV file as a [H, W] uint8 plane
+    (a writable array, so `torch.from_numpy` takes it without a copy)."""
+    out = np.empty((height, width), np.uint8)
+    with open(path, "rb") as f:
+        got = f.readinto(out.reshape(-1))
+    if got < out.size:
+        raise IOError(
+            f"{path}: expected at least {out.size} bytes for {width}x{height} "
+            f"luma, got {got}"
+        )
+    return out
+
+
+def save_yuv(path: str | os.PathLike, frame: np.ndarray) -> None:
+    """Write an integer frame as raw u8 bytes (C-cast narrowing)."""
+    data = np.asarray(frame)
+    if data.dtype != np.uint8:
+        data = data.astype(np.uint8)  # wraps mod 256 like the C cast
+    with open(path, "wb") as f:
+        f.write(data.tobytes())
+
+
+def frame_diff(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """|a - b| elementwise in int32."""
+    return np.abs(a.astype(np.int32) - b.astype(np.int32))
+
+
+def image_psnr(frame1: np.ndarray, frame2: np.ndarray) -> float:
+    """PSNR with the reference's exact conventions.
+
+    MAX is the maximum observed sample of either frame, MSE accumulates
+    |diff|^2 in float64, MSE == 0 returns 99.0.
+    """
+    a = frame1.astype(np.int64).ravel()
+    b = frame2.astype(np.int64).ravel()
+    max_val = int(max(a.max(initial=0), b.max(initial=0)))
+    diff = np.abs(a - b).astype(np.float64)
+    mse = float(np.dot(diff, diff)) / a.size
+    if mse == 0:
+        return 99.0
+    return 20.0 * math.log10(max_val) - 10.0 * math.log10(mse)
+
+
+def psnr_from_stats(sum_sq_err: int, count: int, max_val: int) -> float:
+    """PSNR from an exact integer Σerr² and the observed max.
+
+    Bit-identical to `image_psnr` when the stats are exact: Σerr² for 8-bit
+    frames is < 2^53, so the float64 division reproduces image_psnr.
+    """
+    mse = float(int(sum_sq_err)) / count
+    if mse == 0:
+        return 99.0
+    return 20.0 * math.log10(int(max_val)) - 10.0 * math.log10(mse)
+
+
+def compensate_frame_np(
+    ref: np.ndarray, mv_y: np.ndarray, mv_x: np.ndarray, blk_dim: int
+) -> np.ndarray:
+    """Host-side motion compensation: comp[p] = ref[p + mv(block(p))].
+
+    Exact for truncated edge blocks: valid full-search MVs keep every
+    gather in-frame.
+    """
+    h, w = ref.shape
+    mvy_px = np.repeat(np.repeat(mv_y, blk_dim, 0), blk_dim, 1)[:h, :w]
+    mvx_px = np.repeat(np.repeat(mv_x, blk_dim, 0), blk_dim, 1)[:h, :w]
+    yy = np.arange(h, dtype=np.int64)[:, None] + mvy_px
+    xx = np.arange(w, dtype=np.int64)[None, :] + mvx_px
+    return ref.astype(np.int32)[yy, xx]
+
+
+def residual_mse_c_float32(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean squared residual with the reference's float32 accumulation.
+
+    The SSIM driver accumulates the squared diffs sequentially in a float;
+    reproduced with a sequential float32 accumulate for output parity.
+    """
+    d = a.astype(np.int64).ravel() - b.astype(np.int64).ravel()
+    terms = (d * d).astype(np.float32)
+    total = np.add.accumulate(terms, dtype=np.float32)[-1]
+    return float(np.float32(total) / np.float32(d.size))
+
+
+def stack_output(
+    ref: np.ndarray, cur: np.ndarray, comp: np.ndarray
+) -> np.ndarray:
+    """The 5-frame stack [ref, cur, comp, |ref-cur|, |comp-cur|], [5*H, W]
+    int32."""
+    return np.concatenate(
+        (
+            ref.astype(np.int32),
+            cur.astype(np.int32),
+            comp.astype(np.int32),
+            frame_diff(ref, cur),
+            frame_diff(comp, cur),
+        ),
+        axis=0,
+    )
+
+
+def output_filename(output_dir: str | os.PathLike, blk_dim: int, span: int) -> str:
+    """``<dir>/output_<blk>_<span>.yuv``."""
+    return os.path.join(os.fspath(output_dir), f"output_{blk_dim}_{span}.yuv")
