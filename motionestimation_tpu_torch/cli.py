@@ -3,13 +3,15 @@
     python -m motionestimation_tpu_torch.cli <current> <reference> <outdir> \
         [blkDim] [extraSpan] [frameWidth] [frameHeight] [--device cuda|cpu]
 
-Stdout mirrors the reference MSE driver: the config echo block,
-`PSNR: %.6f`, the output dimensions, `Computation time: %.0f ms` and
-`PSNR: %.0f `. `--timing-row` adds `total h2d kernel d2h psnr`. The run
-uses the CUDA card unless `--device cpu` is given; without CUDA the default
-raises. Options of the JAX driver that later slices of the port bring
-(`--metric ssim`, `--algorithm diamond`, `--gop`, `--debug-block`,
-`--profile`) raise NotImplementedError naming their ROADMAP.md item.
+Stdout mirrors the reference binaries: the config echo block, then for
+MSE/SAD `PSNR: %.6f`, the output dimensions, `Computation time: %.0f ms`
+and `PSNR: %.0f `; for `--metric ssim` `Original Score: %.4f, Compensated
+Score: %.4f` and the output dimensions. `--timing-row` adds
+`total h2d kernel d2h psnr`. The run uses the CUDA card unless
+`--device cpu` is given; without CUDA the default raises. Options of the
+JAX command line that later slices of the port bring (`--algorithm diamond`,
+`--gop`, `--debug-block`, `--profile`) raise NotImplementedError naming
+their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -20,7 +22,6 @@ from motionestimation_tpu_torch.core import frames as frames_lib
 from motionestimation_tpu_torch.core.config import SearchConfig
 from motionestimation_tpu_torch.core.device import resolve_device
 from motionestimation_tpu_torch.pipeline import runner
-from motionestimation_tpu_torch.search.full_search import SSIM_SLICE
 
 _LATER = {
     "gop": "--gop arrives with ROADMAP.md Queue 1 item 8 (GOP pipeline)",
@@ -64,8 +65,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.metric == "ssim":
-        raise NotImplementedError(SSIM_SLICE)
     if args.algorithm == "diamond":
         raise NotImplementedError(runner.DIAMOND_SLICE)
     for opt, message in _LATER.items():
@@ -98,15 +97,23 @@ def main(argv=None) -> int:
     )
     res = runner.run_pair(cur, ref, config, device=device)
 
-    print(f"PSNR: {res.psnr:.6f}")
+    ssim = config.metric == "ssim"
+    if ssim:
+        print(
+            f"Original Score: {res.original_score:.4f}, "
+            f"Compensated Score: {res.compensated_score:.4f}"
+        )
+    else:
+        print(f"PSNR: {res.psnr:.6f}")
     if not args.no_output:
         runner.write_artifacts(res, cur, ref, config, args.output_dir)
         print(
             f"Output file dimensions: ({config.frame_width} x "
             f"{5 * config.frame_height})"
         )
-    print(f"Computation time: {res.kernel_ms:.0f} ms")
-    print(f"PSNR: {res.psnr:.0f} ")
+    if not ssim:
+        print(f"Computation time: {res.kernel_ms:.0f} ms")
+        print(f"PSNR: {res.psnr:.0f} ")
     if args.timing_row:
         print(res.timing_row)
     return 0

@@ -47,40 +47,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned long long kNoKey = ~0ull;
+using me::kNoKey;
+using me::kThreads;
+using me::kWarps;
+using me::reserve_smem;
+using me::warp_store_min;
 constexpr int kInt32Max = 0x7fffffff;
-
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
-}
-
-// Min of every thread's key into red[slot * kWarps + warp]. All threads of
-// the CUDA block must call it.
-__device__ __forceinline__ void warp_store_min(unsigned long long key,
-                                               unsigned long long* red,
-                                               int slot) {
-  key = warp_min(key);
-  if ((threadIdx.x & 31) == 0) red[slot * kWarps + (threadIdx.x >> 5)] = key;
-}
 
 __device__ __forceinline__ void write_best(const unsigned long long* red,
                                            int slot, int32_t* cost,
                                            int32_t* idx, int centre) {
-  unsigned long long best = red[slot * kWarps];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    unsigned long long v = red[slot * kWarps + w];
-    best = v < best ? v : best;
-  }
+  const unsigned long long best = me::slot_min(red, slot);
   if (best == kNoKey) {
     *cost = kInt32Max;
     *idx = centre;
@@ -276,23 +257,6 @@ int_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
     const size_t o = static_cast<size_t>(by) * out_ld + bx;
     write_best(red, 0, out_cost + o, out_idx + o, centre);
   }
-}
-
-// Allow `bytes` of dynamic shared memory for `kernel`; false if the card
-// cannot give that much to one block.
-template <typename Kernel>
-bool reserve_smem(Kernel kernel, size_t bytes) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return false;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return false;
-  if (bytes > static_cast<size_t>(optin)) return false;
-  if (bytes > 48 * 1024 &&
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(bytes)) != cudaSuccess)
-    return false;
-  return true;
 }
 
 size_t phase_smem_bytes(int blk, int tbx, int span) {

@@ -42,6 +42,10 @@ from motionestimation_tpu_torch.search import full_search as fs
 
 _METRIC_CODE = {"mse": 0, "sad": 1}
 _PHASE_BLOCKS = (1, 2, 4, 8, 16, 32)
+_SSIM_ELSEWHERE = (
+    "full_search_frame_cuda searches MSE and SAD; SSIM runs on its own "
+    "kernels: kernels/ssim_cuda.py ssim_search_frame_cuda"
+)
 _CHUNKED_MSE = (
     "MSE with blk_dim={blk} span={span} runs the Pallas kernel {kernel} "
     "in the JAX package; its CUDA port is ROADMAP.md Queue 1 item 6 (cost "
@@ -67,9 +71,9 @@ def phase_supported(blk_dim: int, span: int, metric: str) -> bool:
     return metric in _METRIC_CODE and blk_dim in _PHASE_BLOCKS and span >= 1
 
 
-def _check_operands(cur, ref_halo, span, metric):
-    if metric not in _METRIC_CODE:
-        raise ValueError(f"metric must be 'mse' or 'sad', got {metric!r}")
+def check_operand_shapes(cur, ref_halo, span):
+    """Raise unless cur and ref_halo are 2-D, on one device, and the halo
+    covers the tile plus `span` on every side."""
     if cur.dim() != 2 or ref_halo.dim() != 2:
         raise ValueError("cur and ref_halo must be 2-D")
     tile_h, tile_w = cur.shape
@@ -87,9 +91,15 @@ def _check_operands(cur, ref_halo, span, metric):
         )
 
 
-def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, metric,
-            frame_height, frame_width, y_origin, x_origin):
-    """Run one of the two CUDA launchers on a CUDA tensor pair."""
+def _check_operands(cur, ref_halo, span, metric):
+    if metric not in _METRIC_CODE:
+        raise ValueError(f"metric must be 'mse' or 'sad', got {metric!r}")
+    check_operand_shapes(cur, ref_halo, span)
+
+
+def check_kernel_operands(cur, ref_halo):
+    """Raise unless both tensors are CUDA uint8 with unit column stride,
+    the layout every kernel reads."""
     if cur.device.type != "cuda":
         raise ValueError(f"expected CUDA or CPU tensors, got {cur.device}")
     for name, t in (("cur", cur), ("ref_halo", ref_halo)):
@@ -98,6 +108,43 @@ def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, metric,
                 f"{name} must be uint8 with unit column stride, got "
                 f"{t.dtype} strides {t.stride()}"
             )
+
+
+def check_interior_tile(shape, blk_dim, frame_height, frame_width,
+                        y_origin, x_origin):
+    """Raise unless the tile is whole blocks lying inside the frame."""
+    tile_h, tile_w = shape
+    if (
+        tile_h % blk_dim or tile_w % blk_dim
+        or min(y_origin, x_origin) < 0
+        or y_origin + tile_h > frame_height
+        or x_origin + tile_w > frame_width
+    ):
+        raise ValueError(
+            f"the interior kernels cover whole in-frame blocks only: tile "
+            f"{tile_h}x{tile_w} at ({y_origin}, {x_origin}), blk_dim "
+            f"{blk_dim}, frame {frame_height}x{frame_width}"
+        )
+
+
+def check_edge_tile(shape, blk_dim, frame_height, frame_width, y_origin,
+                    x_origin):
+    """Raise unless the tile holds every in-frame pixel of its blocks."""
+    tile_h, tile_w = shape
+    if min(y_origin, x_origin) < 0 or (
+        tile_h % blk_dim and y_origin + tile_h < frame_height
+    ) or (tile_w % blk_dim and x_origin + tile_w < frame_width):
+        raise ValueError(
+            f"tile {tile_h}x{tile_w} at ({y_origin}, {x_origin}) cuts "
+            f"blocks of side {blk_dim} inside the frame "
+            f"{frame_height}x{frame_width}"
+        )
+
+
+def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, metric,
+            frame_height, frame_width, y_origin, x_origin):
+    """Run one of the two CUDA launchers on a CUDA tensor pair."""
+    check_kernel_operands(cur, ref_halo)
     cost = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
     idx = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
     with torch.cuda.device(cur.device):
@@ -156,18 +203,9 @@ def phase_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
             f"phase kernel requires blk_dim in {_PHASE_BLOCKS} and span >= 1, "
             f"got blk_dim={blk_dim} span={span}"
         )
+    check_interior_tile(cur.shape, blk_dim, frame_height, frame_width,
+                        y_origin, x_origin)
     tile_h, tile_w = cur.shape
-    if (
-        tile_h % blk_dim or tile_w % blk_dim
-        or min(y_origin, x_origin) < 0
-        or y_origin + tile_h > frame_height
-        or x_origin + tile_w > frame_width
-    ):
-        raise ValueError(
-            f"phase_search covers whole in-frame blocks only: tile "
-            f"{tile_h}x{tile_w} at ({y_origin}, {x_origin}), blk_dim "
-            f"{blk_dim}, frame {frame_height}x{frame_width}"
-        )
     kw = dict(blk_dim=blk_dim, span=span, metric=metric,
               frame_height=frame_height, frame_width=frame_width,
               y_origin=y_origin, x_origin=x_origin)
@@ -192,15 +230,9 @@ def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
     port of `_kernel_int`). The tile must hold every in-frame pixel of its
     blocks; returns int32 (cost, idx), [cdiv(tile_h, blk), cdiv(tile_w, blk)]."""
     _check_operands(cur, ref_halo, span, metric)
+    check_edge_tile(cur.shape, blk_dim, frame_height, frame_width, y_origin,
+                    x_origin)
     tile_h, tile_w = cur.shape
-    if min(y_origin, x_origin) < 0 or (
-        tile_h % blk_dim and y_origin + tile_h < frame_height
-    ) or (tile_w % blk_dim and x_origin + tile_w < frame_width):
-        raise ValueError(
-            f"int_search tile {tile_h}x{tile_w} at ({y_origin}, {x_origin}) "
-            f"cuts blocks of side {blk_dim} inside the frame "
-            f"{frame_height}x{frame_width}"
-        )
     kw = dict(blk_dim=blk_dim, span=span, metric=metric,
               frame_height=frame_height, frame_width=frame_width,
               y_origin=y_origin, x_origin=x_origin)
@@ -218,16 +250,32 @@ def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
 int_search.launches = 0
 
 
+def bottom_slab(cur, ref_halo, blk_dim: int, span: int):
+    """(cur rows, halo rows, y_org): the views of a whole frame's last
+    block row, rows [y_org, H), and the reference halo it reaches."""
+    h, w = cur.shape
+    y_org = (geometry.cdiv(h, blk_dim) - 1) * blk_dim
+    return cur[y_org:], ref_halo[y_org : h + 2 * span, : w + 2 * span], y_org
+
+
+def right_slab(cur, ref_halo, blk_dim: int, span: int):
+    """(cur columns, halo columns, x_org): the views of a whole frame's last
+    block column, columns [x_org, W), and the reference halo it reaches."""
+    h, w = cur.shape
+    x_org = (geometry.cdiv(w, blk_dim) - 1) * blk_dim
+    return (cur[:, x_org:], ref_halo[: h + 2 * span, x_org : w + 2 * span],
+            x_org)
+
+
 def _edge_slab_bottom(cur, ref_halo, *, blk_dim: int, span: int, metric: str):
     """Exact search of the last (truncated) block row: `int_search` on the
     slab of rows [y_org, H) (the port of `_edge_slab_bottom`, :1953).
     Returns [1, nbx] block grids."""
+    cur_s, halo_s, y_org = bottom_slab(cur, ref_halo, blk_dim, span)
     h, w = cur.shape
-    y_org = (geometry.cdiv(h, blk_dim) - 1) * blk_dim
     return int_search(
-        cur[y_org:], ref_halo[y_org : h + 2 * span, : w + 2 * span],
-        blk_dim=blk_dim, span=span, metric=metric,
-        frame_height=h, frame_width=w, y_origin=y_org, x_origin=0,
+        cur_s, halo_s, blk_dim=blk_dim, span=span, metric=metric,
+        frame_height=h, frame_width=w, y_origin=y_org,
     )
 
 
@@ -235,16 +283,15 @@ def _edge_slab_right(cur, ref_halo, *, blk_dim: int, span: int, metric: str):
     """Exact search of the last (truncated) block column: `int_search` on
     the slab of columns [x_org, W) (the port of `_edge_slab_right`,
     :1985). Returns [nby, 1] block grids."""
+    cur_s, halo_s, x_org = right_slab(cur, ref_halo, blk_dim, span)
     h, w = cur.shape
-    x_org = (geometry.cdiv(w, blk_dim) - 1) * blk_dim
     return int_search(
-        cur[:, x_org:], ref_halo[: h + 2 * span, x_org : w + 2 * span],
-        blk_dim=blk_dim, span=span, metric=metric,
-        frame_height=h, frame_width=w, y_origin=0, x_origin=x_org,
+        cur_s, halo_s, blk_dim=blk_dim, span=span, metric=metric,
+        frame_height=h, frame_width=w, x_origin=x_org,
     )
 
 
-def _as_u8(frame: torch.Tensor) -> torch.Tensor:
+def as_u8(frame: torch.Tensor) -> torch.Tensor:
     """uint8 frames pass; other integer frames are cast after a range check
     (the kernels read bytes)."""
     if frame.dtype == torch.uint8:
@@ -254,6 +301,48 @@ def _as_u8(frame: torch.Tensor) -> torch.Tensor:
     if frame.numel() and (int(frame.min()) < 0 or int(frame.max()) > 255):
         raise ValueError("frame pixels must lie in [0, 255]")
     return frame.to(torch.uint8)
+
+
+def frame_operands(cur, ref, span: int, device: torch.device):
+    """(cur, ref_halo) uint8 tensors on `device` for a whole-frame search:
+    the current frame and the reference zero-padded by `span` all round."""
+    cur_t = as_u8(to_tensor(cur, device))
+    ref_t = as_u8(to_tensor(ref, device))
+    if cur_t.shape != ref_t.shape or cur_t.dim() != 2:
+        raise ValueError(
+            f"current and reference frames must be 2-D of identical shapes, "
+            f"got {tuple(cur_t.shape)} vs {tuple(ref_t.shape)}"
+        )
+    return cur_t, F.pad(ref_t, (span, span, span, span))
+
+
+def search_interior_and_edges(cur, ref_halo, interior, edge_bottom,
+                              edge_right, *, blk_dim: int, span: int, **kw):
+    """Two [nby, nbx] result grids of a whole frame: `interior` on its whole
+    blocks, then `edge_bottom` on the truncated last block row and
+    `edge_right` on the truncated last block column, which overwrites the
+    corner, as the JAX frame functions merge them
+    (full_search_pallas.py:1595-1608, ssim_pallas.py:661-676)."""
+    h, w = cur.shape
+    nby, nbx = geometry.grid_shape(h, w, blk_dim)
+    nyf, nxf = h // blk_dim, w // blk_dim
+    inner = interior(
+        cur[: nyf * blk_dim, : nxf * blk_dim], ref_halo, blk_dim=blk_dim,
+        span=span, frame_height=h, frame_width=w, **kw,
+    )
+    out = [torch.empty((nby, nbx), dtype=g.dtype, device=g.device)
+           for g in inner]
+    for o, g in zip(out, inner):
+        o[:nyf, :nxf] = g
+    if h % blk_dim:
+        for o, g in zip(out, edge_bottom(cur, ref_halo, blk_dim=blk_dim,
+                                         span=span, **kw)):
+            o[nby - 1, :] = g[0]
+    if w % blk_dim:
+        for o, g in zip(out, edge_right(cur, ref_halo, blk_dim=blk_dim,
+                                        span=span, **kw)):
+            o[:, nbx - 1] = g[:, 0]
+    return out
 
 
 def full_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
@@ -272,19 +361,15 @@ def full_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
     phase kernel does not apply (SAD, or MSE at blk > 16 outside {24, 32}).
     Configs the JAX package sends to its chunked MSE kernels K5-K7 (MSE at
     blk <= 16 or blk 24 outside the phase kernel) raise NotImplementedError.
+    metric="ssim" raises ValueError, as `full_search_frame_pallas` does:
+    SSIM lives in kernels/ssim_cuda.py.
     """
     dev = resolve_device(device)
     if metric == "ssim":
-        raise NotImplementedError(fs.SSIM_SLICE)
+        raise ValueError(_SSIM_ELSEWHERE)
     if metric not in _METRIC_CODE:
         raise ValueError(f"metric must be 'mse' or 'sad', got {metric!r}")
-    cur_t = _as_u8(to_tensor(cur, dev))
-    ref_t = _as_u8(to_tensor(ref, dev))
-    if cur_t.shape != ref_t.shape or cur_t.dim() != 2:
-        raise ValueError(
-            f"current and reference frames must be 2-D of identical shapes, "
-            f"got {tuple(cur_t.shape)} vs {tuple(ref_t.shape)}"
-        )
+    cur_t, ref_halo = frame_operands(cur, ref, span, dev)
     use_phase = phase_supported(blk_dim, span, metric)
     if not use_phase and metric == "mse":
         if blk_dim <= 16:
@@ -296,28 +381,12 @@ def full_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
 
     h, w = cur_t.shape
     nby, nbx = geometry.grid_shape(h, w, blk_dim)
-    ref_halo = F.pad(ref_t, (span, span, span, span))
     kw = dict(blk_dim=blk_dim, span=span, metric=metric)
     if use_phase:
-        nyf, nxf = h // blk_dim, w // blk_dim
-        cost = torch.empty((nby, nbx), dtype=torch.int32, device=dev)
-        idx = torch.empty((nby, nbx), dtype=torch.int32, device=dev)
-        c, i = phase_search(
-            cur_t[: nyf * blk_dim, : nxf * blk_dim], ref_halo,
-            frame_height=h, frame_width=w, **kw,
+        cost, idx = search_interior_and_edges(
+            cur_t, ref_halo, phase_search, _edge_slab_bottom,
+            _edge_slab_right, **kw,
         )
-        cost[:nyf, :nxf] = c
-        idx[:nyf, :nxf] = i
-        # Bottom row first, then the right column, which overwrites the
-        # corner (full_search_pallas.py:1595-1608).
-        if h % blk_dim:
-            c, i = _edge_slab_bottom(cur_t, ref_halo, **kw)
-            cost[nby - 1, :] = c[0]
-            idx[nby - 1, :] = i[0]
-        if w % blk_dim:
-            c, i = _edge_slab_right(cur_t, ref_halo, **kw)
-            cost[:, nbx - 1] = c[:, 0]
-            idx[:, nbx - 1] = i[:, 0]
     else:
         cost, idx = int_search(
             cur_t, ref_halo, frame_height=h, frame_width=w, **kw

@@ -1,0 +1,220 @@
+"""Fused SSIM full search on the CUDA kernels of csrc/ssim.cu.
+
+The PyTorch counterpart of `motionestimation_tpu.kernels.ssim_pallas` on
+the SSIM path:
+
+* `ssim_fast_search` launches `me_ssim_fast_search`, the port of the
+  Pallas kernel `_kernel_ssim_fast` (ssim_pallas.py:214): all full
+  interior blocks, blk <= 32, span >= 0.
+* `ssim_search` launches `me_ssim_search`, the port of `_kernel_ssim`
+  (:48): blocks with truncated extents, any blk.
+* `ssim_search_frame_cuda` (the port of `ssim_search_frame_pallas`, :560)
+  runs the interior, then the bottom and right edge slabs, merges them in
+  the same order and decodes MVs.
+
+Beside the two kernels stands their plain PyTorch version, `ssim_plain`,
+built on `search.full_search.make_displacement_cost(metric="ssim")` and
+`scan_argmax` over the same inputs and output layout. A wrapper takes the
+plain version only for tensors on the CPU; for CUDA tensors it launches
+its kernel or raises. Each wrapper counts its launches in its `launches`
+attribute. Kernels and plain version evaluate the score one IEEE float32
+operation at a time in the same order, so they agree bit for bit.
+
+Operands (both wrappers), as in kernels/full_search_cuda.py:
+  cur       uint8 [tile_h, tile_w], unit column stride; pixel (0, 0) is
+            global (y_origin, x_origin).
+  ref_halo  uint8, at least [tile_h + 2*span, tile_w + 2*span], unit
+            column stride; global reference pixel
+            (y_origin + r - span, x_origin + c - span) at [r, c], zero
+            outside the frame.
+Returns (float32 score, int32 flat index) block grids.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from motionestimation_tpu_torch.core import geometry
+from motionestimation_tpu_torch.core.device import resolve_device
+from motionestimation_tpu_torch.kernels import _build
+from motionestimation_tpu_torch.kernels import full_search_cuda as fsc
+from motionestimation_tpu_torch.search import full_search as fs
+
+FAST_MAX_BLK = 32
+_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssim")
+    for fn in (lib.me_ssim_fast_search, lib.me_ssim_search):
+        fn.argtypes = _SIGNATURE
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ssim_supported(blk_dim: int, span: int) -> bool:
+    """Whether the fast kernel serves a tile entry for this config (as
+    `ssim_supported`, ssim_pallas.py:682): blk <= 32 and span >= 1. The
+    whole-frame search also runs span 0 through it."""
+    return blk_dim <= FAST_MAX_BLK and span >= 1
+
+
+def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, frame_height,
+            frame_width, y_origin, x_origin):
+    """Run one of the two CUDA launchers on a CUDA tensor pair."""
+    fsc.check_kernel_operands(cur, ref_halo)
+    score = torch.empty((nby, nbx), dtype=torch.float32, device=cur.device)
+    idx = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
+    with torch.cuda.device(cur.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            cur.data_ptr(), ref_halo.data_ptr(),
+            score.data_ptr(), idx.data_ptr(),
+            cur.stride(0), ref_halo.stride(0), nbx, nby, nbx,
+            blk_dim, span, frame_height, frame_width, y_origin, x_origin,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{fn.__name__} failed with CUDA error {err} "
+            f"(blk_dim={blk_dim} span={span} grid={nby}x{nbx})"
+        )
+    return score, idx
+
+
+def ssim_plain(cur, ref_halo, *, blk_dim: int, span: int, frame_height: int,
+               frame_width: int, y_origin: int = 0, x_origin: int = 0):
+    """Plain PyTorch version of both kernels over the same operands.
+
+    Block grid cdiv(tile, blk_dim), truncated extents from the frame, the
+    raster scan with strict `>` from (0.0, centre). For the full in-frame
+    blocks `ssim_fast_search` accepts, the extents are full and this is
+    the fast kernel's arithmetic too.
+    """
+    fsc.check_operand_shapes(cur, ref_halo, span)
+    tile_h, tile_w = cur.shape
+    nby, nbx = geometry.grid_shape(tile_h, tile_w, blk_dim)
+    pad = (0, nbx * blk_dim - tile_w, 0, nby * blk_dim - tile_h)
+    cur_p = F.pad(cur.to(torch.int32), pad)
+    halo_p = F.pad(
+        ref_halo[: tile_h + 2 * span, : tile_w + 2 * span].to(torch.int32),
+        pad,
+    )
+    cost_fn = fs.make_displacement_cost(
+        cur_p, halo_p, y_origin, x_origin,
+        frame_height=frame_height, frame_width=frame_width,
+        blk_dim=blk_dim, span=span, metric="ssim",
+    )
+    return fs.scan_argmax(cost_fn, span, (nby, nbx), cur.device)
+
+
+def ssim_fast_search(cur, ref_halo, *, blk_dim: int, span: int,
+                     frame_height: int, frame_width: int, y_origin: int = 0,
+                     x_origin: int = 0):
+    """SSIM search of full interior blocks (`me_ssim_fast_search`, the port
+    of `_kernel_ssim_fast`). Every block of the tile must lie inside the
+    frame; returns (float32 score, int32 idx), [tile_h // blk, tile_w // blk]."""
+    fsc.check_operand_shapes(cur, ref_halo, span)
+    if not 1 <= blk_dim <= FAST_MAX_BLK or span < 0:
+        raise ValueError(
+            f"fast SSIM kernel requires 1 <= blk_dim <= {FAST_MAX_BLK} and "
+            f"span >= 0, got blk_dim={blk_dim} span={span}"
+        )
+    fsc.check_interior_tile(cur.shape, blk_dim, frame_height, frame_width,
+                            y_origin, x_origin)
+    kw = dict(blk_dim=blk_dim, span=span, frame_height=frame_height,
+              frame_width=frame_width, y_origin=y_origin, x_origin=x_origin)
+    if cur.device.type == "cpu":
+        return ssim_plain(cur, ref_halo, **kw)
+    nby, nbx = cur.shape[0] // blk_dim, cur.shape[1] // blk_dim
+    if nby == 0 or nbx == 0:
+        return _empty(nby, nbx, cur.device)
+    out = _launch(_lib().me_ssim_fast_search, cur, ref_halo, nby, nbx, **kw)
+    ssim_fast_search.launches += 1
+    return out
+
+
+ssim_fast_search.launches = 0
+
+
+def ssim_search(cur, ref_halo, *, blk_dim: int, span: int, frame_height: int,
+                frame_width: int, y_origin: int = 0, x_origin: int = 0):
+    """SSIM search with truncated block extents (`me_ssim_search`, the port
+    of `_kernel_ssim`). The tile must hold every in-frame pixel of its
+    blocks; returns (float32 score, int32 idx), [cdiv(tile_h, blk),
+    cdiv(tile_w, blk)]."""
+    fsc.check_operand_shapes(cur, ref_halo, span)
+    fsc.check_edge_tile(cur.shape, blk_dim, frame_height, frame_width,
+                        y_origin, x_origin)
+    kw = dict(blk_dim=blk_dim, span=span, frame_height=frame_height,
+              frame_width=frame_width, y_origin=y_origin, x_origin=x_origin)
+    if cur.device.type == "cpu":
+        return ssim_plain(cur, ref_halo, **kw)
+    nby, nbx = geometry.grid_shape(*cur.shape, blk_dim)
+    if nby == 0 or nbx == 0:
+        return _empty(nby, nbx, cur.device)
+    out = _launch(_lib().me_ssim_search, cur, ref_halo, nby, nbx, **kw)
+    ssim_search.launches += 1
+    return out
+
+
+ssim_search.launches = 0
+
+
+def _empty(nby, nbx, device):
+    return (torch.empty((nby, nbx), dtype=torch.float32, device=device),
+            torch.empty((nby, nbx), dtype=torch.int32, device=device))
+
+
+def _ssim_edge_bottom(cur, ref_halo, *, blk_dim: int, span: int):
+    """SSIM search of the last (truncated) block row: `ssim_search` on the
+    slab of rows [y_org, H) (the port of `_ssim_edge_bottom`, :958).
+    Returns [1, nbx] block grids."""
+    cur_s, halo_s, y_org = fsc.bottom_slab(cur, ref_halo, blk_dim, span)
+    h, w = cur.shape
+    return ssim_search(cur_s, halo_s, blk_dim=blk_dim, span=span,
+                       frame_height=h, frame_width=w, y_origin=y_org)
+
+
+def _ssim_edge_right(cur, ref_halo, *, blk_dim: int, span: int):
+    """SSIM search of the last (truncated) block column: `ssim_search` on
+    the slab of columns [x_org, W) (the port of `_ssim_edge_right`, :999).
+    Returns [nby, 1] block grids."""
+    cur_s, halo_s, x_org = fsc.right_slab(cur, ref_halo, blk_dim, span)
+    h, w = cur.shape
+    return ssim_search(cur_s, halo_s, blk_dim=blk_dim, span=span,
+                       frame_height=h, frame_width=w, x_origin=x_org)
+
+
+def ssim_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
+                           device=None) -> fs.MotionField:
+    """Whole-frame SSIM full search on the CUDA kernels.
+
+    cur/ref: [H, W] integer frames (numpy or torch), moved to `device`
+    (default "cuda"; "cpu" runs the plain versions). Returns a MotionField
+    in the golden SSIM layout: (mv_y, mv_x, flat index, float32 score).
+
+    Routing follows `_ssim_frame_jit` (ssim_pallas.py:602): for blk <= 32
+    the fast kernel on the interior (any span, 0 included), then the
+    truncated-extent kernel on the bottom row and then the right column,
+    which overwrites the corner (:661-676); for blk > 32 the
+    truncated-extent kernel over the whole frame.
+    """
+    cur_t, ref_halo = fsc.frame_operands(cur, ref, span, resolve_device(device))
+    kw = dict(blk_dim=blk_dim, span=span)
+    if blk_dim <= FAST_MAX_BLK:
+        score, idx = fsc.search_interior_and_edges(
+            cur_t, ref_halo, ssim_fast_search, _ssim_edge_bottom,
+            _ssim_edge_right, **kw,
+        )
+    else:
+        h, w = cur_t.shape
+        score, idx = ssim_search(
+            cur_t, ref_halo, frame_height=h, frame_width=w, **kw
+        )
+    mv_y, mv_x = geometry.mv_from_flat_index(idx, span)
+    return fs.MotionField(mv_y, mv_x, idx, score)

@@ -22,7 +22,7 @@ from motionestimation_tpu_torch.core.device import resolve_device, to_tensor
 from motionestimation_tpu_torch.kernels.full_search_cuda import (
     full_search_frame_cuda,
 )
-from motionestimation_tpu_torch.search import full_search as fs
+from motionestimation_tpu_torch.kernels.ssim_cuda import ssim_search_frame_cuda
 from motionestimation_tpu_torch.search.full_search import MotionField
 
 DIAMOND_SLICE = (
@@ -58,8 +58,6 @@ def check_supported(config: SearchConfig) -> None:
     """Raise NotImplementedError for what this slice of the port lacks."""
     if config.algorithm != "full":
         raise NotImplementedError(DIAMOND_SLICE)
-    if config.metric == "ssim":
-        raise NotImplementedError(fs.SSIM_SLICE)
 
 
 def _mark(device: torch.device):
@@ -90,6 +88,8 @@ def run_pair(
     h2d = both frames to the card; kernel = the search (and the int8 MV
     packing); d2h = the MV field back to the host. Compensation, PSNR and
     scores are untimed host post-processing. `device` defaults to "cuda".
+    MSE and SAD search on `full_search_frame_cuda`, SSIM on
+    `ssim_search_frame_cuda`.
     """
     check_supported(config)
     dev = resolve_device(device)
@@ -99,10 +99,16 @@ def run_pair(
         cur_d = to_tensor(cur, dev)
         ref_d = to_tensor(ref, dev)
         t1 = _mark(dev)
-        field = full_search_frame_cuda(
-            cur_d, ref_d, blk_dim=config.blk_dim, span=config.span,
-            metric=config.metric, device=dev,
-        )
+        if config.metric == "ssim":
+            field = ssim_search_frame_cuda(
+                cur_d, ref_d, blk_dim=config.blk_dim, span=config.span,
+                device=dev,
+            )
+        else:
+            field = full_search_frame_cuda(
+                cur_d, ref_d, blk_dim=config.blk_dim, span=config.span,
+                metric=config.metric, device=dev,
+            )
         mv_dtype = torch.int8 if config.span <= 127 else torch.int32
         mv_d = torch.stack([field.mv_y, field.mv_x]).to(mv_dtype)
         t2 = _mark(dev)

@@ -2,14 +2,16 @@
 
 For each of the (2·span+1)² candidate displacements the reference frame is
 slid under the current frame and the masked per-pixel cost is block-reduced,
-carrying a running (best_cost, best_flat_index) argmin. Raster iteration
-order over the flat displacement index plus strict-inequality updates
-reproduce the reference's first-in-raster-order-wins tie rule exactly.
+carrying a running (best_cost, best_flat_index) argmin — or, for SSIM, a
+running (best_score, best_flat_index) argmax. Raster iteration order over
+the flat displacement index plus strict-inequality updates reproduce the
+reference's first-in-raster-order-wins tie rule exactly.
 
 The tile-level function takes a global origin, so a later sharded path can
 call it per shard with the same arithmetic as the single-card call. This
 module is also the plain version every CUDA kernel of the search is held
-against (kernels/full_search_cuda.py builds on `make_displacement_cost`).
+against (kernels/full_search_cuda.py and kernels/ssim_cuda.py build on
+`make_displacement_cost`).
 It runs wherever its input tensors lie.
 """
 from __future__ import annotations
@@ -23,18 +25,14 @@ from motionestimation_tpu_torch.core import geometry
 from motionestimation_tpu_torch.core.device import to_tensor
 from motionestimation_tpu_torch.metrics import cost as cost_lib
 
-SSIM_SLICE = (
-    "metric='ssim' is not ported yet; it arrives with the SSIM slice "
-    "(ROADMAP.md, Queue 1 item 6: SSIM, kernels K3 and K4)"
-)
-
-
 class MotionField(NamedTuple):
     """Per-block search result, tensors of shape [nby, nbx].
 
     mv_y / mv_x: int32 displacement, candidate_topleft − block_topleft.
-    best_cost_i32: exact integer SSD (MSE search) or SAD (SAD search).
-    score: float32 MSE (SSD / (w·h)) or MAD (SAD / (w·h)).
+    best_cost_i32: exact integer SSD (MSE search) or SAD (SAD search); for
+      SSIM, the winner's flat raster index (the search maximises a float
+      score, so there is no integer cost).
+    score: float32 MSE (SSD / (w·h)), MAD (SAD / (w·h)) or SSIM score.
     """
 
     mv_y: torch.Tensor
@@ -64,9 +62,7 @@ def _tile_masks(tile_h, tile_w, y0, x0, frame_height, frame_width, device):
 
 
 def _check_metric(metric: str) -> None:
-    if metric == "ssim":
-        raise NotImplementedError(SSIM_SLICE)
-    if metric not in ("mse", "sad"):
+    if metric not in ("mse", "sad", "ssim"):
         raise ValueError(f"unknown metric {metric!r}")
 
 
@@ -85,9 +81,11 @@ def make_displacement_cost(
     """Closure computing the per-block cost plane of one displacement.
 
     The returned `displacement_cost(idx)` maps a flat raster displacement
-    index (idx = (d_y + span)*K + (d_x + span)) to the [nby, nbx] int32
-    per-block cost: truncated-extent masking, window-clamp validity, and
-    INT32_MAX for invalid (block, displacement) pairs.
+    index (idx = (d_y + span)*K + (d_x + span)) to the [nby, nbx] per-block
+    cost: truncated-extent masking, window-clamp validity, and INT32_MAX
+    (int32 SSD/SAD) or -inf (float32 SSIM score) for invalid (block,
+    displacement) pairs. For SSIM the reference window is masked by the
+    current block's in-frame pixels before its sums are taken.
 
     cur_tile: [Th, Tw] with Th, Tw multiples of blk_dim, global origin
     (y0, x0); ref_halo: [Th + 2*span, Tw + 2*span], global ref pixel
@@ -106,6 +104,12 @@ def make_displacement_cost(
     pix_mask = _tile_masks(
         tile_h, tile_w, y0, x0, frame_height, frame_width, device
     )
+    if metric == "ssim":
+        # Current-block sums do not depend on the displacement.
+        cur_m = cur_tile * pix_mask
+        sum_cur = cost_lib.block_reduce(cur_m, blk_dim)
+        sum_sq_cur = cost_lib.block_reduce(cur_m * cur_m, blk_dim)
+        count = blk_h * blk_w
 
     def displacement_cost(idx: int) -> torch.Tensor:
         d_y = idx // k - span
@@ -116,6 +120,16 @@ def make_displacement_cost(
         valid = geometry.displacement_valid(
             d_y, d_x, tl_y, tl_x, blk_h, blk_w, frame_height, frame_width
         )
+        if metric == "ssim":
+            win_m = win * pix_mask
+            score = cost_lib.ssim_from_sums(
+                cost_lib.block_reduce(win_m, blk_dim),
+                cost_lib.block_reduce(win_m * win_m, blk_dim),
+                sum_cur, sum_sq_cur,
+                cost_lib.block_reduce(win_m * cur_m, blk_dim),
+                count,
+            )
+            return score.masked_fill(~valid, float("-inf"))
         diff = (cur_tile - win) * pix_mask
         per_px = diff.abs() if metric == "sad" else diff * diff
         return cost_lib.block_reduce(per_px, blk_dim).masked_fill(
@@ -137,6 +151,24 @@ def scan_argmin(displacement_cost, span: int, shape, device):
     for i in range(k * k):
         cand = displacement_cost(i)
         take = cand < best  # strict < keeps the earliest candidate
+        best = torch.where(take, cand, best)
+        best_idx = best_idx.masked_fill(take, i)
+    return best, best_idx
+
+
+def scan_argmax(displacement_cost, span: int, shape, device):
+    """Raster scan over all K² displacements with strict `>` (SSIM).
+
+    Starts from (0.0, centre index): a block where no candidate scores
+    above 0 keeps MV (0, 0), where the reference would read uninitialised
+    memory. Returns (float32 best_score, int32 best_idx).
+    """
+    k = 2 * span + 1
+    best = torch.zeros(shape, dtype=torch.float32, device=device)
+    best_idx = torch.full(shape, span * k + span, dtype=torch.int32, device=device)
+    for i in range(k * k):
+        cand = displacement_cost(i)
+        take = cand > best  # strict > keeps the earliest candidate
         best = torch.where(take, cand, best)
         best_idx = best_idx.masked_fill(take, i)
     return best, best_idx
@@ -175,6 +207,12 @@ def full_search_tile(
         frame_height=frame_height, frame_width=frame_width,
         blk_dim=blk_dim, span=span, metric=metric,
     )
+    if metric == "ssim":
+        score, best_idx = scan_argmax(
+            displacement_cost, span, (nby, nbx), cur_tile.device
+        )
+        mv_y, mv_x = geometry.mv_from_flat_index(best_idx, span)
+        return MotionField(mv_y, mv_x, best_idx, score)
     best, best_idx = scan_argmin(
         displacement_cost, span, (nby, nbx), cur_tile.device
     )

@@ -110,9 +110,16 @@ def test_tile_with_origin_matches_jax(metric):
 
 
 def test_golden_ssim_names_its_slice():
-    cur = np.zeros((16, 16), np.uint8)
-    with pytest.raises(NotImplementedError, match="SSIM"):
-        tfs.full_search_frame(
-            torch.from_numpy(cur), torch.from_numpy(cur), blk_dim=8, span=2,
-            metric="ssim",
+    """The golden SSIM search, once a raise naming its slice, equals JAX's
+    on Foreman 16x16 +-7: MVs, flat indices and float32 scores within 1e-6
+    (jitted XLA fuses the score arithmetic; the port rounds each step)."""
+    case = FixtureCase("foreman_ssim_16_7")
+    cur, ref = fixture_frames(case)
+    jf, tf = _search_both(cur, ref, case.blk_dim, case.span, "ssim")
+    for name in ("mv_y", "mv_x", "best_cost_i32"):
+        np.testing.assert_array_equal(
+            getattr(tf, name).numpy(), np.asarray(getattr(jf, name)),
+            err_msg=name,
         )
+    np.testing.assert_allclose(tf.score.numpy(), np.asarray(jf.score),
+                               rtol=0, atol=1e-6)

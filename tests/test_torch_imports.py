@@ -44,6 +44,7 @@ def test_port_file_imports_no_jax(path):
 def test_scan_covers_the_port():
     files = _port_files()
     assert "chip_smoke.py" in files
-    assert os.path.join("motionestimation_tpu_torch", "kernels",
-                        "full_search_cuda.py") in files
-    assert len(files) >= 15
+    for name in ("full_search_cuda.py", "ssim_cuda.py"):
+        assert os.path.join("motionestimation_tpu_torch", "kernels",
+                            name) in files
+    assert len(files) >= 16

@@ -146,7 +146,7 @@ def test_chunked_mse_routes_raise(blk, span, kernel):
 
 def test_frame_inputs_are_checked():
     cur, ref = random_pair(2, 32, 32)
-    with pytest.raises(NotImplementedError, match="SSIM"):
+    with pytest.raises(ValueError, match="ssim_cuda"):
         kc.full_search_frame_cuda(
             cur, ref, blk_dim=8, span=4, metric="ssim", device="cpu"
         )
