@@ -16,16 +16,26 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 3. The main paths at full size, each with every launch count set to 0
    just before it and read just after: `cli.main --device cuda` at
    3840x2160 8x8 +-12 and 1920x1080 16x16 +-15 (MSE), then with
-   `--metric ssim` at 3840x2160 16x16 +-7 and 1920x1080 16x16 +-15, on
-   frames made from --seed. Each stacked output is checked against one
-   built from the plain golden search on the card.
+   `--metric ssim` at 3840x2160 16x16 +-7 and 1920x1080 16x16 +-15, then
+   (MSE) at 3840x2160 7x7 +-15 (the chunked kernel, the int kernel on both
+   slabs) and 1920x1080 24x24 +-15 (the wide kernel), on frames made from
+   --seed. Each stacked output is checked against one built from the plain
+   golden search on the card. Then `full_search_frame_cuda(phase=False,
+   operand_bf16=True)` at 3840x2160 8x8 +-12 (the packed-byte chunked
+   kernel), every field equal to the golden search's, and the volume path:
+   `full_search_volume_cuda` at 1920x1080 16x16 +-15 (MSE and SAD) and 7x7
+   +-7 (MSE), entry for entry equal to the golden volume.
 4. Each kernel against its plain PyTorch version on the card at full size
-   (tolerance: exact equality of every int32 cost and index, and of every
-   float32 SSIM score: kernel and plain version round each step alike).
+   (tolerance: exact equality of every int32 cost, index and volume entry,
+   and of every float32 SSIM score: kernel and plain version round each
+   step alike).
 5. Timing with CUDA events: `run_pair` (median of --runs runs after
-   warm-up) at 4K 8x8 +-12, 1080p 16x16 +-15 and 4K 16x16 +-15 (MSE) and
-   4K 16x16 +-7, 1080p 16x16 +-15 and 4K 32x32 +-7 (SSIM), and each
-   kernel's own time beside its plain version's.
+   warm-up) at 4K 8x8 +-12, 1080p 16x16 +-15, 4K 16x16 +-15, 4K 7x7 +-15
+   and 1080p 24x24 +-15 (MSE) and 4K 16x16 +-7, 1080p 16x16 +-15 and 4K
+   32x32 +-7 (SSIM), and each kernel's own time beside its plain
+   version's; the phase, chunked and packed-byte chunked kernels in turns
+   on the same 4K 8x8 +-12 work; the volume entry and the phase kernel's
+   emit mode at 1080p 16x16 +-15.
 6. One JSON line listing the kernels, the nvidia-smi name/power-limit line,
    and as the last line {"ok": true, "device": {...}}.
 
@@ -55,12 +65,20 @@ SOURCE = {
     "me_int_search": CSRC + "full_search.cu",
     "me_ssim_fast_search": CSRC + "ssim.cu",
     "me_ssim_search": CSRC + "ssim.cu",
+    "me_chunked_search": CSRC + "chunked.cu",
+    "me_chunked_u8_search": CSRC + "chunked.cu",
+    "me_wide_search": CSRC + "chunked.cu",
 }
 REPLACES = {
     "me_phase_search": "motionestimation_tpu/kernels/full_search_pallas.py:729",
     "me_int_search": "motionestimation_tpu/kernels/full_search_pallas.py:1076",
     "me_ssim_fast_search": "motionestimation_tpu/kernels/ssim_pallas.py:214",
     "me_ssim_search": "motionestimation_tpu/kernels/ssim_pallas.py:48",
+    "me_chunked_search":
+        "motionestimation_tpu/kernels/full_search_pallas.py:131",
+    "me_chunked_u8_search":
+        "motionestimation_tpu/kernels/full_search_pallas.py:348",
+    "me_wide_search": "motionestimation_tpu/kernels/full_search_pallas.py:471",
 }
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 ops/s, and
 # float32 outside the tensor cores.
@@ -77,6 +95,21 @@ CONFIGS = [
     ("4K 8x8 +-12", 2160, 3840, 8, 12),
     ("1080p 16x16 +-15", 1080, 1920, 16, 15),
     ("4K 16x16 +-15", 2160, 3840, 16, 15),
+    # The reference's Jockey run (BASELINE.md): the chunked kernel on the
+    # interior, the int kernel on the 4-row and 4-column slabs.
+    ("4K 7x7 +-15", 2160, 3840, 7, 15),
+    ("1080p 24x24 +-15", 1080, 1920, 24, 15),  # the wide kernel, no slab
+]
+CHUNKED_CONFIGS = CONFIGS[3:]
+# The JAX package's own A/B config of its half-width-operand kernel
+# (tools/kern_bench.py): phase=False, operand_bf16=True.
+U8_CONFIG = ("4K 8x8 +-12", 2160, 3840, 8, 12)
+# (label, height, width, blk, span, metric): the diamond cells' config
+# (bench/matrix.py), and the chunked kernel's emit with both edge slabs.
+VOLUME_CONFIGS = [
+    ("1080p 16x16 +-15 mse", 1080, 1920, 16, 15, "mse"),
+    ("1080p 16x16 +-15 sad", 1080, 1920, 16, 15, "sad"),
+    ("1080p 7x7 +-7 mse", 1080, 1920, 7, 7, "mse"),
 ]
 SSIM_CONFIGS = [
     ("4K 16x16 +-7 ssim", 2160, 3840, 16, 7),
@@ -151,14 +184,17 @@ def valid_candidates(h, w, blk, span, tile, origin):
             int(ny.sum()) * int(nx.sum()))
 
 
-def bound(h, w, blk, span, tile, origin, ssim=False):
+def bound(h, w, blk, span, tile, origin, ssim=False, volume=False):
     """(bound_ms, bound_by): the largest of bytes read once / written once
-    over the HBM rate, 2 integer ops (subtract or product, accumulate) per
-    pixel-candidate over the int8 peak and, for SSIM, SSIM_FLOPS per
-    block-candidate over the float32 rate."""
+    (with `volume`, the int32 [K², nby, nbx] volume too) over the HBM rate,
+    2 integer ops (subtract or product, accumulate) per pixel-candidate
+    over the int8 peak and, for SSIM, SSIM_FLOPS per block-candidate over
+    the float32 rate."""
     th, tw = tile
     nby, nbx = -(-th // blk), -(-tw // blk)
     nbytes = th * tw + (th + 2 * span) * (tw + 2 * span) + 2 * 4 * nby * nbx
+    if volume:
+        nbytes += 4 * (2 * span + 1) ** 2 * nby * nbx
     pixel_cands, block_cands = valid_candidates(h, w, blk, span, tile, origin)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = max(2 * pixel_cands / INT8_OPS_S * 1e3,
@@ -220,7 +256,10 @@ def main(argv=None) -> int:
     counters = {"me_phase_search": kc.phase_search,
                 "me_int_search": kc.int_search,
                 "me_ssim_fast_search": sc.ssim_fast_search,
-                "me_ssim_search": sc.ssim_search}
+                "me_ssim_search": sc.ssim_search,
+                "me_chunked_search": kc.chunked_search,
+                "me_chunked_u8_search": kc.chunked_u8_search,
+                "me_wide_search": kc.wide_search}
     mse_kernels = ("me_phase_search", "me_int_search")
     ssim_kernels = ("me_ssim_fast_search", "me_ssim_search")
 
@@ -251,6 +290,21 @@ def main(argv=None) -> int:
         with open(os.path.join(d, "stdout.txt")) as f:
             stdout = f.read()
         return meta, golden, cur_path, ref_path, stdout
+
+    max_err = dict.fromkeys(counters, 0.0)
+
+    def compare(kernel_names, got, want, what):
+        err = max(float((a.double() - b.double()).abs().max())
+                  if a.numel() else 0.0 for a, b in zip(got, want))
+        for name in kernel_names:
+            max_err[name] = max(max_err[name], err)
+        print(f"{what}: max |kernel - plain| = {err}")
+        if err or any(a.dtype != b.dtype for a, b in zip(got, want)):
+            fail(f"{what}: kernel disagrees with its plain version")
+
+    def golden_search(cur, ref, **kw):
+        return fs.full_search_frame(torch.from_numpy(cur).to(dev),
+                                    torch.from_numpy(ref).to(dev), **kw)
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
         # -- 2. byte-exact CLI runs against the C reference's outputs ------
@@ -302,50 +356,81 @@ def main(argv=None) -> int:
 
         # -- 3. the main paths at full size, counted -----------------------
         pairs = {}
-        for label, h, w, blk, span in CONFIGS[:2] + SSIM_CONFIGS[:2]:
+        for label, h, w, blk, span in CONFIGS + SSIM_CONFIGS[:2]:
             if (h, w) not in pairs:
                 pairs[h, w] = synthetic_pair(h, w, args.seed)
                 pairs[h, w][0].tofile(os.path.join(work, f"cur_{h}.yuv"))
                 pairs[h, w][1].tofile(os.path.join(work, f"ref_{h}.yuv"))
+        # Each kernel's launches from the first main path that runs it.
         main_launches = {}
-        for metric, configs, names in (("mse", CONFIGS[:2], mse_kernels),
-                                       ("ssim", SSIM_CONFIGS[:2], ssim_kernels)):
-            print(f"== main path ({metric}): cli.main --device cuda at full "
+        for path, metric, configs, names in (
+            ("mse", "mse", CONFIGS[:2], mse_kernels),
+            ("ssim", "ssim", SSIM_CONFIGS[:2], ssim_kernels),
+            ("chunked mse", "mse", CHUNKED_CONFIGS[:1],
+             ("me_chunked_search", "me_int_search")),
+            ("wide mse", "mse", CHUNKED_CONFIGS[1:], ("me_wide_search",)),
+        ):
+            print(f"== main path ({path}): cli.main --device cuda at full "
                   f"size")
+            out_dir = os.path.join(work, "main_" + path.replace(" ", "_"))
             reset_counts()
             for label, h, w, blk, span in configs:
                 run_cli(cli, [
                     os.path.join(work, f"cur_{h}.yuv"),
                     os.path.join(work, f"ref_{h}.yuv"),
-                    os.path.join(work, f"main_{metric}_{h}"), str(blk),
-                    str(span), str(w), str(h), "--device", "cuda",
-                    "--metric", metric, "--timing-row",
+                    f"{out_dir}_{h}", str(blk), str(span), str(w), str(h),
+                    "--device", "cuda", "--metric", metric, "--timing-row",
                 ])
-            main_launches.update(read_counts(names, f"main path ({metric})"))
+            for name, n in read_counts(names, f"main path ({path})").items():
+                main_launches.setdefault(name, n)
             for label, h, w, blk, span in configs:
                 cur, ref = pairs[h, w]
-                gold = fs.full_search_frame(
-                    torch.from_numpy(cur).to(dev), torch.from_numpy(ref).to(dev),
-                    blk_dim=blk, span=span, metric=metric,
-                )
-                comp = check_stack(os.path.join(work, f"main_{metric}_{h}"),
-                                   cur, ref, gold, blk, span, label,
-                                   frames_lib)
+                gold = golden_search(cur, ref, blk_dim=blk, span=span,
+                                     metric=metric)
+                comp = check_stack(f"{out_dir}_{h}", cur, ref, gold, blk,
+                                   span, label, frames_lib)
                 print(f"{label}: stack equals the plain golden search's, "
                       f"PSNR {frames_lib.image_psnr(comp, cur):.6f}")
 
+    label, h, w, blk, span = U8_CONFIG
+    print(f"== main path (packed-byte chunked mse): full_search_frame_cuda "
+          f"at {label}, phase=False, operand_bf16=True")
+    cur, ref = pairs[h, w]
+    reset_counts()
+    got = kc.full_search_frame_cuda(cur, ref, blk_dim=blk, span=span,
+                                    phase=False, operand_bf16=True,
+                                    device=dev)
+    main_launches.update(read_counts(("me_chunked_u8_search",),
+                                     "main path (u8)"))
+    compare(["me_chunked_u8_search"], got,
+            golden_search(cur, ref, blk_dim=blk, span=span),
+            f"full_search_frame_cuda {w}x{h} {blk}x{blk} +-{span} "
+            f"operand_bf16, every field vs the golden search")
+
+    print("== volume path: full_search_volume_cuda vs the golden volume, "
+          "entry for entry")
+    reset_counts()
+    volumes = [kc.full_search_volume_cuda(*pairs[h, w], blk_dim=blk,
+                                          span=span, metric=metric,
+                                          device=dev)
+               for _, h, w, blk, span, metric in VOLUME_CONFIGS]
+    read_counts(("me_phase_search", "me_chunked_search"), "volume path")
+    for (label, h, w, blk, span, metric), got in zip(VOLUME_CONFIGS,
+                                                      volumes):
+        _, want = golden_search(*pairs[h, w], blk_dim=blk, span=span,
+                                metric=metric, return_cost_volume=True)
+        interior = ("me_phase_search"
+                    if kc.phase_supported(blk, span, metric)
+                    else "me_chunked_search")
+        invalid = int((want == 2**31 - 1).sum())
+        compare([interior], [got], [want],
+                f"full_search_volume_cuda {label} {tuple(got.shape)} "
+                f"({got.numel() * 4 / 1e6:.1f} MB, {invalid} INT32_MAX "
+                f"entries)")
+    del volumes, want
+
     # -- 4. each kernel against its plain version on the card -------------
     print("== kernels vs their plain versions on the card (exact)")
-    max_err = dict.fromkeys(counters, 0.0)
-
-    def compare(kernel_names, got, want, what):
-        err = max(float((a.double() - b.double()).abs().max())
-                  if a.numel() else 0.0 for a, b in zip(got, want))
-        for name in kernel_names:
-            max_err[name] = max(max_err[name], err)
-        print(f"{what}: max |kernel - plain| = {err}")
-        if err or any(a.dtype != b.dtype for a, b in zip(got, want)):
-            fail(f"{what}: kernel disagrees with its plain version")
 
     def operands(h, w, span, seed):
         cur, ref = synthetic_pair(h, w, seed)
@@ -455,6 +540,47 @@ def main(argv=None) -> int:
             f"ssim_search_frame_cuda {w}x{h} {blk}x{blk} +-{span} (fast "
             f"interior + bottom slab of {h % blk} rows)")
 
+    def interior_check(fn, name, h, w, blk, span, seed, what="",
+                       **extra):
+        """fn on the whole blocks of a (h, w) frame vs search_plain;
+        returns (operands, kwargs, bound geometry)."""
+        cur_t, halo = operands(h, w, span, seed)
+        tile = (cur_t[: h // blk * blk, : w // blk * blk], halo)
+        kw = dict(blk_dim=blk, span=span, metric="mse", frame_height=h,
+                  frame_width=w, **extra)
+        compare([name], fn(*tile, **kw), kc.search_plain(*tile, **kw),
+                f"{name} {w}x{h} {blk}x{blk} +-{span}{what}")
+        return tile, kw, (h, w, blk, span, tile[0].shape, (0, 0))
+
+    # The chunked kernel: the Jockey config, and span 0 (the centre only).
+    for h, w, blk, span in ((2160, 3840, 8, 0), (2160, 3840, 7, 15)):
+        tile, kw, geo = interior_check(kc.chunked_search,
+                                       "me_chunked_search", h, w, blk, span,
+                                       args.seed)
+    shapes["me_chunked_search"] = (kc.chunked_search, kc.search_plain, tile,
+                                   kw, geo)
+    # The packed-byte chunked kernel: 7 pixels a row masks the tail word.
+    for h, w, blk, span in ((2160, 3840, 7, 15), (2160, 3840, 8, 12)):
+        tile, kw, geo = interior_check(kc.chunked_u8_search,
+                                       "me_chunked_u8_search", h, w, blk,
+                                       span, args.seed)
+    shapes["me_chunked_u8_search"] = (kc.chunked_u8_search, kc.search_plain,
+                                      tile, kw, geo)
+    # The wide kernel, up to its largest window (blk 32 +-31).
+    for h, w, blk, span in ((1080, 1920, 32, 31), (2160, 3840, 32, 15),
+                            (1080, 1920, 24, 15)):
+        tile, kw, geo = interior_check(kc.wide_search, "me_wide_search", h,
+                                       w, blk, span, args.seed)
+    shapes["me_wide_search"] = (kc.wide_search, kc.search_plain, tile, kw,
+                                geo)
+    # The emit modes: cost, index and every volume entry.
+    for fn, name, h, w, blk, span in (
+        (kc.phase_search, "me_phase_search", 1080, 1920, 16, 15),
+        (kc.chunked_search, "me_chunked_search", 1080, 1920, 7, 7),
+    ):
+        interior_check(fn, name, h, w, blk, span, args.seed,
+                       " with its volume", return_volume=True)
+
     # -- 5. timing -------------------------------------------------------
     print(f"== timing ({card}), median of {args.runs} runs after warm-up")
     for metric, configs in (("mse", CONFIGS), ("ssim", SSIM_CONFIGS)):
@@ -486,7 +612,8 @@ def main(argv=None) -> int:
             kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
             if metric == "mse":
                 kw["metric"] = "mse"
-                fast, edge, plain = kc.phase_search, kc.int_search, kc.search_plain
+                fast = kc.interior_search(blk, span, metric)
+                edge, plain = kc.int_search, kc.search_plain
             else:
                 fast, edge, plain = (sc.ssim_fast_search, sc.ssim_search,
                                      sc.ssim_plain)
@@ -502,6 +629,53 @@ def main(argv=None) -> int:
                 line += (f" | {edge.__name__} {s_ms:.4f} ms (plain "
                          f"{sp_ms:.2f} ms)")
             print(line + f" | {card}")
+
+    label, h, w, blk, span = U8_CONFIG
+    print(f"== the phase, chunked and packed-byte chunked kernels on the same "
+          f"work ({label} interior), in turns, 20 launches each ({card})")
+    cur_t, halo = operands(h, w, span, args.seed)
+    kw = dict(blk_dim=blk, span=span, metric="mse", frame_height=h,
+              frame_width=w)
+    trio = (kc.phase_search, kc.chunked_search, kc.chunked_u8_search)
+    times = {fn.__name__: [] for fn in trio}
+    for fn in trio:
+        fn(cur_t, halo, **kw)  # warm-up: loads the instance
+    for fn in trio + trio[::-1]:
+        times[fn.__name__].append(cuda_ms(lambda: fn(cur_t, halo, **kw), 20))
+    geo = (h, w, blk, span, (h, w), (0, 0))
+    pixel_cands, _ = valid_candidates(*geo)
+    for name, ts in times.items():
+        ms = statistics.mean(ts)
+        print(f"  {name} {ms:.4f} ms (runs {[round(t, 4) for t in ts]}), "
+              f"{pixel_cands / ms / 1e9:.2f} T pixel-candidates/s | "
+              f"bound {bound(*geo)[0]:.6f} ms | {card}")
+
+    label, h, w, blk, span, metric = VOLUME_CONFIGS[0]
+    print(f"== the volume at {label} ({card})")
+    cur_d, ref_d = (torch.from_numpy(a).to(dev) for a in pairs[h, w])
+    vkw = dict(blk_dim=blk, span=span, metric=metric, device=dev)
+    kc.full_search_volume_cuda(cur_d, ref_d, **vkw)
+    entry_ms = [cuda_ms(lambda: kc.full_search_volume_cuda(cur_d, ref_d,
+                                                           **vkw), 1)
+                for _ in range(5)]
+    cur_t, halo = operands(h, w, span, args.seed)
+    tile = cur_t[: h // blk * blk, : w // blk * blk]
+    kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
+              frame_width=w)
+    search_ms = cuda_ms(lambda: kc.phase_search(tile, halo, **kw), 20)
+    emit_ms = cuda_ms(lambda: kc.phase_search(tile, halo, return_volume=True,
+                                              **kw), 20)
+    emit_plain_ms = cuda_ms(lambda: kc.search_plain(tile, halo,
+                                                    return_volume=True, **kw),
+                            1)
+    geo = (h, w, blk, span, tile.shape, (0, 0))
+    emit_bound, emit_by = bound(*geo, volume=True)
+    volume_mb = (2 * span + 1) ** 2 * tile.numel() // blk ** 2 * 4 / 1e6
+    print(f"  full_search_volume_cuda median {statistics.median(entry_ms):.4f}"
+          f" ms (runs {[round(t, 4) for t in entry_ms]}) | me_phase_search "
+          f"emit {emit_ms:.4f} ms (without the volume {search_ms:.4f} ms; "
+          f"plain {emit_plain_ms:.2f} ms; bound {emit_bound:.6f} ms, "
+          f"{emit_by}, {volume_mb:.1f} MB written) | {card}")
 
     # -- 6. the kernels line ----------------------------------------------
     kernels = []

@@ -7,11 +7,12 @@ Stdout mirrors the reference binaries: the config echo block, then for
 MSE/SAD `PSNR: %.6f`, the output dimensions, `Computation time: %.0f ms`
 and `PSNR: %.0f `; for `--metric ssim` `Original Score: %.4f, Compensated
 Score: %.4f` and the output dimensions. `--timing-row` adds
-`total h2d kernel d2h psnr`. The run uses the CUDA card unless
-`--device cpu` is given; without CUDA the default raises. Options of the
-JAX command line that later slices of the port bring (`--algorithm diamond`,
-`--gop`, `--debug-block`, `--profile`) raise NotImplementedError naming
-their ROADMAP.md item.
+`total h2d kernel d2h psnr`. `--debug-block BY BX` prints one block's
+cost surface and winner as `[debug]` lines, from the golden search's cost
+volume. The run uses the CUDA card unless `--device cpu` is given; without
+CUDA the default raises. Options of the JAX command line that later slices
+of the port bring (`--algorithm diamond`, `--gop`, `--profile`) raise
+NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -20,15 +21,12 @@ import sys
 
 from motionestimation_tpu_torch.core import frames as frames_lib
 from motionestimation_tpu_torch.core.config import SearchConfig
-from motionestimation_tpu_torch.core.device import resolve_device
+from motionestimation_tpu_torch.core.device import resolve_device, to_tensor
 from motionestimation_tpu_torch.pipeline import runner
+from motionestimation_tpu_torch.search import full_search as fs
 
 _LATER = {
     "gop": "--gop arrives with ROADMAP.md Queue 1 item 8 (GOP pipeline)",
-    "debug_block": (
-        "--debug-block needs the cost volume, which arrives with ROADMAP.md "
-        "Queue 1 item 6 (cost volumes and K5-K7)"
-    ),
     "profile": (
         "--profile arrives with ROADMAP.md Queue 1 item 10 (main-path bench "
         "and tracing)"
@@ -61,6 +59,29 @@ def build_parser() -> argparse.ArgumentParser:
         "--debug-block", nargs=2, type=int, metavar=("BY", "BX"), default=None
     )
     return p
+
+
+def _print_debug_block(cur, ref, config: SearchConfig, by: int, bx: int,
+                       device):
+    """Dump the probe block's full cost surface and winner, from the golden
+    search's cost volume on `device` (the JAX CLI's `_print_debug_block`,
+    after the reference's -DDEBUG probe printfs)."""
+    field, volume = fs.full_search_frame(
+        to_tensor(cur, device), to_tensor(ref, device),
+        blk_dim=config.blk_dim, span=config.span, metric=config.metric,
+        return_cost_volume=True,
+    )
+    k = 2 * config.span + 1
+    surface = volume[:, by, bx].reshape(k, k).cpu().numpy()
+    print(f"[debug] block ({by},{bx}) cost surface ({config.metric}):")
+    for dy in range(k):
+        row = " ".join(f"{surface[dy, dx]:10.2f}" for dx in range(k))
+        print(f"[debug]   dy={dy - config.span:+3d}: {row}")
+    print(
+        f"[debug] best mv=({int(field.mv_y[by, bx])},"
+        f"{int(field.mv_x[by, bx])}) "
+        f"score={float(field.score[by, bx]):.6f}"
+    )
 
 
 def main(argv=None) -> int:
@@ -96,6 +117,8 @@ def main(argv=None) -> int:
         args.reference, config.frame_height, config.frame_width
     )
     res = runner.run_pair(cur, ref, config, device=device)
+    if args.debug_block:
+        _print_debug_block(cur, ref, config, *args.debug_block, device)
 
     ssim = config.metric == "ssim"
     if ssim:

@@ -4,7 +4,8 @@
 //
 // me_phase_search — replaces the Pallas kernel `_kernel_phase`
 //   (motionestimation_tpu/kernels/full_search_pallas.py:729, launched by
-//   `_run_phase` :953). Full interior blocks, blk in {1, 2, 4, 8, 16, 32}.
+//   `_run_phase` :953). Full interior blocks, blk in {1, 2, 4, 8, 16, 32},
+//   with an optional cost volume (its `emit_volume` mode, :872-888).
 // me_int_search — replaces the Pallas kernel `_kernel_int`
 //   (full_search_pallas.py:1076, launched by `_run_int` :1178). Any blk,
 //   truncated block extents (the last block row / column of a frame, or
@@ -17,6 +18,8 @@
 //         global reference pixel (y_origin + r - span, x_origin + c - span)
 //         sits at [r, c], zero outside the frame.
 //   out:  int32 cost and flat index per block, [nby, nbx] (row stride out_ld).
+//   vol:  (phase kernel, optional) int32 [K*K][nby][out_ld]: every
+//         candidate's cost, INT32_MAX where the candidate is invalid.
 //   A displacement d (per axis, in [-span, span]) is valid iff
 //   0 <= tl + d <= frame - extent, with tl in global coordinates. The cost
 //   is the exact int32 SSD or SAD over the block's in-frame pixels. The
@@ -42,7 +45,10 @@
 // sum(c^2) + sum(r^2) - 2*sum(c*r), exact in 32 bits for blk <= 32
 // (sum(r^2) <= 255^2 * 1024 < 2^27). For blk <= 16 the macroblock's current
 // pixels stay in registers. The int kernel handles any extent byte by
-// byte: it runs on thin edge slabs, where its time is small.
+// byte: it runs on thin edge slabs, where its time is small. The volume
+// (a separate template instance) adds one 4-byte store per candidate; the
+// threads that split a block's candidates store to different planes, so
+// the stores are not coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,14 +80,14 @@ __device__ __forceinline__ void write_best(const unsigned long long* red,
 // ---------------------------------------------------------------------------
 // Phase kernel: full blocks of side BLK, `tbx` macroblocks per CUDA block
 // along x. grid = (ceil(nbx / tbx), nby).
-template <int BLK, bool SAD>
+template <int BLK, bool SAD, bool EMIT>
 __global__ void __launch_bounds__(kThreads)
 phase_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
                     const uint8_t* __restrict__ ref, int ref_ld,
                     int32_t* __restrict__ out_cost,
-                    int32_t* __restrict__ out_idx, int out_ld, int nbx,
-                    int tbx, int span, int frame_h, int frame_w, int y_origin,
-                    int x_origin) {
+                    int32_t* __restrict__ out_idx, int32_t* __restrict__ vol,
+                    int out_ld, int nby, int nbx, int tbx, int span,
+                    int frame_h, int frame_w, int y_origin, int x_origin) {
   constexpr int CW = BLK >= 4 ? BLK / 4 : 1;  // words per block row
   constexpr int PX = BLK >= 4 ? 4 : BLK;      // pixels per word
   constexpr uint32_t kMask = BLK >= 4 ? 0xffffffffu : (1u << (8 * BLK)) - 1u;
@@ -153,10 +159,18 @@ phase_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
       }
     }
 
+    // This macroblock's entry of volume plane 0; plane c is `plane` further.
+    int32_t* vrow = EMIT ? vol + static_cast<size_t>(by) * out_ld + bx0 + m
+                         : nullptr;
+    const size_t plane = static_cast<size_t>(nby) * out_ld;
+
     unsigned long long best = kNoKey;
     for (int cand = threadIdx.x; cand < KK; cand += kThreads) {
       const int oy = cand / K, ox = cand - oy * K;
-      if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) continue;
+      if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) {
+        if constexpr (EMIT) vrow[cand * plane] = kInt32Max;
+        continue;
+      }
       const uint32_t* wp = win + oy * win_w + m * BLK + ox;
       uint32_t acc = 0, cross = 0, sum_r2 = 0;
 #pragma unroll
@@ -179,6 +193,7 @@ phase_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
         }
       }
       if constexpr (!SAD) acc = sum_c2 + sum_r2 - 2u * cross;
+      if constexpr (EMIT) vrow[cand * plane] = static_cast<int32_t>(acc);
       const unsigned long long key =
           (static_cast<unsigned long long>(acc) << 32) |
           static_cast<unsigned>(cand);
@@ -266,12 +281,12 @@ size_t phase_smem_bytes(int blk, int tbx, int span) {
          sizeof(uint32_t) * (win + static_cast<size_t>(blk) * tbx * cw);
 }
 
-template <int BLK, bool SAD>
+template <int BLK, bool SAD, bool EMIT>
 int launch_phase(const void* cur, const void* ref, void* out_cost,
-                 void* out_idx, int cur_ld, int ref_ld, int out_ld, int nby,
-                 int nbx, int span, int frame_h, int frame_w, int y_origin,
-                 int x_origin, cudaStream_t stream) {
-  auto kernel = phase_search_kernel<BLK, SAD>;
+                 void* out_idx, void* vol, int cur_ld, int ref_ld, int out_ld,
+                 int nby, int nbx, int span, int frame_h, int frame_w,
+                 int y_origin, int x_origin, cudaStream_t stream) {
+  auto kernel = phase_search_kernel<BLK, SAD, EMIT>;
   int tbx = BLK >= 64 ? 1 : 64 / BLK;  // ~64 pixels of macroblocks per tile
   if (tbx > nbx) tbx = nbx;
   size_t smem = phase_smem_bytes(BLK, tbx, span);
@@ -284,42 +299,50 @@ int launch_phase(const void* cur, const void* ref, void* out_cost,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(cur), cur_ld,
       static_cast<const uint8_t*>(ref), ref_ld,
-      static_cast<int32_t*>(out_cost), static_cast<int32_t*>(out_idx), out_ld,
-      nbx, tbx, span, frame_h, frame_w, y_origin, x_origin);
+      static_cast<int32_t*>(out_cost), static_cast<int32_t*>(out_idx),
+      static_cast<int32_t*>(vol), out_ld, nby, nbx, tbx, span, frame_h,
+      frame_w, y_origin, x_origin);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance for (metric, volume or none): SAD for metric 1, SSD else.
 template <int BLK>
-int dispatch_phase_metric(int metric, const void* cur, const void* ref,
-                          void* out_cost, void* out_idx, int cur_ld,
-                          int ref_ld, int out_ld, int nby, int nbx, int span,
-                          int frame_h, int frame_w, int y_origin, int x_origin,
-                          cudaStream_t stream) {
-  if (metric == 1)
-    return launch_phase<BLK, true>(cur, ref, out_cost, out_idx, cur_ld, ref_ld,
-                                   out_ld, nby, nbx, span, frame_h, frame_w,
-                                   y_origin, x_origin, stream);
-  return launch_phase<BLK, false>(cur, ref, out_cost, out_idx, cur_ld, ref_ld,
-                                  out_ld, nby, nbx, span, frame_h, frame_w,
-                                  y_origin, x_origin, stream);
+int dispatch_phase(int metric, const void* cur, const void* ref,
+                   void* out_cost, void* out_idx, void* vol, int cur_ld,
+                   int ref_ld, int out_ld, int nby, int nbx, int span,
+                   int frame_h, int frame_w, int y_origin, int x_origin,
+                   cudaStream_t stream) {
+#define ME_PHASE_LAUNCH(SAD, EMIT)                                           \
+  return launch_phase<BLK, SAD, EMIT>(cur, ref, out_cost, out_idx, vol,      \
+                                      cur_ld, ref_ld, out_ld, nby, nbx, span, \
+                                      frame_h, frame_w, y_origin, x_origin,  \
+                                      stream)
+  if (metric == 1) {
+    if (vol != nullptr) ME_PHASE_LAUNCH(true, true);
+    ME_PHASE_LAUNCH(true, false);
+  }
+  if (vol != nullptr) ME_PHASE_LAUNCH(false, true);
+  ME_PHASE_LAUNCH(false, false);
+#undef ME_PHASE_LAUNCH
 }
 
 }  // namespace
 
-// metric: 0 = SSD (MSE search), 1 = SAD. Returns the cudaError_t of the
-// launch (0 on success). nby, nbx >= 1.
+// metric: 0 = SSD (MSE search), 1 = SAD. vol: null, or int32
+// [K*K][nby][out_ld] to receive every candidate's cost. Returns the
+// cudaError_t of the launch (0 on success). nby, nbx >= 1.
 extern "C" int me_phase_search(const void* cur, const void* ref,
-                               void* out_cost, void* out_idx, int cur_ld,
-                               int ref_ld, int out_ld, int nby, int nbx,
-                               int blk, int span, int metric, int frame_h,
-                               int frame_w, int y_origin, int x_origin,
-                               void* stream) {
+                               void* out_cost, void* out_idx, void* vol,
+                               int cur_ld, int ref_ld, int out_ld, int nby,
+                               int nbx, int blk, int span, int metric,
+                               int frame_h, int frame_w, int y_origin,
+                               int x_origin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ME_PHASE_CASE(B)                                                    \
-  case B:                                                                   \
-    return dispatch_phase_metric<B>(metric, cur, ref, out_cost, out_idx,    \
-                                    cur_ld, ref_ld, out_ld, nby, nbx, span, \
-                                    frame_h, frame_w, y_origin, x_origin, s);
+#define ME_PHASE_CASE(B)                                                     \
+  case B:                                                                    \
+    return dispatch_phase<B>(metric, cur, ref, out_cost, out_idx, vol,       \
+                             cur_ld, ref_ld, out_ld, nby, nbx, span, frame_h, \
+                             frame_w, y_origin, x_origin, s);
   switch (blk) {
     ME_PHASE_CASE(1)
     ME_PHASE_CASE(2)

@@ -1,24 +1,34 @@
-"""Fused full search (MSE/SAD) on the CUDA kernels of csrc/full_search.cu.
+"""Fused full search (MSE/SAD) and cost volumes on the CUDA kernels of
+csrc/full_search.cu and csrc/chunked.cu.
 
-The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`
-on the main path:
+The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`:
 
 * `phase_search` launches `me_phase_search`, the port of the Pallas kernel
   `_kernel_phase` (full_search_pallas.py:729): all full interior blocks,
-  blk in {1, 2, 4, 8, 16, 32}, span >= 1.
+  blk in {1, 2, 4, 8, 16, 32}, span >= 1; optionally with the cost volume
+  (its `emit_volume` mode).
 * `int_search` launches `me_int_search`, the port of `_kernel_int`
   (:1076): blocks with truncated extents, any blk.
+* `chunked_search` launches `me_chunked_search`, the port of `_kernel_f32`
+  (:131): MSE of full interior blocks, blk 1..16, span >= 0, by hoisted
+  box sums; optionally with the cost volume.
+* `chunked_u8_search` launches `me_chunked_u8_search`, the port of
+  `_kernel_f32_bf16` (:348): the same on operands staged as packed bytes.
+* `wide_search` launches `me_wide_search`, the port of `_kernel_f32_wide`
+  (:471): MSE of full interior blocks at blk 24 and 32.
 * `full_search_frame_cuda` (the port of `full_search_frame_pallas`, :1415)
-  runs the interior, then the bottom and right edge slabs, merges them in
-  the same order, decodes MVs and scores.
+  routes as the JAX package does, runs the interior, then the bottom and
+  right edge slabs, merges them in the same order, decodes MVs and scores.
+* `full_search_volume_cuda` (the port of `full_search_volume_pallas`,
+  :1796) returns the whole-frame [K², nby, nbx] cost volume.
 
-Beside the two kernels stands their plain PyTorch version, `search_plain`,
+Beside the kernels stands their plain PyTorch version, `search_plain`,
 built on `search.full_search.make_displacement_cost` over the same inputs
 and output layout. A wrapper takes the plain version only for tensors on
 the CPU; for CUDA tensors it launches its kernel or raises. Each wrapper
 counts its launches in its `launches` attribute.
 
-Operands (both wrappers):
+Operands (every wrapper):
   cur       uint8 [tile_h, tile_w], unit column stride; pixel (0, 0) is
             global (y_origin, x_origin).
   ref_halo  uint8, at least [tile_h + 2*span, tile_w + 2*span], unit
@@ -46,20 +56,31 @@ _SSIM_ELSEWHERE = (
     "full_search_frame_cuda searches MSE and SAD; SSIM runs on its own "
     "kernels: kernels/ssim_cuda.py ssim_search_frame_cuda"
 )
-_CHUNKED_MSE = (
-    "MSE with blk_dim={blk} span={span} runs the Pallas kernel {kernel} "
-    "in the JAX package; its CUDA port is ROADMAP.md Queue 1 item 6 (cost "
-    "volumes and the chunked MSE kernels K5-K7)"
-)
 
-_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# Launcher argument types per source: pointers (cur, ref, cost, idx[, vol]),
+# ints (strides, grid, blk, span[, metric], frame, origin), the stream.
+_SIGNATURES = {
+    "full_search": {
+        "me_phase_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
+        "me_int_search": [_PTR] * 4 + [_INT] * 12 + [_PTR],
+    },
+    "chunked": {
+        "me_chunked_search": [_PTR] * 5 + [_INT] * 11 + [_PTR],
+        "me_chunked_u8_search": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+        "me_wide_search": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+    },
+}
+_EMITTERS = ("me_phase_search", "me_chunked_search")
+_TAKE_METRIC = ("me_phase_search", "me_int_search")
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("full_search")
-    for fn in (lib.me_phase_search, lib.me_int_search):
-        fn.argtypes = _SIGNATURE
+def _lib(source: str) -> ctypes.CDLL:
+    lib = _build.load(source)
+    for name, argtypes in _SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
@@ -69,6 +90,29 @@ def phase_supported(blk_dim: int, span: int, metric: str) -> bool:
     full_search_pallas.py:1402): MSE/SAD, blk dividing 128 and <= 32,
     span >= 1."""
     return metric in _METRIC_CODE and blk_dim in _PHASE_BLOCKS and span >= 1
+
+
+def chunked_supported(blk_dim: int, span: int) -> bool:
+    """Whether the chunked kernels (K5, K6) cover this MSE config: blk
+    1..16, span >= 0 (`use_f32`, full_search_pallas.py:1498)."""
+    return 1 <= blk_dim <= 16 and span >= 0
+
+
+def wide_supported(blk_dim: int, span: int) -> bool:
+    """Whether the wide kernel (K7) covers this MSE config: blk % 8 == 0
+    with 16 < blk <= 32, span >= 0 (`use_wide`, :1499)."""
+    return 16 < blk_dim <= 32 and blk_dim % 8 == 0 and span >= 0
+
+
+def volume_supported(blk_dim: int, span: int, metric: str) -> bool:
+    """Whether `full_search_volume_cuda` covers this config (as
+    `volume_supported`, full_search_pallas.py:1781): MSE/SAD, span >= 1,
+    and blk <= 16 or a phase-kernel config."""
+    return (
+        metric in _METRIC_CODE
+        and span >= 1
+        and (blk_dim <= 16 or phase_supported(blk_dim, span, metric))
+    )
 
 
 def check_operand_shapes(cur, ref_halo, span):
@@ -142,20 +186,23 @@ def check_edge_tile(shape, blk_dim, frame_height, frame_width, y_origin,
 
 
 def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, metric,
-            frame_height, frame_width, y_origin, x_origin):
-    """Run one of the two CUDA launchers on a CUDA tensor pair."""
+            frame_height, frame_width, y_origin, x_origin, volume=None):
+    """Run a CUDA launcher on a CUDA tensor pair. `volume`, an int32
+    [K², nby, nbx] tensor or None, goes to the launchers that emit one;
+    `metric` to those that take one (phase and int kernels)."""
     check_kernel_operands(cur, ref_halo)
     cost = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
     idx = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
+    ptrs = [cur.data_ptr(), ref_halo.data_ptr(), cost.data_ptr(),
+            idx.data_ptr()]
+    if fn.__name__ in _EMITTERS:
+        ptrs.append(None if volume is None else volume.data_ptr())
+    ints = [cur.stride(0), ref_halo.stride(0), nbx, nby, nbx, blk_dim, span]
+    if fn.__name__ in _TAKE_METRIC:
+        ints.append(_METRIC_CODE[metric])
+    ints += [frame_height, frame_width, y_origin, x_origin]
     with torch.cuda.device(cur.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            cur.data_ptr(), ref_halo.data_ptr(),
-            cost.data_ptr(), idx.data_ptr(),
-            cur.stride(0), ref_halo.stride(0), nbx, nby, nbx,
-            blk_dim, span, _METRIC_CODE[metric],
-            frame_height, frame_width, y_origin, x_origin, stream,
-        )
+        err = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"{fn.__name__} failed with CUDA error {err} "
@@ -166,13 +213,15 @@ def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, metric,
 
 def search_plain(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
                  frame_height: int, frame_width: int, y_origin: int = 0,
-                 x_origin: int = 0):
-    """Plain PyTorch version of both kernels over the same operands.
+                 x_origin: int = 0, return_volume: bool = False):
+    """Plain PyTorch version of every kernel here over the same operands.
 
     Block grid cdiv(tile, blk_dim), truncated extents from the frame, the
     raster scan with strict `<` from (INT32_MAX, centre). For the full
-    in-frame blocks `phase_search` accepts, the truncated extents are full
-    and this is the phase kernel's arithmetic too.
+    in-frame blocks the interior kernels accept, the truncated extents are
+    full and this is their arithmetic too (the chunked and wide kernels'
+    (Qcur - X) + (Qref - X) is the same integer SSD). Returns int32 (cost,
+    idx), plus the [K², nby, nbx] volume with `return_volume`.
     """
     _check_operands(cur, ref_halo, span, metric)
     tile_h, tile_w = cur.shape
@@ -188,39 +237,134 @@ def search_plain(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
         frame_height=frame_height, frame_width=frame_width,
         blk_dim=blk_dim, span=span, metric=metric,
     )
-    return fs.scan_argmin(cost_fn, span, (nby, nbx), cur.device)
+    return fs.scan_argmin(cost_fn, span, (nby, nbx), cur.device,
+                          return_volume=return_volume)
+
+
+def _interior(wrapper, source, cur, ref_halo, *, return_volume=False, **kw):
+    """An interior wrapper's body: the plain version for CPU tensors, else
+    one launch of `wrapper`'s kernel, the launcher `me_<wrapper name>` of
+    csrc/<source>.cu, counted in `wrapper.launches`."""
+    check_interior_tile(cur.shape, kw["blk_dim"], kw["frame_height"],
+                        kw["frame_width"], kw["y_origin"], kw["x_origin"])
+    if cur.device.type == "cpu":
+        return search_plain(cur, ref_halo, return_volume=return_volume, **kw)
+    blk, k = kw["blk_dim"], 2 * kw["span"] + 1
+    nby, nbx = cur.shape[0] // blk, cur.shape[1] // blk
+    volume = (torch.empty((k * k, nby, nbx), dtype=torch.int32,
+                          device=cur.device) if return_volume else None)
+    if nby == 0 or nbx == 0:
+        out = tuple(torch.empty((nby, nbx), dtype=torch.int32,
+                                device=cur.device) for _ in range(2))
+    else:
+        fn = getattr(_lib(source), f"me_{wrapper.__name__}")
+        out = _launch(fn, cur, ref_halo, nby, nbx, volume=volume, **kw)
+        wrapper.launches += 1
+    return (*out, volume) if return_volume else out
 
 
 def phase_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
                  frame_height: int, frame_width: int, y_origin: int = 0,
-                 x_origin: int = 0):
+                 x_origin: int = 0, return_volume: bool = False):
     """Exact search of full interior blocks (`me_phase_search`, the port of
     `_kernel_phase`). Every block of the tile must lie inside the frame;
-    returns int32 (cost, idx), [tile_h // blk_dim, tile_w // blk_dim]."""
+    returns int32 (cost, idx), [tile_h // blk_dim, tile_w // blk_dim], and
+    with `return_volume` the int32 [K², nby, nbx] cost volume (INT32_MAX at
+    invalid candidates; the kernel's emit mode)."""
     _check_operands(cur, ref_halo, span, metric)
     if not phase_supported(blk_dim, span, metric):
         raise ValueError(
             f"phase kernel requires blk_dim in {_PHASE_BLOCKS} and span >= 1, "
             f"got blk_dim={blk_dim} span={span}"
         )
-    check_interior_tile(cur.shape, blk_dim, frame_height, frame_width,
-                        y_origin, x_origin)
-    tile_h, tile_w = cur.shape
-    kw = dict(blk_dim=blk_dim, span=span, metric=metric,
-              frame_height=frame_height, frame_width=frame_width,
-              y_origin=y_origin, x_origin=x_origin)
-    if cur.device.type == "cpu":
-        return search_plain(cur, ref_halo, **kw)
-    nby, nbx = tile_h // blk_dim, tile_w // blk_dim
-    if nby == 0 or nbx == 0:
-        empty = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
-        return empty, empty.clone()
-    out = _launch(_lib().me_phase_search, cur, ref_halo, nby, nbx, **kw)
-    phase_search.launches += 1
-    return out
+    return _interior(
+        phase_search, "full_search", cur, ref_halo, blk_dim=blk_dim,
+        span=span, metric=metric, frame_height=frame_height,
+        frame_width=frame_width, y_origin=y_origin, x_origin=x_origin,
+        return_volume=return_volume,
+    )
 
 
 phase_search.launches = 0
+
+
+def _check_mse(metric, kernel):
+    if metric != "mse":
+        raise ValueError(f"{kernel} searches MSE only, got metric {metric!r}")
+
+
+def chunked_search(cur, ref_halo, *, blk_dim: int, span: int,
+                   frame_height: int, frame_width: int, y_origin: int = 0,
+                   x_origin: int = 0, metric: str = "mse",
+                   return_volume: bool = False):
+    """MSE search of full interior blocks by hoisted box sums
+    (`me_chunked_search`, the port of `_kernel_f32`): blk 1..16, span >= 0,
+    operands staged 32 bits per pixel. Returns int32 (cost, idx), and with
+    `return_volume` the int32 [K², nby, nbx] cost volume (INT32_MAX at
+    invalid candidates; the kernel's emit mode)."""
+    _check_mse(metric, "me_chunked_search")
+    _check_operands(cur, ref_halo, span, metric)
+    if not chunked_supported(blk_dim, span):
+        raise ValueError(
+            f"chunked kernel requires 1 <= blk_dim <= 16 and span >= 0, got "
+            f"blk_dim={blk_dim} span={span}"
+        )
+    return _interior(
+        chunked_search, "chunked", cur, ref_halo, blk_dim=blk_dim,
+        span=span, metric=metric, frame_height=frame_height,
+        frame_width=frame_width, y_origin=y_origin, x_origin=x_origin,
+        return_volume=return_volume,
+    )
+
+
+chunked_search.launches = 0
+
+
+def chunked_u8_search(cur, ref_halo, *, blk_dim: int, span: int,
+                      frame_height: int, frame_width: int, y_origin: int = 0,
+                      x_origin: int = 0, metric: str = "mse"):
+    """`chunked_search` with its operands staged as packed bytes, four to a
+    32-bit word (`me_chunked_u8_search`, the port of `_kernel_f32_bf16`,
+    whose operands are staged at half width). No volume. Returns int32
+    (cost, idx)."""
+    _check_mse(metric, "me_chunked_u8_search")
+    _check_operands(cur, ref_halo, span, metric)
+    if not chunked_supported(blk_dim, span):
+        raise ValueError(
+            f"chunked kernel requires 1 <= blk_dim <= 16 and span >= 0, got "
+            f"blk_dim={blk_dim} span={span}"
+        )
+    return _interior(
+        chunked_u8_search, "chunked", cur, ref_halo, blk_dim=blk_dim,
+        span=span, metric=metric, frame_height=frame_height,
+        frame_width=frame_width, y_origin=y_origin, x_origin=x_origin,
+    )
+
+
+chunked_u8_search.launches = 0
+
+
+def wide_search(cur, ref_halo, *, blk_dim: int, span: int,
+                frame_height: int, frame_width: int, y_origin: int = 0,
+                x_origin: int = 0, metric: str = "mse"):
+    """MSE search of full interior blocks at blk 24 and 32 (`me_wide_search`,
+    the port of `_kernel_f32_wide`): the chunked kernel's decomposition with
+    Qref from 8-row parts. Returns int32 (cost, idx)."""
+    _check_mse(metric, "me_wide_search")
+    _check_operands(cur, ref_halo, span, metric)
+    if not wide_supported(blk_dim, span):
+        raise ValueError(
+            f"wide kernel requires blk_dim % 8 == 0 with 16 < blk_dim <= 32 "
+            f"and span >= 0, got blk_dim={blk_dim} span={span}"
+        )
+    return _interior(
+        wide_search, "chunked", cur, ref_halo, blk_dim=blk_dim, span=span,
+        metric=metric, frame_height=frame_height, frame_width=frame_width,
+        y_origin=y_origin, x_origin=x_origin,
+    )
+
+
+wide_search.launches = 0
 
 
 def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
@@ -242,7 +386,8 @@ def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
     if nby == 0 or nbx == 0:
         empty = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
         return empty, empty.clone()
-    out = _launch(_lib().me_int_search, cur, ref_halo, nby, nbx, **kw)
+    out = _launch(_lib("full_search").me_int_search, cur, ref_halo, nby, nbx,
+                  **kw)
     int_search.launches += 1
     return out
 
@@ -345,8 +490,29 @@ def search_interior_and_edges(cur, ref_halo, interior, edge_bottom,
     return out
 
 
+def interior_search(blk_dim: int, span: int, metric: str,
+                    phase: bool | None = None, operand_bf16: bool = False):
+    """The interior wrapper a whole-frame search takes, as
+    `_full_search_frame_jit` routes (full_search_pallas.py:1490-1533): the
+    phase kernel where `phase` (default: wherever it applies); otherwise,
+    for MSE, the chunked kernel at blk <= 16 (its packed-byte variant with
+    `operand_bf16`) or the wide kernel at blk 24 and 32. None means the int
+    kernel over the whole frame (SAD outside the phase kernel, MSE at other
+    blk)."""
+    if phase_supported(blk_dim, span, metric) if phase is None else phase:
+        return phase_search
+    if metric != "mse":
+        return None
+    if chunked_supported(blk_dim, span):
+        return chunked_u8_search if operand_bf16 else chunked_search
+    if wide_supported(blk_dim, span):
+        return wide_search
+    return None
+
+
 def full_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
-                           metric: str = "mse",
+                           metric: str = "mse", phase: bool | None = None,
+                           operand_bf16: bool = False,
                            device=None) -> fs.MotionField:
     """Whole-frame full search (MSE or SAD) on the CUDA kernels.
 
@@ -354,44 +520,109 @@ def full_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
     and float32 scores. cur/ref: [H, W] integer frames (numpy or torch),
     moved to `device` (default "cuda"; "cpu" runs the plain versions).
 
-    Routing follows `_full_search_frame_jit` (full_search_pallas.py:1490)
-    with its default `phase=None`: the phase kernel for the interior plus
-    the int kernel on the truncated bottom row and right column (which
-    overwrites the corner); the int kernel over the whole frame where the
-    phase kernel does not apply (SAD, or MSE at blk > 16 outside {24, 32}).
-    Configs the JAX package sends to its chunked MSE kernels K5-K7 (MSE at
-    blk <= 16 or blk 24 outside the phase kernel) raise NotImplementedError.
-    metric="ssim" raises ValueError, as `full_search_frame_pallas` does:
-    SSIM lives in kernels/ssim_cuda.py.
+    Routing follows `_full_search_frame_jit` (full_search_pallas.py:1490),
+    with its two arguments that choose a kernel (`interior_search`): the
+    interior kernel on the whole blocks, then the int kernel on the
+    truncated bottom row and right column (which overwrites the corner);
+    the int kernel over the whole frame where no interior kernel applies.
+    `phase=True` where the phase kernel does not apply raises ValueError, as
+    there. `operand_bf16` keeps the JAX name: it selects the packed-byte
+    chunked kernel, and no bfloat16 is involved. The JAX function's `tile`,
+    `unroll_dx` and `chunk_dx` schedule its TPU kernels and change no
+    result; they have no counterpart here. metric="ssim" raises ValueError,
+    as `full_search_frame_pallas` does: SSIM lives in kernels/ssim_cuda.py.
     """
     dev = resolve_device(device)
     if metric == "ssim":
         raise ValueError(_SSIM_ELSEWHERE)
     if metric not in _METRIC_CODE:
         raise ValueError(f"metric must be 'mse' or 'sad', got {metric!r}")
+    if phase and not phase_supported(blk_dim, span, metric):
+        raise ValueError(
+            f"phase kernel requires metric mse/sad, blk_dim in "
+            f"{_PHASE_BLOCKS} and span >= 1; got blk_dim={blk_dim} "
+            f"span={span} metric={metric!r}"
+        )
     cur_t, ref_halo = frame_operands(cur, ref, span, dev)
-    use_phase = phase_supported(blk_dim, span, metric)
-    if not use_phase and metric == "mse":
-        if blk_dim <= 16:
-            raise NotImplementedError(_CHUNKED_MSE.format(
-                blk=blk_dim, span=span, kernel="K5 (_kernel_f32)"))
-        if blk_dim <= 32 and blk_dim % 8 == 0:
-            raise NotImplementedError(_CHUNKED_MSE.format(
-                blk=blk_dim, span=span, kernel="K7 (_kernel_f32_wide)"))
-
+    interior = interior_search(blk_dim, span, metric, phase, operand_bf16)
     h, w = cur_t.shape
     nby, nbx = geometry.grid_shape(h, w, blk_dim)
     kw = dict(blk_dim=blk_dim, span=span, metric=metric)
-    if use_phase:
-        cost, idx = search_interior_and_edges(
-            cur_t, ref_halo, phase_search, _edge_slab_bottom,
-            _edge_slab_right, **kw,
-        )
-    else:
+    if interior is None:
         cost, idx = int_search(
             cur_t, ref_halo, frame_height=h, frame_width=w, **kw
+        )
+    else:
+        cost, idx = search_interior_and_edges(
+            cur_t, ref_halo, interior, _edge_slab_bottom, _edge_slab_right,
+            **kw,
         )
     _, _, blk_h, blk_w = geometry.block_extents(
         0, 0, nby, nbx, blk_dim, h, w, dev
     )
     return fs.field_from_argmin(cost, idx, blk_h * blk_w, span, metric)
+
+
+def full_search_volume_cuda(cur, ref, *, blk_dim: int, span: int,
+                            metric: str = "mse", device=None) -> torch.Tensor:
+    """Whole-frame int32 [K², nby, nbx] cost volume (MSE: SSD, or SAD),
+    INT32_MAX at every invalid candidate; equal entry for entry to the
+    golden `full_search_frame(..., return_cost_volume=True)`.
+
+    The port of `full_search_volume_pallas` (full_search_pallas.py:1796),
+    routed as it is on the TPU: the phase kernel's emit mode on the whole
+    blocks of a phase config; the chunked kernel's emit mode for MSE at
+    other blk <= 16. The JAX package computes the other supported configs
+    (SAD at blk 3, 5, 6, 7, 9-15) and the truncated last block row and
+    column (thin slabs, bottom then right, :1922-1949) in XLA with its
+    golden tile search, not in Pallas; here they are the golden tile search
+    on the same device. They are that code's counterpart, not a fallback for
+    a kernel. Unsupported configs (`volume_supported`) raise ValueError.
+    """
+    if not volume_supported(blk_dim, span, metric):
+        raise ValueError(
+            f"full_search_volume_cuda: unsupported config blk_dim={blk_dim} "
+            f"span={span} metric={metric!r} (needs MSE/SAD, span >= 1, and "
+            f"blk_dim <= 16 or a phase-kernel config)"
+        )
+    dev = resolve_device(device)
+    cur_t, ref_halo = frame_operands(cur, ref, span, dev)
+    h, w = cur_t.shape
+    ref_t = ref_halo[span : span + h, span : span + w]
+    geo = dict(frame_height=h, frame_width=w, blk_dim=blk_dim, span=span,
+               metric=metric)
+    if phase_supported(blk_dim, span, metric):
+        interior = phase_search
+    elif metric == "mse":
+        interior = chunked_search
+    else:
+        return fs.full_search_frame(
+            cur_t, ref_t, blk_dim=blk_dim, span=span, metric=metric,
+            return_cost_volume=True,
+        )[1]
+    nby, nbx = geometry.grid_shape(h, w, blk_dim)
+    nyf, nxf = h // blk_dim, w // blk_dim
+    *_, inner = interior(cur_t[: nyf * blk_dim, : nxf * blk_dim], ref_halo,
+                         return_volume=True, **geo)
+    if (nyf, nxf) == (nby, nbx):
+        return inner
+    k = 2 * span + 1
+    volume = torch.empty((k * k, nby, nbx), dtype=torch.int32, device=dev)
+    volume[:, :nyf, :nxf] = inner
+    cur_p = fs.pad_cur_frame(cur_t, h, w, blk_dim)
+    halo_p = fs.make_ref_halo(ref_t, h, w, blk_dim, span)
+    if h % blk_dim:
+        y = (nby - 1) * blk_dim
+        _, v = fs.full_search_tile(
+            cur_p[y : y + blk_dim], halo_p[y : y + blk_dim + 2 * span], y, 0,
+            **geo, return_cost_volume=True,
+        )
+        volume[:, nby - 1, :] = v[:, 0, :]
+    if w % blk_dim:
+        x = (nbx - 1) * blk_dim
+        _, v = fs.full_search_tile(
+            cur_p[:, x : x + blk_dim], halo_p[:, x : x + blk_dim + 2 * span],
+            0, x, **geo, return_cost_volume=True,
+        )
+        volume[:, :, nbx - 1] = v[:, :, 0]
+    return volume

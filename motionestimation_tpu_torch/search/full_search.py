@@ -139,39 +139,55 @@ def make_displacement_cost(
     return displacement_cost
 
 
-def scan_argmin(displacement_cost, span: int, shape, device):
-    """Raster scan over all K² displacements with strict `<`.
-
-    Starts from (INT32_MAX, centre index), so a block with no valid
-    candidate keeps MV (0, 0). Returns int32 (best_cost, best_idx).
-    """
+def _scan(displacement_cost, span: int, best, better, return_volume: bool):
+    """Raster scan over all K² displacements from `best` and the centre
+    index, taking a candidate where `better(cand, best)`. Returns (best,
+    best_idx) and, with `return_volume`, the [K², nby, nbx] stack of every
+    candidate's plane."""
     k = 2 * span + 1
-    best = torch.full(shape, cost_lib.INT32_MAX, dtype=torch.int32, device=device)
-    best_idx = torch.full(shape, span * k + span, dtype=torch.int32, device=device)
+    best_idx = torch.full(
+        best.shape, span * k + span, dtype=torch.int32, device=best.device
+    )
+    planes = []
     for i in range(k * k):
         cand = displacement_cost(i)
-        take = cand < best  # strict < keeps the earliest candidate
+        take = better(cand, best)
         best = torch.where(take, cand, best)
         best_idx = best_idx.masked_fill(take, i)
+        if return_volume:
+            planes.append(cand)
+    if return_volume:
+        return best, best_idx, torch.stack(planes)
     return best, best_idx
 
 
-def scan_argmax(displacement_cost, span: int, shape, device):
+def scan_argmin(displacement_cost, span: int, shape, device,
+                return_volume: bool = False):
+    """Raster scan over all K² displacements with strict `<`.
+
+    Starts from (INT32_MAX, centre index), so a block with no valid
+    candidate keeps MV (0, 0). Returns int32 (best_cost, best_idx), plus
+    the int32 [K², nby, nbx] cost volume (INT32_MAX at invalid candidates)
+    with `return_volume`.
+    """
+    best = torch.full(shape, cost_lib.INT32_MAX, dtype=torch.int32, device=device)
+    # strict < keeps the earliest candidate
+    return _scan(displacement_cost, span, best, torch.lt, return_volume)
+
+
+def scan_argmax(displacement_cost, span: int, shape, device,
+                return_volume: bool = False):
     """Raster scan over all K² displacements with strict `>` (SSIM).
 
     Starts from (0.0, centre index): a block where no candidate scores
     above 0 keeps MV (0, 0), where the reference would read uninitialised
-    memory. Returns (float32 best_score, int32 best_idx).
+    memory. Returns (float32 best_score, int32 best_idx), plus the float32
+    [K², nby, nbx] score volume (-inf at invalid candidates) with
+    `return_volume`.
     """
-    k = 2 * span + 1
     best = torch.zeros(shape, dtype=torch.float32, device=device)
-    best_idx = torch.full(shape, span * k + span, dtype=torch.int32, device=device)
-    for i in range(k * k):
-        cand = displacement_cost(i)
-        take = cand > best  # strict > keeps the earliest candidate
-        best = torch.where(take, cand, best)
-        best_idx = best_idx.masked_fill(take, i)
-    return best, best_idx
+    # strict > keeps the earliest candidate
+    return _scan(displacement_cost, span, best, torch.gt, return_volume)
 
 
 def full_search_tile(
@@ -185,13 +201,16 @@ def full_search_tile(
     blk_dim: int,
     span: int,
     metric: str = "mse",
-) -> MotionField:
+    return_cost_volume: bool = False,
+):
     """Full search over one tile of the current frame.
 
     cur_tile: [Th, Tw] current-frame tile, Th and Tw multiples of blk_dim
     (pixels beyond the frame are masked); ref_halo as in
     `make_displacement_cost`; (y0, x0): global coordinates of
-    cur_tile[0, 0].
+    cur_tile[0, 0]. Returns a MotionField, and with `return_cost_volume`
+    also the [K², nby, nbx] stack of per-candidate planes: int32 with
+    INT32_MAX at invalid candidates (MSE, SAD) or float32 with -inf (SSIM).
     """
     _check_metric(metric)
     cur_tile = to_tensor(cur_tile)
@@ -207,19 +226,21 @@ def full_search_tile(
         frame_height=frame_height, frame_width=frame_width,
         blk_dim=blk_dim, span=span, metric=metric,
     )
+    scan = scan_argmax if metric == "ssim" else scan_argmin
+    best, best_idx, *volume = scan(
+        displacement_cost, span, (nby, nbx), cur_tile.device,
+        return_volume=return_cost_volume,
+    )
     if metric == "ssim":
-        score, best_idx = scan_argmax(
-            displacement_cost, span, (nby, nbx), cur_tile.device
-        )
         mv_y, mv_x = geometry.mv_from_flat_index(best_idx, span)
-        return MotionField(mv_y, mv_x, best_idx, score)
-    best, best_idx = scan_argmin(
-        displacement_cost, span, (nby, nbx), cur_tile.device
-    )
-    _, _, blk_h, blk_w = geometry.block_extents(
-        y0, x0, nby, nbx, blk_dim, frame_height, frame_width, cur_tile.device
-    )
-    return field_from_argmin(best, best_idx, blk_h * blk_w, span, metric)
+        field = MotionField(mv_y, mv_x, best_idx, best)
+    else:
+        _, _, blk_h, blk_w = geometry.block_extents(
+            y0, x0, nby, nbx, blk_dim, frame_height, frame_width,
+            cur_tile.device,
+        )
+        field = field_from_argmin(best, best_idx, blk_h * blk_w, span, metric)
+    return (field, *volume) if return_cost_volume else field
 
 
 def field_from_argmin(best, best_idx, count, span: int, metric: str) -> MotionField:
@@ -248,9 +269,12 @@ def full_search_frame(
     blk_dim: int,
     span: int,
     metric: str = "mse",
-) -> MotionField:
+    return_cost_volume: bool = False,
+):
     """Whole-frame full search (single tile, origin 0). cur/ref: [H, W]
-    uint8/int32 tensors (or numpy arrays, which run on the CPU)."""
+    uint8/int32 tensors (or numpy arrays, which run on the CPU). With
+    `return_cost_volume`, also the [K², nby, nbx] volume of
+    `full_search_tile`."""
     if tuple(cur.shape) != tuple(ref.shape):
         raise ValueError(
             f"current and reference frames must have identical shapes, "
@@ -263,6 +287,7 @@ def full_search_frame(
         cur_p, ref_halo, 0, 0,
         frame_height=frame_height, frame_width=frame_width,
         blk_dim=blk_dim, span=span, metric=metric,
+        return_cost_volume=return_cost_volume,
     )
 
 

@@ -1,0 +1,251 @@
+"""The port's MSE routes outside the phase kernel vs the JAX package.
+
+`full_search_frame_cuda(device="cpu")` against
+`full_search_frame_pallas(interpret=True)` with the same `phase` and
+`operand_bf16`, on the configs the JAX package sends to `_kernel_f32` (K5),
+`_kernel_f32_bf16` (K6) and `_kernel_f32_wide` (K7), with the int kernel on
+the truncated edge slabs: equal MVs, int32 costs and float32 scores, dtypes
+included. On the CPU the wrappers run their plain versions and count no
+launch. The interior tiles of the new wrappers are held against the JAX
+interior as well.
+
+Tests whose names end in `_cuda` compare each CUDA kernel with its plain
+version on the card, exactly, and skip where there is none:
+`python -m pytest --noconftest tests/test_torch_chunked.py -k cuda`.
+"""
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from motionestimation_tpu.kernels import full_search_pallas as kp
+from motionestimation_tpu_torch.kernels import full_search_cuda as kc
+from motionestimation_tpu_torch.search import full_search as tfs
+
+# The tests run in several worker processes on shared cores; one torch
+# thread per worker keeps them from oversubscribing the machine.
+torch.set_num_threads(1)
+
+WRAPPERS = (kc.phase_search, kc.int_search, kc.chunked_search,
+            kc.chunked_u8_search, kc.wide_search)
+
+
+def random_pair(seed, h, w):
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    cur = np.roll(ref, (rng.integers(-3, 4), rng.integers(-3, 4)), (0, 1))
+    cur = np.clip(
+        cur.astype(np.int32) + rng.integers(-6, 7, (h, w)), 0, 255
+    ).astype(np.uint8)
+    return cur, ref
+
+
+def assert_fields_equal(jax_field, torch_field):
+    for name in ("mv_y", "mv_x", "best_cost_i32", "score"):
+        want = np.asarray(getattr(jax_field, name))
+        got = getattr(torch_field, name).cpu().numpy()
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def launch_counts():
+    return [fn.launches for fn in WRAPPERS]
+
+
+# (h, w, blk, span, phase, operand_bf16, metric, interior wrapper)
+CASES = [
+    pytest.param(40, 52, 12, 4, None, False, "mse", kc.chunked_search,
+                 id="K5-blk12"),
+    pytest.param(37, 51, 7, 5, None, False, "mse", kc.chunked_search,
+                 id="K5-blk7-both-edges"),
+    pytest.param(36, 52, 8, 0, None, False, "mse", kc.chunked_search,
+                 id="K5-blk8-span0"),
+    pytest.param(48, 64, 16, 0, None, False, "mse", kc.chunked_search,
+                 id="K5-blk16-span0"),
+    pytest.param(36, 52, 8, 5, False, False, "mse", kc.chunked_search,
+                 id="K5-phase-off"),
+    pytest.param(64, 64, 8, 4, False, True, "mse", kc.chunked_u8_search,
+                 id="K6-blk8"),
+    pytest.param(48, 64, 16, 7, False, True, "mse", kc.chunked_u8_search,
+                 id="K6-blk16"),
+    pytest.param(96, 120, 24, 7, None, False, "mse", kc.wide_search,
+                 id="K7-blk24"),
+    pytest.param(70, 90, 32, 5, False, False, "mse", kc.wide_search,
+                 id="K7-blk32-phase-off"),
+    pytest.param(36, 52, 8, 5, False, False, "sad", None, id="K2-sad"),
+]
+
+
+@pytest.mark.parametrize(
+    "h,w,blk,span,phase,operand_bf16,metric,interior", CASES
+)
+def test_routes_match_pallas(h, w, blk, span, phase, operand_bf16, metric,
+                             interior):
+    cur, ref = random_pair(h * 7 + w + blk + span, h, w)
+    kw = dict(blk_dim=blk, span=span, metric=metric, phase=phase,
+              operand_bf16=operand_bf16)
+    want = kp.full_search_frame_pallas(cur, ref, interpret=True, **kw)
+    assert kc.interior_search(blk, span, metric, phase,
+                              operand_bf16) is interior
+    before = launch_counts()
+    got = kc.full_search_frame_cuda(cur, ref, device="cpu", **kw)
+    assert_fields_equal(want, got)
+    # The plain versions never count as launches.
+    assert launch_counts() == before
+    if interior is None:
+        return
+    # The interior wrapper alone on the whole blocks vs JAX's interior.
+    nyf, nxf = h // blk, w // blk
+    halo = F.pad(torch.from_numpy(ref), (span, span, span, span))
+    cost, idx = interior(
+        torch.from_numpy(cur)[: nyf * blk, : nxf * blk], halo, blk_dim=blk,
+        span=span, frame_height=h, frame_width=w,
+    )
+    k = 2 * span + 1
+    np.testing.assert_array_equal(
+        cost.numpy(), np.asarray(want.best_cost_i32)[:nyf, :nxf])
+    mv_y = np.asarray(want.mv_y)[:nyf, :nxf]
+    mv_x = np.asarray(want.mv_x)[:nyf, :nxf]
+    np.testing.assert_array_equal(idx.numpy(), (mv_y + span) * k + mv_x + span)
+
+
+@pytest.mark.parametrize(
+    "blk,phase,operand_bf16",
+    [(12, None, False), (12, False, True), (24, None, False)],
+)
+def test_constant_frames_raster_first_wins(blk, phase, operand_bf16):
+    """Every cost ties at 0 (and Qref is the same at every candidate): the
+    first valid candidate in raster order must win."""
+    cur = np.full((3 * blk + 4, 3 * blk + 8), 77, np.uint8)
+    kw = dict(blk_dim=blk, span=4, metric="mse", phase=phase,
+              operand_bf16=operand_bf16)
+    want = kp.full_search_frame_pallas(cur, cur, interpret=True, **kw)
+    got = kc.full_search_frame_cuda(cur, cur, device="cpu", **kw)
+    assert_fields_equal(want, got)
+    assert int(got.mv_y[1, 1]) == -4 and int(got.mv_x[1, 1]) == -4
+    assert int(got.mv_y[0, 0]) == 0 and int(got.mv_x[0, 0]) == 0
+    assert not got.best_cost_i32.any()
+
+
+def test_phase_true_where_unsupported_raises():
+    cur, ref = random_pair(6, 48, 48)
+    for blk, span, metric in ((24, 4, "mse"), (12, 4, "mse"), (8, 0, "sad")):
+        with pytest.raises(ValueError, match="phase kernel requires"):
+            kc.full_search_frame_cuda(cur, ref, blk_dim=blk, span=span,
+                                      metric=metric, phase=True, device="cpu")
+        with pytest.raises(ValueError, match="phase kernel requires"):
+            kp.full_search_frame_pallas(cur, ref, blk_dim=blk, span=span,
+                                        metric=metric, phase=True)
+
+
+def test_no_mse_config_raises_not_implemented():
+    """Every MSE/SAD config runs: blk 1..40 at spans 0 and 2, phase on, off
+    and automatic (small frames; the golden search is the yardstick)."""
+    rng = np.random.default_rng(8)
+    for blk in (1, 3, 5, 7, 9, 12, 16, 20, 24, 28, 32, 40):
+        h, w = blk + 3, 2 * blk + 1
+        ref = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        cur = np.roll(ref, (1, -1), (0, 1))
+        for span in (0, 2):
+            for metric in ("mse", "sad"):
+                want = tfs.full_search_frame(
+                    torch.from_numpy(cur), torch.from_numpy(ref),
+                    blk_dim=blk, span=span, metric=metric)
+                for phase in (None, False):
+                    got = kc.full_search_frame_cuda(
+                        cur, ref, blk_dim=blk, span=span, metric=metric,
+                        phase=phase, operand_bf16=phase is False,
+                        device="cpu")
+                    for a, b in zip(got, want):
+                        assert torch.equal(a, b), (blk, span, metric, phase)
+
+
+def test_interior_wrappers_reject_what_they_do_not_cover():
+    cur, ref = random_pair(7, 48, 48)
+    cur_t = torch.from_numpy(cur)
+    halo = F.pad(torch.from_numpy(ref), (2, 2, 2, 2))
+    kw = dict(span=2, frame_height=48, frame_width=48)
+    with pytest.raises(ValueError, match="1 <= blk_dim <= 16"):
+        kc.chunked_search(cur_t, halo, blk_dim=24, **kw)
+    with pytest.raises(ValueError, match="1 <= blk_dim <= 16"):
+        kc.chunked_u8_search(cur_t, halo, blk_dim=20, **kw)
+    with pytest.raises(ValueError, match="16 < blk_dim <= 32"):
+        kc.wide_search(cur_t, halo, blk_dim=16, **kw)
+    with pytest.raises(ValueError, match="MSE only"):
+        kc.chunked_search(cur_t, halo, blk_dim=8, metric="sad", **kw)
+    with pytest.raises(ValueError, match="whole in-frame blocks"):
+        kc.chunked_search(cur_t[:44], halo, blk_dim=8, **kw)
+
+
+# --- on the card -----------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _operands(cuda, h, w, span, seed):
+    cur, ref = random_pair(seed, h, w)
+    cur_t = torch.from_numpy(cur).to(cuda)
+    halo = F.pad(torch.from_numpy(ref).to(cuda), (span, span, span, span))
+    return cur_t, halo
+
+
+def _assert_exact(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wrapper", ["chunked_search", "chunked_u8_search"])
+@pytest.mark.parametrize(
+    "h,w,blk,span",
+    [(64, 96, 1, 3), (66, 99, 3, 4), (64, 96, 4, 5), (70, 98, 7, 15),
+     (96, 200, 8, 12), (96, 200, 8, 0), (99, 143, 11, 6), (96, 96, 12, 3),
+     (96, 160, 16, 15), (128, 128, 16, 31)],
+)
+def test_chunked_kernels_match_plain_cuda(cuda, wrapper, h, w, blk, span):
+    fn = getattr(kc, wrapper)
+    cur_t, halo = _operands(cuda, h, w, span, blk + span)
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
+    tile = cur_t[: h // blk * blk, : w // blk * blk]
+    before = fn.launches
+    got = fn(tile, halo, **kw)
+    assert fn.launches == before + 1
+    _assert_exact(got, kc.search_plain(tile, halo, metric="mse", **kw))
+
+
+@pytest.mark.parametrize(
+    "h,w,blk,span", [(96, 120, 24, 7), (128, 256, 32, 15), (96, 96, 32, 31),
+                     (96, 192, 24, 0)],
+)
+def test_wide_kernel_matches_plain_cuda(cuda, h, w, blk, span):
+    cur_t, halo = _operands(cuda, h, w, span, blk * 3 + span)
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
+    tile = cur_t[: h // blk * blk, : w // blk * blk]
+    before = kc.wide_search.launches
+    got = kc.wide_search(tile, halo, **kw)
+    assert kc.wide_search.launches == before + 1
+    _assert_exact(got, kc.search_plain(tile, halo, metric="mse", **kw))
+
+
+@pytest.mark.parametrize(
+    "h,w,blk,span,phase,operand_bf16",
+    [(40, 52, 12, 4, None, False), (37, 51, 7, 5, None, False),
+     (48, 64, 16, 0, None, False), (64, 64, 8, 4, False, True),
+     (48, 64, 16, 7, False, True), (96, 120, 24, 7, None, False),
+     (70, 90, 32, 5, False, False)],
+)
+def test_frame_routes_match_golden_cuda(cuda, h, w, blk, span, phase,
+                                        operand_bf16):
+    cur, ref = random_pair(h + w + blk, h, w)
+    got = kc.full_search_frame_cuda(cur, ref, blk_dim=blk, span=span,
+                                    phase=phase, operand_bf16=operand_bf16,
+                                    device=cuda)
+    want = tfs.full_search_frame(
+        torch.from_numpy(cur).to(cuda), torch.from_numpy(ref).to(cuda),
+        blk_dim=blk, span=span,
+    )
+    _assert_exact(got, want)

@@ -4,7 +4,8 @@ same `PSNR: %.6f`, `Output file dimensions` and rounded `PSNR` lines as the
 fixture's stdout.txt; the 4 SSIM fixtures (`--metric ssim`) the same stack
 and `Original Score` / `Compensated Score` line, and no `PSNR` line. Path
 lines and the `Computation time` value differ by nature and are not
-compared.
+compared. `--debug-block` must print the JAX CLI's `[debug]` lines, and the
+routes through the chunked and wide kernels (7x7, 24x24) its stack.
 """
 import os
 
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from conftest import FixtureCase, mse_cases, ssim_cases
+from motionestimation_tpu import cli as jax_cli
 from motionestimation_tpu_torch import cli
 
 # The tests run in several worker processes on shared cores; one torch
@@ -86,11 +88,57 @@ def test_cli_cpu_ssim_byte_exact(name, tmp_path, capsys):
     [
         pytest.param(["--algorithm", "diamond"], "diamond", id="extra1-diamond"),
         pytest.param(["--gop", "a.yuv", "b.yuv"], "GOP", id="extra2-GOP"),
-        pytest.param(["--debug-block", "0", "0"], "cost volume",
-                     id="extra3-cost volume"),
         pytest.param(["--profile", "trace"], "bench", id="extra4-bench"),
     ],
 )
 def test_cli_later_slices_raise(extra, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["c.yuv", "r.yuv", str(tmp_path), "--device", "cpu", *extra])
+
+
+def _debug_lines(stdout: str):
+    return [line for line in stdout.splitlines() if line.startswith("[debug]")]
+
+
+@pytest.mark.parametrize(
+    "name,metric,by,bx",
+    [("foreman_mse_8_12", "mse", 0, 3), ("foreman_ssim_16_7", "ssim", 2, 5)],
+)
+def test_cli_debug_block_matches_jax(name, metric, by, bx, tmp_path, capsys):
+    """`--debug-block` (once a raise naming the cost volume) prints the JAX
+    CLI's `[debug]` lines on Foreman: the probe block's cost surface, with
+    its sentinels where the window leaves the frame, and the winner."""
+    case = FixtureCase(name)
+    cur, ref = _frame_paths(case, tmp_path)
+    argv = [cur, ref, str(tmp_path / "out"), str(case.blk_dim),
+            str(case.span), str(case.width), str(case.height), "--metric",
+            metric, "--no-output", "--debug-block", str(by), str(bx)]
+    assert jax_cli.main(argv + ["--backend", "xla"]) == 0
+    want = _debug_lines(capsys.readouterr().out)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    got = _debug_lines(capsys.readouterr().out)
+    assert len(want) == 2 * case.span + 3
+    assert got == want
+
+
+@pytest.mark.parametrize("blk,span,h,w", [(7, 5, 40, 51), (24, 4, 60, 80)])
+def test_cli_chunked_routes_match_jax(blk, span, h, w, tmp_path, capsys):
+    """The routes through the chunked (7x7) and wide (24x24) kernels, with
+    truncated edges: the same stack and PSNR lines as the JAX CLI."""
+    rng = np.random.default_rng(blk)
+    ref = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    cur = np.roll(ref, (2, -3), (0, 1))
+    ref.tofile(tmp_path / "ref.yuv")
+    cur.tofile(tmp_path / "cur.yuv")
+    out = {}
+    for tag, main, extra in (("jax", jax_cli.main, ["--backend", "xla"]),
+                             ("port", cli.main, ["--device", "cpu"])):
+        assert main([str(tmp_path / "cur.yuv"), str(tmp_path / "ref.yuv"),
+                     str(tmp_path / tag), str(blk), str(span), str(w), str(h),
+                     *extra]) == 0
+        psnr = [line for line in capsys.readouterr().out.splitlines()
+                if line.startswith("PSNR")]
+        stack = np.fromfile(tmp_path / tag / f"output_{blk}_{span}.yuv",
+                            np.uint8)
+        out[tag] = psnr, stack.tobytes()
+    assert out["port"] == out["jax"]

@@ -136,12 +136,19 @@ def test_whole_frame_int_route_matches_pallas(blk, metric):
     [(12, 4, "K5"), (8, 0, "K5"), (16, 0, "K5"), (24, 4, "K7")],
 )
 def test_chunked_mse_routes_raise(blk, span, kernel):
-    """MSE configs the JAX package sends to K5-K7 are not rerouted."""
+    """MSE configs the JAX package sends to K5-K7, once a raise naming the
+    kernel, take its port (`chunked_search` for K5, `wide_search` for K7)
+    and equal the JAX result."""
     cur, ref = random_pair(1, 48, 48)
-    with pytest.raises(NotImplementedError, match=kernel):
-        kc.full_search_frame_cuda(
-            cur, ref, blk_dim=blk, span=span, metric="mse", device="cpu"
-        )
+    ported = {"K5": kc.chunked_search, "K7": kc.wide_search}[kernel]
+    assert kc.interior_search(blk, span, "mse") is ported
+    want = kp.full_search_frame_pallas(
+        cur, ref, blk_dim=blk, span=span, metric="mse", interpret=True
+    )
+    got = kc.full_search_frame_cuda(
+        cur, ref, blk_dim=blk, span=span, metric="mse", device="cpu"
+    )
+    assert_fields_equal(want, got)
 
 
 def test_frame_inputs_are_checked():
