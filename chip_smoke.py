@@ -24,20 +24,30 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    operand_bf16=True)` at 3840x2160 8x8 +-12 (the packed-byte chunked
    kernel), every field equal to the golden search's, and the volume path:
    `full_search_volume_cuda` at 1920x1080 16x16 +-15 (MSE and SAD) and 7x7
-   +-7 (MSE), entry for entry equal to the golden volume.
-4. Each kernel against its plain PyTorch version on the card at full size
-   (tolerance: exact equality of every int32 cost, index and volume entry,
-   and of every float32 SSIM score: kernel and plain version round each
-   step alike).
+   +-7 (MSE), entry for entry equal to the golden volume, from the emit
+   modes alone. Then the diamond main path: `cli.main --device cuda
+   --algorithm diamond` at 1920x1080 16x16 +-15 on the JAX bench's config3
+   content (MSE, SAD, SSIM, MSE `--early-term 2.0`) and its adversarial
+   content (MSE, canonical escalation and `--escape-policy crossover`),
+   each run's MVs, costs and trajectories equal to a replay over the
+   golden volume on the card, and its stack to one built from those MVs.
+4. Each kernel and emit mode against its plain PyTorch version on the
+   card at full size (tolerance: exact equality of every int32 cost, index
+   and volume entry, and of every float32 SSIM score and -inf: kernel and
+   plain version round each step alike), and `ssim_volume_cuda` against
+   the golden SSIM volume.
 5. Timing with CUDA events: `run_pair` (median of --runs runs after
    warm-up) at 4K 8x8 +-12, 1080p 16x16 +-15, 4K 16x16 +-15, 4K 7x7 +-15
    and 1080p 24x24 +-15 (MSE) and 4K 16x16 +-7, 1080p 16x16 +-15 and 4K
    32x32 +-7 (SSIM), and each kernel's own time beside its plain
    version's; the phase, chunked and packed-byte chunked kernels in turns
-   on the same 4K 8x8 +-12 work; the volume entry and the phase kernel's
-   emit mode at 1080p 16x16 +-15.
-6. One JSON line listing the kernels, the nvidia-smi name/power-limit line,
-   and as the last line {"ok": true, "device": {...}}.
+   on the same 4K 8x8 +-12 work; the volume entries and the emit modes at
+   1080p 16x16 +-15; `run_pair` diamond beside full search on the config3
+   frames and on the adversarial frames (canonical and crossover), and the
+   diamond replay alone.
+6. One JSON line listing the kernels and emit modes, the nvidia-smi
+   name/power-limit line, and as the last line {"ok": true, "device":
+   {...}}.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 """
@@ -45,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -80,6 +91,8 @@ REPLACES = {
         "motionestimation_tpu/kernels/full_search_pallas.py:348",
     "me_wide_search": "motionestimation_tpu/kernels/full_search_pallas.py:471",
 }
+# An emit mode is listed apart from its kernel's search: "<launcher> (emit)".
+EMIT = " (emit)"
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 ops/s, and
 # float32 outside the tensor cores.
 HBM_BYTES_S = 3.35e12
@@ -119,6 +132,20 @@ SSIM_CONFIGS = [
 # (height, width, blk, span): the int kernel alone on a frame whose bottom
 # and right block rows are both truncated.
 EDGE_CASE = (700, 1000, 32, 8)
+# The JAX bench's diamond cells (bench/matrix.py:186-263): 1080p 16x16
+# +-15 on config3 content (texture 4, shift (1, -2), noise +-1) and on
+# adversarial content (shift (14, -14), noise +-2) that escalates.
+DIAMOND = (1080, 1920, 16, 15)
+# (label, content, extra CLI arguments, metric)
+DIAMOND_RUNS = [
+    ("mse", "config3", [], "mse"),
+    ("sad", "config3", ["--metric", "sad"], "sad"),
+    ("ssim", "config3", ["--metric", "ssim"], "ssim"),
+    ("mse early-term 2.0", "config3", ["--early-term", "2.0"], "mse"),
+    ("mse adversarial", "adversarial", [], "mse"),
+    ("mse adversarial crossover", "adversarial",
+     ["--escape-policy", "crossover"], "mse"),
+]
 
 
 def fail(message: str):
@@ -140,6 +167,19 @@ def synthetic_pair(h, w, seed):
     cur = np.roll(ref, (3, -5), (0, 1)).astype(np.int32)
     cur += rng.integers(-6, 7, (h, w))
     return np.clip(cur, 0, 255).astype(np.uint8), ref
+
+
+def synth(rng, h, w, texture=4, shift=(1, -2), noise=1):
+    """The JAX bench's synthetic content (bench/matrix.py `_synth`):
+    blocky texture plus Gaussian noise, the current frame moved by
+    `shift` plus uniform noise."""
+    small = rng.integers(0, 256, (h // texture + 2, w // texture + 2))
+    ref = np.clip(np.kron(small, np.ones((texture, texture)))[:h, :w]
+                  + rng.normal(0, 1, (h, w)), 0, 255).astype(np.uint8)
+    cur = np.clip(np.roll(ref, shift, (0, 1)).astype(np.int32)
+                  + rng.integers(-noise, noise + 1, (h, w)),
+                  0, 255).astype(np.uint8)
+    return cur, ref
 
 
 def run_cli(cli, argv):
@@ -186,7 +226,7 @@ def valid_candidates(h, w, blk, span, tile, origin):
 
 def bound(h, w, blk, span, tile, origin, ssim=False, volume=False):
     """(bound_ms, bound_by): the largest of bytes read once / written once
-    (with `volume`, the int32 [K², nby, nbx] volume too) over the HBM rate,
+    (with `volume`, the 4-byte [K², nby, nbx] volume too) over the HBM rate,
     2 integer ops (subtract or product, accumulate) per pixel-candidate
     over the int8 peak and, for SSIM, SSIM_FLOPS per block-candidate over
     the float32 rate."""
@@ -231,6 +271,7 @@ def main(argv=None) -> int:
     from motionestimation_tpu_torch.kernels import full_search_cuda as kc
     from motionestimation_tpu_torch.kernels import ssim_cuda as sc
     from motionestimation_tpu_torch.pipeline import runner
+    from motionestimation_tpu_torch.search import diamond
     from motionestimation_tpu_torch.search import full_search as fs
 
     t_start = time.perf_counter()
@@ -253,6 +294,8 @@ def main(argv=None) -> int:
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip())
     print(f"build phase {time.perf_counter() - t0:.1f} s")
+    # name -> (wrapper, counter): a kernel's launches, and its emit mode's
+    # launches (the launches with a volume) apart.
     counters = {"me_phase_search": kc.phase_search,
                 "me_int_search": kc.int_search,
                 "me_ssim_fast_search": sc.ssim_fast_search,
@@ -260,15 +303,23 @@ def main(argv=None) -> int:
                 "me_chunked_search": kc.chunked_search,
                 "me_chunked_u8_search": kc.chunked_u8_search,
                 "me_wide_search": kc.wide_search}
+    counters = {name: (fn, "launches") for name, fn in counters.items()}
+    for name in ("me_phase_search", "me_int_search", "me_chunked_search",
+                 "me_ssim_fast_search", "me_ssim_search"):
+        counters[name + EMIT] = (counters[name][0], "volume_launches")
     mse_kernels = ("me_phase_search", "me_int_search")
     ssim_kernels = ("me_ssim_fast_search", "me_ssim_search")
 
     def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def launches(name):
+        fn, attr = counters[name]
+        return getattr(fn, attr)
 
     def read_counts(names, what):
-        counts = {n: counters[n].launches for n in names}
+        counts = {n: launches(n) for n in names}
         print(f"{what} launches: {counts}")
         if not all(v > 0 for v in counts.values()):
             fail(f"{what}: a kernel never launched: {counts}")
@@ -294,12 +345,17 @@ def main(argv=None) -> int:
     max_err = dict.fromkeys(counters, 0.0)
 
     def compare(kernel_names, got, want, what):
-        err = max(float((a.double() - b.double()).abs().max())
-                  if a.numel() else 0.0 for a, b in zip(got, want))
+        """Exact equality of every entry (equal infinities count as equal),
+        dtype and shape; records the largest difference."""
+        err = max(float(torch.where(a == b, 0.0, (a.double() - b.double())
+                                    .abs()).max())
+                  if a.shape == b.shape and a.numel() else 0.0
+                  for a, b in zip(got, want))
         for name in kernel_names:
             max_err[name] = max(max_err[name], err)
         print(f"{what}: max |kernel - plain| = {err}")
-        if err or any(a.dtype != b.dtype for a, b in zip(got, want)):
+        if err or not all(a.dtype == b.dtype and torch.equal(a, b)
+                          for a, b in zip(got, want)):
             fail(f"{what}: kernel disagrees with its plain version")
 
     def golden_search(cur, ref, **kw):
@@ -414,7 +470,13 @@ def main(argv=None) -> int:
                                           span=span, metric=metric,
                                           device=dev)
                for _, h, w, blk, span, metric in VOLUME_CONFIGS]
-    read_counts(("me_phase_search", "me_chunked_search"), "volume path")
+    volume_kernels = tuple(n + EMIT for n in (
+        "me_phase_search", "me_chunked_search", "me_int_search"))
+    counts = read_counts(volume_kernels, "volume path")
+    main_launches["me_chunked_search" + EMIT] = counts[
+        "me_chunked_search" + EMIT]
+    if launches("me_phase_search") != launches("me_phase_search" + EMIT):
+        fail("volume path: a search launch without a volume")
     for (label, h, w, blk, span, metric), got in zip(VOLUME_CONFIGS,
                                                       volumes):
         _, want = golden_search(*pairs[h, w], blk_dim=blk, span=span,
@@ -423,11 +485,95 @@ def main(argv=None) -> int:
                     if kc.phase_supported(blk, span, metric)
                     else "me_chunked_search")
         invalid = int((want == 2**31 - 1).sum())
-        compare([interior], [got], [want],
+        compare([interior + EMIT, "me_int_search" + EMIT], [got], [want],
                 f"full_search_volume_cuda {label} {tuple(got.shape)} "
                 f"({got.numel() * 4 / 1e6:.1f} MB, {invalid} INT32_MAX "
                 f"entries)")
     del volumes, want
+
+    # -- the diamond main path ----------------------------------------------
+    h, w, blk, span = DIAMOND
+    rng = np.random.default_rng(args.seed)
+    contents = {"config3": synth(rng, h, w),
+                "adversarial": synth(rng, h, w, shift=(14, -14), noise=2)}
+    levels = diamond._staged_levels(span)
+    k = 2 * span + 1
+    golden = {}  # (content, metric) -> (golden field, golden volume)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        for name, (cur, ref) in contents.items():
+            cur.tofile(os.path.join(work, f"cur_{name}.yuv"))
+            ref.tofile(os.path.join(work, f"ref_{name}.yuv"))
+        for label, content, extra, metric in DIAMOND_RUNS:
+            print(f"== main path (diamond {label}): cli.main --device cuda "
+                  f"--algorithm diamond {' '.join(extra)} at {w}x{h} "
+                  f"{blk}x{blk} +-{span}, {content} content")
+            cur, ref = contents[content]
+            out_dir = os.path.join(work, "diamond_" + label.replace(" ", "_"))
+            reset_counts()
+            run_cli(cli, [
+                os.path.join(work, f"cur_{content}.yuv"),
+                os.path.join(work, f"ref_{content}.yuv"), out_dir, str(blk),
+                str(span), str(w), str(h), "--device", "cuda",
+                "--algorithm", "diamond", *extra, "--timing-row",
+            ])
+            names = [n + EMIT for n in (ssim_kernels if metric == "ssim"
+                                        else mse_kernels)]
+            crossover = "crossover" in extra
+            counts = read_counts(names, f"main path (diamond {label})")
+            for n, c in counts.items():
+                main_launches.setdefault(n, c)
+            if content == "adversarial" and not crossover and any(
+                    c < len(levels) for c in counts.values()):
+                fail(f"diamond {label}: no escalation to level {span}")
+            if crossover and not all(launches(n) > launches(n + EMIT)
+                                     for n in mse_kernels):
+                fail(f"diamond {label}: the crossover search never ran")
+            # The reference: the canonical replay over the golden volume.
+            if (content, metric) not in golden:
+                golden[content, metric] = golden_search(
+                    cur, ref, blk_dim=blk, span=span, metric=metric,
+                    return_cost_volume=True)
+            best, volume = golden[content, metric]
+            kw = dict(blk_dim=blk, metric=metric, early_term=(
+                float(extra[1]) if "--early-term" in extra else None),
+                max_steps=diamond.default_max_steps(span),
+                frame_height=h, frame_width=w)
+            want, want_traj, _ = diamond._replay(
+                volume, span=span, record_trajectory=not crossover, **kw)
+            if crossover:
+                r = levels[0]
+                level = volume.view(k, k, *volume.shape[1:])[
+                    span - r : span + r + 1, span - r : span + r + 1]
+                want, _, esc = diamond._replay(
+                    level.reshape(-1, *volume.shape[1:]).contiguous(),
+                    span=r, record_trajectory=False, track_escape=True, **kw)
+                print(f"  crossover: {int(esc.sum())} of {esc.numel()} "
+                      f"blocks escape level {r}")
+                if not esc.any():
+                    fail("diamond crossover: no block escaped level 1")
+                want = diamond._merge(esc, best, want)
+            got = diamond.diamond_search_frame(
+                cur, ref, blk_dim=blk, span=span, metric=metric,
+                early_term=kw["early_term"],
+                escape_policy="crossover" if crossover else "canonical",
+                record_trajectory=not crossover, device=dev)
+            if not crossover:
+                got, got_traj = got
+                if not torch.equal(got_traj, want_traj):
+                    fail(f"diamond {label}: trajectory differs from the "
+                         f"replay over the golden volume")
+            for a, b in zip(got, want):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"diamond {label}: field differs from the replay "
+                         f"over the golden volume")
+            comp = check_stack(out_dir, cur, ref, want, blk, span, label,
+                               frames_lib)
+            moved = int(((want.mv_y != 0) | (want.mv_x != 0)).sum())
+            print(f"diamond {label}: MVs, costs"
+                  f"{'' if crossover else ', trajectories'} and stack equal "
+                  f"the replay over the golden volume; {moved} of "
+                  f"{want.mv_y.numel()} blocks moved; PSNR "
+                  f"{frames_lib.image_psnr(comp, cur):.6f}")
 
     # -- 4. each kernel against its plain version on the card -------------
     print("== kernels vs their plain versions on the card (exact)")
@@ -573,38 +719,79 @@ def main(argv=None) -> int:
                                        w, blk, span, args.seed)
     shapes["me_wide_search"] = (kc.wide_search, kc.search_plain, tile, kw,
                                 geo)
-    # The emit modes: cost, index and every volume entry.
+    # The emit modes: cost or score, index and every volume entry,
+    # INT32_MAX and -inf included.
     for fn, name, h, w, blk, span in (
         (kc.phase_search, "me_phase_search", 1080, 1920, 16, 15),
         (kc.chunked_search, "me_chunked_search", 1080, 1920, 7, 7),
     ):
-        interior_check(fn, name, h, w, blk, span, args.seed,
-                       " with its volume", return_volume=True)
+        shapes[name + EMIT] = (fn, kc.search_plain) + interior_check(
+            fn, name + EMIT, h, w, blk, span, args.seed, " with its volume",
+            return_volume=True)
+    h, w, blk, span = DIAMOND
+    cur_t, halo = operands(h, w, span, args.seed)
+    nyf = h // blk
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w,
+              return_volume=True)
+    tile = (cur_t[: nyf * blk], halo)
+    slab = (cur_t[nyf * blk:], halo[nyf * blk:])
+    for fn, plain, name, ops, extra, where in (
+        (sc.ssim_fast_search, sc.ssim_plain, "me_ssim_fast_search", tile, {},
+         "interior"),
+        (sc.ssim_search, sc.ssim_plain, "me_ssim_search", slab,
+         dict(y_origin=nyf * blk), f"bottom slab ({h - nyf * blk} rows)"),
+        (kc.int_search, kc.search_plain, "me_int_search", slab,
+         dict(y_origin=nyf * blk, metric="mse"),
+         f"bottom slab ({h - nyf * blk} rows)"),
+    ):
+        fkw = dict(kw, **extra)
+        got = fn(*ops, **fkw)
+        invalid = int((~torch.isfinite(got[2].double())
+                       | (got[2].double() == 2**31 - 1)).sum())
+        compare([name + EMIT], got, plain(*ops, **fkw),
+                f"{name} with its volume {w}x{h} {blk}x{blk} +-{span} "
+                f"{where}, {tuple(got[2].shape)}, {invalid} -inf/INT32_MAX "
+                f"entries")
+        shapes[name + EMIT] = (fn, plain, ops, fkw, (
+            h, w, blk, span, tuple(ops[0].shape), (fkw.get("y_origin", 0), 0)))
+    cur, ref = contents["config3"]
+    got = sc.ssim_volume_cuda(cur, ref, blk_dim=blk, span=span, device=dev)
+    want = golden["config3", "ssim"][1]
+    compare(["me_ssim_fast_search" + EMIT, "me_ssim_search" + EMIT], [got],
+            [want], f"ssim_volume_cuda {w}x{h} {blk}x{blk} +-{span} "
+            f"{tuple(got.shape)} vs the golden volume "
+            f"({int(torch.isneginf(want).sum())} -inf entries)")
 
     # -- 5. timing -------------------------------------------------------
     print(f"== timing ({card}), median of {args.runs} runs after warm-up")
+
+    def time_run_pair(label, cur, ref, config):
+        """run_pair's medians over --runs calls after 3 of warm-up, with the
+        launches of one call."""
+        for _ in range(3):
+            runner.run_pair(cur, ref, config)
+        reset_counts()
+        runner.run_pair(cur, ref, config)
+        per_frame = {n: launches(n) for n in counters if launches(n)}
+        results = [runner.run_pair(cur, ref, config)
+                   for _ in range(args.runs)]
+        kernel_ms = statistics.median(r.kernel_ms for r in results)
+        total_ms = statistics.median(r.total_ms for r in results)
+        row = min(results, key=lambda r: abs(r.kernel_ms - kernel_ms))
+        h, w, blk = config.frame_height, config.frame_width, config.blk_dim
+        nblocks = -(-h // blk) * -(-w // blk)
+        print(f"{label}: timing_row {row.timing_row} | search "
+              f"{kernel_ms:.4f} ms, {nblocks / kernel_ms / 1e3:.3f} M "
+              f"blocks/s, {1e3 / kernel_ms:.1f} fps (search), "
+              f"{1e3 / total_ms:.1f} fps (total {total_ms:.4f} ms) | "
+              f"launches/frame {per_frame} | {card}")
+
     for metric, configs in (("mse", CONFIGS), ("ssim", SSIM_CONFIGS)):
         for label, h, w, blk, span in configs:
             cur, ref = pairs.get((h, w)) or synthetic_pair(h, w, args.seed)
-            config = SearchConfig(blk_dim=blk, span=span, metric=metric,
-                                  frame_width=w, frame_height=h)
-            for _ in range(3):
-                runner.run_pair(cur, ref, config)
-            reset_counts()
-            runner.run_pair(cur, ref, config)
-            per_frame = {n: fn.launches for n, fn in counters.items()
-                         if fn.launches}
-            results = [runner.run_pair(cur, ref, config)
-                       for _ in range(args.runs)]
-            kernel_ms = statistics.median(r.kernel_ms for r in results)
-            total_ms = statistics.median(r.total_ms for r in results)
-            row = min(results, key=lambda r: abs(r.kernel_ms - kernel_ms))
-            nblocks = -(-h // blk) * -(-w // blk)
-            print(f"{label}: timing_row {row.timing_row} | kernel "
-                  f"{kernel_ms:.4f} ms, {nblocks / kernel_ms / 1e3:.3f} M "
-                  f"blocks/s, {1e3 / kernel_ms:.1f} fps (kernel), "
-                  f"{1e3 / total_ms:.1f} fps (total {total_ms:.4f} ms) | "
-                  f"launches/frame {per_frame} | {card}")
+            time_run_pair(label, cur, ref, SearchConfig(
+                blk_dim=blk, span=span, metric=metric, frame_width=w,
+                frame_height=h))
             cur_t = torch.from_numpy(cur).to(dev)
             halo = torch.nn.functional.pad(torch.from_numpy(ref).to(dev),
                                            (span, span, span, span))
@@ -677,13 +864,92 @@ def main(argv=None) -> int:
           f"plain {emit_plain_ms:.2f} ms; bound {emit_bound:.6f} ms, "
           f"{emit_by}, {volume_mb:.1f} MB written) | {card}")
 
+    h, w, blk, span = DIAMOND
+    print(f"== diamond at {w}x{h} {blk}x{blk} +-{span}, the JAX bench's "
+          f"config3 and adversarial content, beside full search ({card})")
+    for label, content, algorithm, metric, early, policy in (
+        ("config3-ref: full search mse", "config3", "full", "mse", None,
+         "canonical"),
+        ("config3: diamond mse", "config3", "diamond", "mse", None,
+         "canonical"),
+        ("config3-early: diamond mse early-term 2.0", "config3", "diamond",
+         "mse", 2.0, "canonical"),
+        ("full search ssim", "config3", "full", "ssim", None, "canonical"),
+        ("config3-ssim-staged: diamond ssim", "config3", "diamond", "ssim",
+         None, "canonical"),
+        ("adversarial: diamond mse", "adversarial", "diamond", "mse", None,
+         "canonical"),
+        ("adversarial: diamond mse crossover", "adversarial", "diamond",
+         "mse", None, "crossover"),
+    ):
+        time_run_pair(label, *contents[content], SearchConfig(
+            blk_dim=blk, span=span, metric=metric, algorithm=algorithm,
+            early_term=early, escape_policy=policy, frame_width=w,
+            frame_height=h))
+    cur_d, ref_d = (torch.from_numpy(a).to(dev) for a in contents["config3"])
+    volumes = {}
+    for metric, r in (("mse", levels[0]), ("mse", span), ("ssim", levels[0]),
+                      ("ssim", span)):
+        entry = sc.ssim_volume_cuda if metric == "ssim" else functools.partial(
+            kc.full_search_volume_cuda, metric=metric)
+        vkw = dict(blk_dim=blk, span=r, device=dev)
+        volumes[metric, r] = entry(cur_d, ref_d, **vkw)
+        entry_ms = [cuda_ms(lambda: entry(cur_d, ref_d, **vkw), 1)
+                    for _ in range(5)]
+        print(f"  {entry.__name__ if metric == 'ssim' else 'full_search_volume_cuda'}"
+              f" {metric} radius {r}: median {statistics.median(entry_ms):.4f}"
+              f" ms (runs {[round(t, 4) for t in entry_ms]}) | {card}")
+    for metric in ("mse", "ssim"):
+        r = levels[0]
+        rounds = []
+        rkw = dict(blk_dim=blk, span=r, metric=metric, early_term=None,
+                   max_steps=diamond.default_max_steps(span),
+                   record_trajectory=False, frame_height=h, frame_width=w,
+                   track_escape=True)
+        _, _, esc = diamond._replay(volumes[metric, r],
+                                    fill=lambda t, *_: rounds.append(t),
+                                    **rkw)
+        replay_ms = [cuda_ms(lambda: diamond._replay(volumes[metric, r],
+                                                     **rkw), 1)
+                     for _ in range(5)]
+        print(f"  replay alone, {metric} level {r}: median "
+              f"{statistics.median(replay_ms):.4f} ms (runs "
+              f"{[round(t, 4) for t in replay_ms]}; CUDA events around host "
+              f"dispatch), {len(rounds)} LDSP rounds, {int(esc.sum())} "
+              f"blocks escape | {card}")
+    del volumes
+    cur_t, halo = operands(h, w, span, args.seed)
+    nyf = h // blk
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
+    tile = (cur_t[: nyf * blk], halo)
+    slab = (cur_t[nyf * blk:], halo[nyf * blk:])
+    for fn, ops, extra in ((sc.ssim_fast_search, tile, {}),
+                           (sc.ssim_search, slab, dict(y_origin=nyf * blk)),
+                           (kc.int_search, slab, dict(y_origin=nyf * blk,
+                                                      metric="mse"))):
+        fkw = dict(kw, **extra)
+        fn(*ops, return_volume=True, **fkw)  # warm-up: loads the instance
+        turns = {"search": [], "emit": []}
+        for mode in ("search", "emit", "emit", "search"):
+            turns[mode].append(cuda_ms(lambda: fn(
+                *ops, return_volume=mode == "emit", **fkw), 20))
+        geo = (h, w, blk, span, tuple(ops[0].shape), (fkw.get("y_origin", 0),
+                                                      0))
+        print(f"  {fn.__name__} on {tuple(ops[0].shape)}: emit "
+              f"{statistics.mean(turns['emit']):.4f} ms, search "
+              f"{statistics.mean(turns['search']):.4f} ms (in turns, 20 "
+              f"launches each: {turns}); emit bound "
+              f"{bound(*geo, ssim=fn is not kc.int_search, volume=True)[0]:.6f}"
+              f" ms | {card}")
+
     # -- 6. the kernels line ----------------------------------------------
     kernels = []
     for name, (fn, plain, fargs, fkw, geo) in shapes.items():
-        ssim = name in ssim_kernels
+        base = name.removesuffix(EMIT)
         ms = cuda_ms(lambda: fn(*fargs, **fkw), 50)
         plain_ms = cuda_ms(lambda: plain(*fargs, **fkw), 2)
-        bound_ms, bound_by = bound(*geo, ssim=ssim)
+        bound_ms, bound_by = bound(*geo, ssim=base in ssim_kernels,
+                                   volume=name.endswith(EMIT))
         h, w, blk, span, (th, tw), _ = geo
         pixel_cands, block_cands = valid_candidates(*geo)
         int32_ms = 2 * pixel_cands / (props.multi_processor_count * 64
@@ -696,8 +962,8 @@ def main(argv=None) -> int:
               f"({props.multi_processor_count} SMs x 64 x {max_clock_mhz:.0f} "
               f"MHz)) | {card}")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": main_launches[name],
+            "name": name, "route": "cuda", "source": SOURCE[base],
+            "replaces": REPLACES[base], "launches": main_launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })

@@ -1,7 +1,9 @@
 """Command-line driver, argv-compatible with the reference binaries.
 
     python -m motionestimation_tpu_torch.cli <current> <reference> <outdir> \
-        [blkDim] [extraSpan] [frameWidth] [frameHeight] [--device cuda|cpu]
+        [blkDim] [extraSpan] [frameWidth] [frameHeight] [--device cuda|cpu] \
+        [--metric mse|sad|ssim] [--algorithm full|diamond] \
+        [--early-term THRESH] [--escape-policy canonical|crossover]
 
 Stdout mirrors the reference binaries: the config echo block, then for
 MSE/SAD `PSNR: %.6f`, the output dimensions, `Computation time: %.0f ms`
@@ -9,10 +11,12 @@ and `PSNR: %.0f `; for `--metric ssim` `Original Score: %.4f, Compensated
 Score: %.4f` and the output dimensions. `--timing-row` adds
 `total h2d kernel d2h psnr`. `--debug-block BY BX` prints one block's
 cost surface and winner as `[debug]` lines, from the golden search's cost
-volume. The run uses the CUDA card unless `--device cpu` is given; without
-CUDA the default raises. Options of the JAX command line that later slices
-of the port bring (`--algorithm diamond`, `--gop`, `--profile`) raise
-NotImplementedError naming their ROADMAP.md item.
+volume. `--algorithm diamond` runs diamond search with `--early-term` and
+`--escape-policy`, as the JAX command line does. The run uses the CUDA
+card unless `--device cpu` is given; without CUDA the default raises.
+Options of the JAX command line that later slices of the port bring
+(`--gop`, `--profile`) raise NotImplementedError naming their ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -50,6 +54,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--algorithm", choices=("full", "diamond"), default="full"
     )
+    p.add_argument(
+        "--escape-policy", choices=("canonical", "crossover"),
+        default="canonical",
+        help="diamond staged-escalation policy: 'canonical' keeps exact "
+        "diamond trajectories; 'crossover' gives blocks that escape the "
+        "first level the full-search optimum (a flagged deviation)",
+    )
+    p.add_argument(
+        "--early-term", type=float, default=None, metavar="THRESH",
+        help="diamond early-termination threshold: stop a block's search "
+        "once its mean cost beats THRESH (MSE/SAD <=, SSIM >=)",
+    )
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--gop", nargs="+", metavar="FRAME", default=None)
     p.add_argument("--no-output", action="store_true")
@@ -86,8 +102,6 @@ def _print_debug_block(cur, ref, config: SearchConfig, by: int, bx: int,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.algorithm == "diamond":
-        raise NotImplementedError(runner.DIAMOND_SLICE)
     for opt, message in _LATER.items():
         if getattr(args, opt) is not None:
             raise NotImplementedError(message)
@@ -96,6 +110,9 @@ def main(argv=None) -> int:
         blk_dim=args.blk_dim,
         span=args.span,
         metric=args.metric,
+        algorithm=args.algorithm,
+        early_term=args.early_term,
+        escape_policy=args.escape_policy,
         frame_width=args.frame_width,
         frame_height=args.frame_height,
     )

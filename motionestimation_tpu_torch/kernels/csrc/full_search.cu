@@ -9,7 +9,9 @@
 // me_int_search — replaces the Pallas kernel `_kernel_int`
 //   (full_search_pallas.py:1076, launched by `_run_int` :1178). Any blk,
 //   truncated block extents (the last block row / column of a frame, or
-//   the whole frame where the phase kernel does not apply).
+//   the whole frame where the phase kernel does not apply), with an
+//   optional cost volume (the edge slabs of the whole-frame volume, which
+//   the JAX package computes with its golden tile search, :1922-1949).
 //
 // Contract (shared with the plain PyTorch version in full_search_cuda.py):
 //   cur:  uint8 [tile_h, tile_w] (row stride cur_ld), pixel (0, 0) at global
@@ -18,8 +20,8 @@
 //         global reference pixel (y_origin + r - span, x_origin + c - span)
 //         sits at [r, c], zero outside the frame.
 //   out:  int32 cost and flat index per block, [nby, nbx] (row stride out_ld).
-//   vol:  (phase kernel, optional) int32 [K*K][nby][out_ld]: every
-//         candidate's cost, INT32_MAX where the candidate is invalid.
+//   vol:  (optional) int32 [K*K][nby][out_ld]: every candidate's cost,
+//         INT32_MAX where the candidate is invalid.
 //   A displacement d (per axis, in [-span, span]) is valid iff
 //   0 <= tl + d <= frame - extent, with tl in global coordinates. The cost
 //   is the exact int32 SSD or SAD over the block's in-frame pixels. The
@@ -45,8 +47,8 @@
 // sum(c^2) + sum(r^2) - 2*sum(c*r), exact in 32 bits for blk <= 32
 // (sum(r^2) <= 255^2 * 1024 < 2^27). For blk <= 16 the macroblock's current
 // pixels stay in registers. The int kernel handles any extent byte by
-// byte: it runs on thin edge slabs, where its time is small. The volume
-// (a separate template instance) adds one 4-byte store per candidate; the
+// byte: it runs on thin edge slabs, where its time is small. A volume
+// (separate template instances) adds one 4-byte store per candidate; the
 // threads that split a block's candidates store to different planes, so
 // the stores are not coalesced.
 
@@ -211,15 +213,16 @@ phase_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
 
 // ---------------------------------------------------------------------------
 // Int kernel: one macroblock per CUDA block, any blk, truncated extents
-// blk_h = clip(frame_h - tl_y, 0, blk) (likewise blk_w). grid = (nbx, nby).
-template <bool SAD>
+// blk_h = clip(frame_h - tl_y, 0, blk) (likewise blk_w). EMIT writes every
+// candidate's cost to `vol`. grid = (nbx, nby).
+template <bool SAD, bool EMIT>
 __global__ void __launch_bounds__(kThreads)
 int_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
                   const uint8_t* __restrict__ ref, int ref_ld,
                   int32_t* __restrict__ out_cost,
-                  int32_t* __restrict__ out_idx, int out_ld, int blk,
-                  int span, int frame_h, int frame_w, int y_origin,
-                  int x_origin) {
+                  int32_t* __restrict__ out_idx, int32_t* __restrict__ vol,
+                  int out_ld, int nby, int blk, int span, int frame_h,
+                  int frame_w, int y_origin, int x_origin) {
   extern __shared__ unsigned long long smem[];
   const int K = 2 * span + 1;
   const int KK = K * K;
@@ -248,10 +251,15 @@ int_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
   const int oy_hi = min(2 * span, frame_h - bh - gy + span);
   const int ox_lo = max(0, span - gx);
   const int ox_hi = min(2 * span, frame_w - bw - gx + span);
+  int32_t* vrow = EMIT ? vol + static_cast<size_t>(by) * out_ld + bx : nullptr;
+  const size_t plane = static_cast<size_t>(nby) * out_ld;
   unsigned long long best = kNoKey;
   for (int cand = threadIdx.x; cand < KK; cand += kThreads) {
     const int oy = cand / K, ox = cand - oy * K;
-    if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) continue;
+    if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) {
+      if constexpr (EMIT) vrow[cand * plane] = kInt32Max;
+      continue;
+    }
     int acc = 0;
     for (int r = 0; r < bh; ++r) {
       const uint8_t* wr = win + (oy + r) * win_w + ox;
@@ -261,6 +269,7 @@ int_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
         acc += SAD ? abs(d) : d * d;
       }
     }
+    if constexpr (EMIT) vrow[cand * plane] = acc;
     const unsigned long long key =
         (static_cast<unsigned long long>(static_cast<uint32_t>(acc)) << 32) |
         static_cast<unsigned>(cand);
@@ -272,6 +281,25 @@ int_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
     const size_t o = static_cast<size_t>(by) * out_ld + bx;
     write_best(red, 0, out_cost + o, out_idx + o, centre);
   }
+}
+
+template <bool SAD, bool EMIT>
+int launch_int(const void* cur, const void* ref, void* out_cost,
+               void* out_idx, void* vol, int cur_ld, int ref_ld, int out_ld,
+               int nby, int nbx, int blk, int span, int frame_h, int frame_w,
+               int y_origin, int x_origin, cudaStream_t stream) {
+  const size_t smem = sizeof(unsigned long long) * kWarps +
+                      static_cast<size_t>(blk + 2 * span) * (blk + 2 * span) +
+                      static_cast<size_t>(blk) * blk;
+  if (!reserve_smem(int_search_kernel<SAD, EMIT>, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int_search_kernel<SAD, EMIT><<<dim3(nbx, nby), kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(cur), cur_ld,
+      static_cast<const uint8_t*>(ref), ref_ld,
+      static_cast<int32_t*>(out_cost), static_cast<int32_t*>(out_idx),
+      static_cast<int32_t*>(vol), out_ld, nby, blk, span, frame_h, frame_w,
+      y_origin, x_origin);
+  return static_cast<int>(cudaGetLastError());
 }
 
 size_t phase_smem_bytes(int blk, int tbx, int span) {
@@ -356,32 +384,23 @@ extern "C" int me_phase_search(const void* cur, const void* ref,
 #undef ME_PHASE_CASE
 }
 
+// metric and vol as for me_phase_search.
 extern "C" int me_int_search(const void* cur, const void* ref, void* out_cost,
-                             void* out_idx, int cur_ld, int ref_ld,
-                             int out_ld, int nby, int nbx, int blk, int span,
-                             int metric, int frame_h, int frame_w,
-                             int y_origin, int x_origin, void* stream) {
+                             void* out_idx, void* vol, int cur_ld,
+                             int ref_ld, int out_ld, int nby, int nbx,
+                             int blk, int span, int metric, int frame_h,
+                             int frame_w, int y_origin, int x_origin,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(unsigned long long) * kWarps +
-                      static_cast<size_t>(blk + 2 * span) * (blk + 2 * span) +
-                      static_cast<size_t>(blk) * blk;
-  const dim3 grid(nbx, nby);
+#define ME_INT_LAUNCH(SAD, EMIT)                                              \
+  return launch_int<SAD, EMIT>(cur, ref, out_cost, out_idx, vol, cur_ld,      \
+                               ref_ld, out_ld, nby, nbx, blk, span, frame_h,  \
+                               frame_w, y_origin, x_origin, s)
   if (metric == 1) {
-    if (!reserve_smem(int_search_kernel<true>, smem))
-      return static_cast<int>(cudaErrorInvalidValue);
-    int_search_kernel<true><<<grid, kThreads, smem, s>>>(
-        static_cast<const uint8_t*>(cur), cur_ld,
-        static_cast<const uint8_t*>(ref), ref_ld,
-        static_cast<int32_t*>(out_cost), static_cast<int32_t*>(out_idx),
-        out_ld, blk, span, frame_h, frame_w, y_origin, x_origin);
-  } else {
-    if (!reserve_smem(int_search_kernel<false>, smem))
-      return static_cast<int>(cudaErrorInvalidValue);
-    int_search_kernel<false><<<grid, kThreads, smem, s>>>(
-        static_cast<const uint8_t*>(cur), cur_ld,
-        static_cast<const uint8_t*>(ref), ref_ld,
-        static_cast<int32_t*>(out_cost), static_cast<int32_t*>(out_idx),
-        out_ld, blk, span, frame_h, frame_w, y_origin, x_origin);
+    if (vol != nullptr) ME_INT_LAUNCH(true, true);
+    ME_INT_LAUNCH(true, false);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (vol != nullptr) ME_INT_LAUNCH(false, true);
+  ME_INT_LAUNCH(false, false);
+#undef ME_INT_LAUNCH
 }

@@ -4,11 +4,14 @@
 //
 // me_ssim_fast_search — replaces the Pallas kernel `_kernel_ssim_fast`
 //   (motionestimation_tpu/kernels/ssim_pallas.py:214, launched by
-//   `_run_ssim_fast` :457). Full interior blocks, any blk <= 32, span >= 0.
+//   `_run_ssim_fast` :457). Full interior blocks, any blk <= 32, span >= 0,
+//   with an optional score volume (its `emit_volume` mode, :357-442).
 // me_ssim_search — replaces the Pallas kernel `_kernel_ssim`
 //   (ssim_pallas.py:48, launched by `_run_ssim` :163). Any blk, truncated
 //   block extents (the last block row / column of a frame, or the whole
-//   frame for blk > 32).
+//   frame for blk > 32), with an optional score volume (the edge slabs of
+//   the whole-frame volume, which the JAX package computes with its golden
+//   tile search, ssim_pallas.py:852-874).
 //
 // Contract (shared with the plain PyTorch version in ssim_cuda.py):
 //   cur:  uint8 [tile_h, tile_w] (row stride cur_ld), pixel (0, 0) at global
@@ -18,6 +21,8 @@
 //         sits at [r, c], zero outside the frame.
 //   out:  float32 score and int32 flat index per block, [nby, nbx] (row
 //         stride out_ld).
+//   vol:  (optional) float32 [K*K][nby][out_ld]: every candidate's raw
+//         score, scores <= 0 included, and -inf where it is invalid.
 //   A displacement d (per axis, in [-span, span]) is valid iff
 //   0 <= tl + d <= frame - extent. Its score is the SSIM of the block's
 //   in-frame pixels (extent = clip(frame - tl, 0, blk) per axis) and the
@@ -53,7 +58,11 @@
 // hi/lo float32 split and its box-sum pyramids are not needed. At small
 // blk the score itself (six IEEE divisions and a square root per
 // candidate) outweighs the sums. The truncated-extent kernel reads bytes
-// one by one; it runs on thin edge slabs, where its time is small.
+// one by one; it runs on thin edge slabs, where its time is small. The
+// volume (separate template instances; the search instances are unchanged)
+// adds one 4-byte store per candidate, invalid ones included; the threads
+// that split a block's candidates store to different planes, so the stores
+// are not coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +81,8 @@ using me::warp_store_min;
 constexpr float kC1 = 0.01f;
 constexpr float kC2 = 0.09f;
 constexpr float kC3 = 0.045f;
+// -inf: the volume entry of an invalid candidate.
+constexpr unsigned kNegInfBits = 0xff800000u;
 
 // The integer parts are taken modulo 2^32, as int32 arithmetic wraps in
 // the plain version; their true values fit in int32.
@@ -170,15 +181,16 @@ __device__ __forceinline__ void write_best(const unsigned long long* red,
 // Fast kernel: full blocks, CW packed words per block row, `tbx` macroblocks
 // per CUDA block along x. BLK is the block side when it is fixed at compile
 // time (4, 8, 16, 32: loops unroll, and up to 16 the block's pixels stay in
-// registers); 0 takes it from `blk_rt`, with (blk_rt + 3) / 4 == CW.
-// grid = (ceil(nbx / tbx), nby).
-template <int CW, int BLK>
+// registers); 0 takes it from `blk_rt`, with (blk_rt + 3) / 4 == CW. EMIT
+// writes every candidate's score to `vol`. grid = (ceil(nbx / tbx), nby).
+template <int CW, int BLK, bool EMIT>
 __global__ void __launch_bounds__(kThreads)
 ssim_fast_kernel(const uint8_t* __restrict__ cur, int cur_ld,
                  const uint8_t* __restrict__ ref, int ref_ld,
                  float* __restrict__ out_score, int32_t* __restrict__ out_idx,
-                 int out_ld, int nbx, int tbx, int blk_rt, int span,
-                 int frame_h, int frame_w, int y_origin, int x_origin) {
+                 float* __restrict__ vol, int out_ld, int nby, int nbx,
+                 int tbx, int blk_rt, int span, int frame_h, int frame_w,
+                 int y_origin, int x_origin) {
   constexpr bool kCurInRegs = BLK > 0 && BLK <= 16;
   const int blk = BLK > 0 ? BLK : blk_rt;
   // Bytes of the last word of a block row that belong to the block.
@@ -256,10 +268,18 @@ ssim_fast_kernel(const uint8_t* __restrict__ cur, int cur_ld,
     const CurStats cs = cur_stats(static_cast<int>(sum_c),
                                   static_cast<int>(sum_c2), count);
 
+    // This macroblock's entry of volume plane 0; plane c is `plane` further.
+    float* vrow = EMIT ? vol + static_cast<size_t>(by) * out_ld + bx0 + m
+                       : nullptr;
+    const size_t plane = static_cast<size_t>(nby) * out_ld;
+
     unsigned long long best = kNoKey;
     for (int cand = threadIdx.x; cand < KK; cand += kThreads) {
       const int oy = cand / K, ox = cand - oy * K;
-      if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) continue;
+      if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) {
+        if constexpr (EMIT) vrow[cand * plane] = __uint_as_float(kNegInfBits);
+        continue;
+      }
       const uint32_t* wp = win + oy * win_w + m * blk + ox;
       uint32_t cross = 0, sum_r2 = 0, sum_r = 0;
 #pragma unroll
@@ -282,6 +302,7 @@ ssim_fast_kernel(const uint8_t* __restrict__ cur, int cur_ld,
       const float score =
           ssim_score(cs, static_cast<int>(sum_r), static_cast<int>(sum_r2),
                      static_cast<int>(cross), count);
+      if constexpr (EMIT) vrow[cand * plane] = score;
       const unsigned long long key = score_key(score, cand);
       best = key < best ? key : best;
     }
@@ -297,14 +318,16 @@ ssim_fast_kernel(const uint8_t* __restrict__ cur, int cur_ld,
 
 // ---------------------------------------------------------------------------
 // Truncated-extent kernel: one macroblock per CUDA block, any blk, extents
-// blk_h = clip(frame_h - tl_y, 0, blk) (likewise blk_w). grid = (nbx, nby).
+// blk_h = clip(frame_h - tl_y, 0, blk) (likewise blk_w). EMIT writes every
+// candidate's score to `vol`. grid = (nbx, nby).
+template <bool EMIT>
 __global__ void __launch_bounds__(kThreads)
 ssim_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
                    const uint8_t* __restrict__ ref, int ref_ld,
                    float* __restrict__ out_score,
-                   int32_t* __restrict__ out_idx, int out_ld, int blk,
-                   int span, int frame_h, int frame_w, int y_origin,
-                   int x_origin) {
+                   int32_t* __restrict__ out_idx, float* __restrict__ vol,
+                   int out_ld, int nby, int blk, int span, int frame_h,
+                   int frame_w, int y_origin, int x_origin) {
   extern __shared__ unsigned long long smem[];
   const int K = 2 * span + 1;
   const int KK = K * K;
@@ -344,10 +367,15 @@ ssim_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
   const int oy_hi = min(2 * span, frame_h - bh - gy + span);
   const int ox_lo = max(0, span - gx);
   const int ox_hi = min(2 * span, frame_w - bw - gx + span);
+  float* vrow = EMIT ? vol + static_cast<size_t>(by) * out_ld + bx : nullptr;
+  const size_t plane = static_cast<size_t>(nby) * out_ld;
   unsigned long long best = kNoKey;
   for (int cand = threadIdx.x; cand < KK; cand += kThreads) {
     const int oy = cand / K, ox = cand - oy * K;
-    if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) continue;
+    if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) {
+      if constexpr (EMIT) vrow[cand * plane] = __uint_as_float(kNegInfBits);
+      continue;
+    }
     int sum_r = 0, sum_r2 = 0, cross = 0;
     for (int r = 0; r < bh; ++r) {
       const uint8_t* wr = win + (oy + r) * win_w + ox;
@@ -359,8 +387,9 @@ ssim_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
         cross += v * static_cast<int>(cr[x]);
       }
     }
-    const unsigned long long key =
-        score_key(ssim_score(cs, sum_r, sum_r2, cross, count), cand);
+    const float score = ssim_score(cs, sum_r, sum_r2, cross, count);
+    if constexpr (EMIT) vrow[cand * plane] = score;
+    const unsigned long long key = score_key(score, cand);
     best = key < best ? key : best;
   }
   warp_store_min(best, red, 0);
@@ -378,12 +407,12 @@ size_t fast_smem_bytes(int blk, int cw, int tbx, int span) {
          sizeof(uint32_t) * (win + static_cast<size_t>(blk) * tbx * cw);
 }
 
-template <int CW, int BLK>
+template <int CW, int BLK, bool EMIT>
 int launch_fast(const void* cur, const void* ref, void* out_score,
-                void* out_idx, int cur_ld, int ref_ld, int out_ld, int nby,
-                int nbx, int blk, int span, int frame_h, int frame_w,
+                void* out_idx, void* vol, int cur_ld, int ref_ld, int out_ld,
+                int nby, int nbx, int blk, int span, int frame_h, int frame_w,
                 int y_origin, int x_origin, cudaStream_t stream) {
-  auto kernel = ssim_fast_kernel<CW, BLK>;
+  auto kernel = ssim_fast_kernel<CW, BLK, EMIT>;
   int tbx = blk >= 64 ? 1 : 64 / blk;  // ~64 pixels of macroblocks per tile
   if (tbx > nbx) tbx = nbx;
   size_t smem = fast_smem_bytes(blk, CW, tbx, span);
@@ -396,26 +425,54 @@ int launch_fast(const void* cur, const void* ref, void* out_score,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(cur), cur_ld,
       static_cast<const uint8_t*>(ref), ref_ld,
-      static_cast<float*>(out_score), static_cast<int32_t*>(out_idx), out_ld,
-      nbx, tbx, blk, span, frame_h, frame_w, y_origin, x_origin);
+      static_cast<float*>(out_score), static_cast<int32_t*>(out_idx),
+      static_cast<float*>(vol), out_ld, nby, nbx, tbx, blk, span, frame_h,
+      frame_w, y_origin, x_origin);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool EMIT>
+int launch_truncated(const void* cur, const void* ref, void* out_score,
+                     void* out_idx, void* vol, int cur_ld, int ref_ld,
+                     int out_ld, int nby, int nbx, int blk, int span,
+                     int frame_h, int frame_w, int y_origin, int x_origin,
+                     cudaStream_t stream) {
+  const size_t smem = sizeof(unsigned long long) * kWarps +
+                      static_cast<size_t>(blk + 2 * span) * (blk + 2 * span) +
+                      static_cast<size_t>(blk) * blk;
+  if (!reserve_smem(ssim_search_kernel<EMIT>, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ssim_search_kernel<EMIT><<<dim3(nbx, nby), kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(cur), cur_ld,
+      static_cast<const uint8_t*>(ref), ref_ld,
+      static_cast<float*>(out_score), static_cast<int32_t*>(out_idx),
+      static_cast<float*>(vol), out_ld, nby, blk, span, frame_h, frame_w,
+      y_origin, x_origin);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). nby, nbx >= 1,
+// vol: null, or float32 [K*K][nby][out_ld] to receive every candidate's
+// score. Returns the cudaError_t of the launch (0 on success). nby, nbx >= 1,
 // 1 <= blk <= 32, span >= 0.
 extern "C" int me_ssim_fast_search(const void* cur, const void* ref,
-                                   void* out_score, void* out_idx, int cur_ld,
-                                   int ref_ld, int out_ld, int nby, int nbx,
-                                   int blk, int span, int frame_h,
-                                   int frame_w, int y_origin, int x_origin,
-                                   void* stream) {
+                                   void* out_score, void* out_idx, void* vol,
+                                   int cur_ld, int ref_ld, int out_ld,
+                                   int nby, int nbx, int blk, int span,
+                                   int frame_h, int frame_w, int y_origin,
+                                   int x_origin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ME_SSIM_FAST(CW, BLK)                                                 \
-  return launch_fast<CW, BLK>(cur, ref, out_score, out_idx, cur_ld, ref_ld,   \
-                              out_ld, nby, nbx, blk, span, frame_h, frame_w,  \
-                              y_origin, x_origin, s)
+  return vol != nullptr                                                       \
+             ? launch_fast<CW, BLK, true>(cur, ref, out_score, out_idx, vol,  \
+                                          cur_ld, ref_ld, out_ld, nby, nbx,   \
+                                          blk, span, frame_h, frame_w,        \
+                                          y_origin, x_origin, s)              \
+             : launch_fast<CW, BLK, false>(cur, ref, out_score, out_idx, vol, \
+                                           cur_ld, ref_ld, out_ld, nby, nbx,  \
+                                           blk, span, frame_h, frame_w,       \
+                                           y_origin, x_origin, s)
   if (blk < 1 || blk > 32 || span < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (blk) {
@@ -438,21 +495,19 @@ extern "C" int me_ssim_fast_search(const void* cur, const void* ref,
 #undef ME_SSIM_FAST
 }
 
+// vol as for me_ssim_fast_search.
 extern "C" int me_ssim_search(const void* cur, const void* ref,
-                              void* out_score, void* out_idx, int cur_ld,
-                              int ref_ld, int out_ld, int nby, int nbx,
-                              int blk, int span, int frame_h, int frame_w,
-                              int y_origin, int x_origin, void* stream) {
+                              void* out_score, void* out_idx, void* vol,
+                              int cur_ld, int ref_ld, int out_ld, int nby,
+                              int nbx, int blk, int span, int frame_h,
+                              int frame_w, int y_origin, int x_origin,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(unsigned long long) * kWarps +
-                      static_cast<size_t>(blk + 2 * span) * (blk + 2 * span) +
-                      static_cast<size_t>(blk) * blk;
-  if (!reserve_smem(ssim_search_kernel, smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  ssim_search_kernel<<<dim3(nbx, nby), kThreads, smem, s>>>(
-      static_cast<const uint8_t*>(cur), cur_ld,
-      static_cast<const uint8_t*>(ref), ref_ld,
-      static_cast<float*>(out_score), static_cast<int32_t*>(out_idx), out_ld,
-      blk, span, frame_h, frame_w, y_origin, x_origin);
-  return static_cast<int>(cudaGetLastError());
+  if (vol != nullptr)
+    return launch_truncated<true>(cur, ref, out_score, out_idx, vol, cur_ld,
+                                  ref_ld, out_ld, nby, nbx, blk, span,
+                                  frame_h, frame_w, y_origin, x_origin, s);
+  return launch_truncated<false>(cur, ref, out_score, out_idx, vol, cur_ld,
+                                 ref_ld, out_ld, nby, nbx, blk, span, frame_h,
+                                 frame_w, y_origin, x_origin, s);
 }

@@ -8,7 +8,9 @@ The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`:
   blk in {1, 2, 4, 8, 16, 32}, span >= 1; optionally with the cost volume
   (its `emit_volume` mode).
 * `int_search` launches `me_int_search`, the port of `_kernel_int`
-  (:1076): blocks with truncated extents, any blk.
+  (:1076): blocks with truncated extents, any blk; optionally with the cost
+  volume (the JAX package computes the volume's edge slabs with its golden
+  tile search; here that search is the emit mode's plain version).
 * `chunked_search` launches `me_chunked_search`, the port of `_kernel_f32`
   (:131): MSE of full interior blocks, blk 1..16, span >= 0, by hoisted
   box sums; optionally with the cost volume.
@@ -20,13 +22,15 @@ The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`:
   routes as the JAX package does, runs the interior, then the bottom and
   right edge slabs, merges them in the same order, decodes MVs and scores.
 * `full_search_volume_cuda` (the port of `full_search_volume_pallas`,
-  :1796) returns the whole-frame [K², nby, nbx] cost volume.
+  :1796) returns the whole-frame [K², nby, nbx] cost volume from emit
+  modes alone.
 
 Beside the kernels stands their plain PyTorch version, `search_plain`,
 built on `search.full_search.make_displacement_cost` over the same inputs
 and output layout. A wrapper takes the plain version only for tensors on
 the CPU; for CUDA tensors it launches its kernel or raises. Each wrapper
-counts its launches in its `launches` attribute.
+counts its launches in its `launches` attribute, and those that write a
+volume (emit mode) in `volume_launches` as well.
 
 Operands (every wrapper):
   cur       uint8 [tile_h, tile_w], unit column stride; pixel (0, 0) is
@@ -63,7 +67,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "full_search": {
         "me_phase_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
-        "me_int_search": [_PTR] * 4 + [_INT] * 12 + [_PTR],
+        "me_int_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
     },
     "chunked": {
         "me_chunked_search": [_PTR] * 5 + [_INT] * 11 + [_PTR],
@@ -71,7 +75,7 @@ _SIGNATURES = {
         "me_wide_search": [_PTR] * 4 + [_INT] * 11 + [_PTR],
     },
 }
-_EMITTERS = ("me_phase_search", "me_chunked_search")
+_EMITTERS = ("me_phase_search", "me_int_search", "me_chunked_search")
 _TAKE_METRIC = ("me_phase_search", "me_int_search")
 
 
@@ -241,10 +245,18 @@ def search_plain(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
                           return_volume=return_volume)
 
 
+def count_launch(wrapper, volume) -> None:
+    """Count one launch of `wrapper`'s kernel, in emit mode when `volume`
+    is not None."""
+    wrapper.launches += 1
+    if volume is not None:
+        wrapper.volume_launches += 1
+
+
 def _interior(wrapper, source, cur, ref_halo, *, return_volume=False, **kw):
     """An interior wrapper's body: the plain version for CPU tensors, else
     one launch of `wrapper`'s kernel, the launcher `me_<wrapper name>` of
-    csrc/<source>.cu, counted in `wrapper.launches`."""
+    csrc/<source>.cu, counted by `count_launch`."""
     check_interior_tile(cur.shape, kw["blk_dim"], kw["frame_height"],
                         kw["frame_width"], kw["y_origin"], kw["x_origin"])
     if cur.device.type == "cpu":
@@ -259,7 +271,7 @@ def _interior(wrapper, source, cur, ref_halo, *, return_volume=False, **kw):
     else:
         fn = getattr(_lib(source), f"me_{wrapper.__name__}")
         out = _launch(fn, cur, ref_halo, nby, nbx, volume=volume, **kw)
-        wrapper.launches += 1
+        count_launch(wrapper, volume)
     return (*out, volume) if return_volume else out
 
 
@@ -285,7 +297,7 @@ def phase_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
     )
 
 
-phase_search.launches = 0
+phase_search.launches = phase_search.volume_launches = 0
 
 
 def _check_mse(metric, kernel):
@@ -317,7 +329,7 @@ def chunked_search(cur, ref_halo, *, blk_dim: int, span: int,
     )
 
 
-chunked_search.launches = 0
+chunked_search.launches = chunked_search.volume_launches = 0
 
 
 def chunked_u8_search(cur, ref_halo, *, blk_dim: int, span: int,
@@ -369,10 +381,12 @@ wide_search.launches = 0
 
 def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
                frame_height: int, frame_width: int, y_origin: int = 0,
-               x_origin: int = 0):
+               x_origin: int = 0, return_volume: bool = False):
     """Exact search with truncated block extents (`me_int_search`, the
     port of `_kernel_int`). The tile must hold every in-frame pixel of its
-    blocks; returns int32 (cost, idx), [cdiv(tile_h, blk), cdiv(tile_w, blk)]."""
+    blocks; returns int32 (cost, idx), [cdiv(tile_h, blk), cdiv(tile_w,
+    blk)], and with `return_volume` the int32 [K², nby, nbx] cost volume
+    (INT32_MAX at invalid candidates; the kernel's emit mode)."""
     _check_operands(cur, ref_halo, span, metric)
     check_edge_tile(cur.shape, blk_dim, frame_height, frame_width, y_origin,
                     x_origin)
@@ -381,18 +395,22 @@ def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
               frame_height=frame_height, frame_width=frame_width,
               y_origin=y_origin, x_origin=x_origin)
     if cur.device.type == "cpu":
-        return search_plain(cur, ref_halo, **kw)
+        return search_plain(cur, ref_halo, return_volume=return_volume, **kw)
     nby, nbx = geometry.grid_shape(tile_h, tile_w, blk_dim)
+    k = 2 * span + 1
+    volume = (torch.empty((k * k, nby, nbx), dtype=torch.int32,
+                          device=cur.device) if return_volume else None)
     if nby == 0 or nbx == 0:
-        empty = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
-        return empty, empty.clone()
-    out = _launch(_lib("full_search").me_int_search, cur, ref_halo, nby, nbx,
-                  **kw)
-    int_search.launches += 1
-    return out
+        out = tuple(torch.empty((nby, nbx), dtype=torch.int32,
+                                device=cur.device) for _ in range(2))
+    else:
+        out = _launch(_lib("full_search").me_int_search, cur, ref_halo, nby,
+                      nbx, volume=volume, **kw)
+        count_launch(int_search, volume)
+    return (*out, volume) if return_volume else out
 
 
-int_search.launches = 0
+int_search.launches = int_search.volume_launches = 0
 
 
 def bottom_slab(cur, ref_halo, blk_dim: int, span: int):
@@ -412,27 +430,31 @@ def right_slab(cur, ref_halo, blk_dim: int, span: int):
             x_org)
 
 
-def _edge_slab_bottom(cur, ref_halo, *, blk_dim: int, span: int, metric: str):
+def _edge_slab_bottom(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
+                      return_volume: bool = False):
     """Exact search of the last (truncated) block row: `int_search` on the
     slab of rows [y_org, H) (the port of `_edge_slab_bottom`, :1953).
-    Returns [1, nbx] block grids."""
+    Returns [1, nbx] block grids (and a [K², 1, nbx] volume)."""
     cur_s, halo_s, y_org = bottom_slab(cur, ref_halo, blk_dim, span)
     h, w = cur.shape
     return int_search(
         cur_s, halo_s, blk_dim=blk_dim, span=span, metric=metric,
         frame_height=h, frame_width=w, y_origin=y_org,
+        return_volume=return_volume,
     )
 
 
-def _edge_slab_right(cur, ref_halo, *, blk_dim: int, span: int, metric: str):
+def _edge_slab_right(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
+                     return_volume: bool = False):
     """Exact search of the last (truncated) block column: `int_search` on
     the slab of columns [x_org, W) (the port of `_edge_slab_right`,
-    :1985). Returns [nby, 1] block grids."""
+    :1985). Returns [nby, 1] block grids (and a [K², nby, 1] volume)."""
     cur_s, halo_s, x_org = right_slab(cur, ref_halo, blk_dim, span)
     h, w = cur.shape
     return int_search(
         cur_s, halo_s, blk_dim=blk_dim, span=span, metric=metric,
         frame_height=h, frame_width=w, x_origin=x_org,
+        return_volume=return_volume,
     )
 
 
@@ -463,11 +485,13 @@ def frame_operands(cur, ref, span: int, device: torch.device):
 
 def search_interior_and_edges(cur, ref_halo, interior, edge_bottom,
                               edge_right, *, blk_dim: int, span: int, **kw):
-    """Two [nby, nbx] result grids of a whole frame: `interior` on its whole
-    blocks, then `edge_bottom` on the truncated last block row and
+    """The results of a whole frame, each [..., nby, nbx]: `interior` on its
+    whole blocks, then `edge_bottom` on the truncated last block row and
     `edge_right` on the truncated last block column, which overwrites the
-    corner, as the JAX frame functions merge them
-    (full_search_pallas.py:1595-1608, ssim_pallas.py:661-676)."""
+    corner, as the JAX frame functions merge their result grids
+    (full_search_pallas.py:1595-1608, ssim_pallas.py:661-676) and volumes
+    (:1922-1949, ssim_pallas.py:852-874). With `return_volume=True` in `kw`
+    the last result is the [K², nby, nbx] volume."""
     h, w = cur.shape
     nby, nbx = geometry.grid_shape(h, w, blk_dim)
     nyf, nxf = h // blk_dim, w // blk_dim
@@ -475,18 +499,20 @@ def search_interior_and_edges(cur, ref_halo, interior, edge_bottom,
         cur[: nyf * blk_dim, : nxf * blk_dim], ref_halo, blk_dim=blk_dim,
         span=span, frame_height=h, frame_width=w, **kw,
     )
-    out = [torch.empty((nby, nbx), dtype=g.dtype, device=g.device)
-           for g in inner]
+    if (nyf, nxf) == (nby, nbx):
+        return list(inner)
+    out = [torch.empty((*g.shape[:-2], nby, nbx), dtype=g.dtype,
+                       device=g.device) for g in inner]
     for o, g in zip(out, inner):
-        o[:nyf, :nxf] = g
+        o[..., :nyf, :nxf] = g
     if h % blk_dim:
         for o, g in zip(out, edge_bottom(cur, ref_halo, blk_dim=blk_dim,
                                          span=span, **kw)):
-            o[nby - 1, :] = g[0]
+            o[..., nby - 1, :] = g[..., 0, :]
     if w % blk_dim:
         for o, g in zip(out, edge_right(cur, ref_halo, blk_dim=blk_dim,
                                         span=span, **kw)):
-            o[:, nbx - 1] = g[:, 0]
+            o[..., :, nbx - 1] = g[..., :, 0]
     return out
 
 
@@ -569,15 +595,16 @@ def full_search_volume_cuda(cur, ref, *, blk_dim: int, span: int,
     INT32_MAX at every invalid candidate; equal entry for entry to the
     golden `full_search_frame(..., return_cost_volume=True)`.
 
-    The port of `full_search_volume_pallas` (full_search_pallas.py:1796),
-    routed as it is on the TPU: the phase kernel's emit mode on the whole
-    blocks of a phase config; the chunked kernel's emit mode for MSE at
-    other blk <= 16. The JAX package computes the other supported configs
-    (SAD at blk 3, 5, 6, 7, 9-15) and the truncated last block row and
-    column (thin slabs, bottom then right, :1922-1949) in XLA with its
-    golden tile search, not in Pallas; here they are the golden tile search
-    on the same device. They are that code's counterpart, not a fallback for
-    a kernel. Unsupported configs (`volume_supported`) raise ValueError.
+    The port of `full_search_volume_pallas` (full_search_pallas.py:1796).
+    Every part comes from a kernel's emit mode: the phase kernel's on the
+    whole blocks of a phase config, the chunked kernel's for MSE at other
+    blk <= 16, then the int kernel's on the truncated last block row and
+    column (bottom, then right). Where no interior kernel applies (SAD at
+    blk 3, 5, 6, 7, 9-15) the int kernel's emit mode covers the whole
+    frame. The JAX package computes those slabs and configs with its golden
+    tile search in XLA; here that search is the emit modes' plain version
+    and runs only for CPU tensors. Unsupported configs (`volume_supported`)
+    raise ValueError.
     """
     if not volume_supported(blk_dim, span, metric):
         raise ValueError(
@@ -585,44 +612,16 @@ def full_search_volume_cuda(cur, ref, *, blk_dim: int, span: int,
             f"span={span} metric={metric!r} (needs MSE/SAD, span >= 1, and "
             f"blk_dim <= 16 or a phase-kernel config)"
         )
-    dev = resolve_device(device)
-    cur_t, ref_halo = frame_operands(cur, ref, span, dev)
+    cur_t, ref_halo = frame_operands(cur, ref, span, resolve_device(device))
     h, w = cur_t.shape
-    ref_t = ref_halo[span : span + h, span : span + w]
-    geo = dict(frame_height=h, frame_width=w, blk_dim=blk_dim, span=span,
-               metric=metric)
+    kw = dict(blk_dim=blk_dim, span=span, metric=metric, return_volume=True)
     if phase_supported(blk_dim, span, metric):
         interior = phase_search
     elif metric == "mse":
         interior = chunked_search
     else:
-        return fs.full_search_frame(
-            cur_t, ref_t, blk_dim=blk_dim, span=span, metric=metric,
-            return_cost_volume=True,
-        )[1]
-    nby, nbx = geometry.grid_shape(h, w, blk_dim)
-    nyf, nxf = h // blk_dim, w // blk_dim
-    *_, inner = interior(cur_t[: nyf * blk_dim, : nxf * blk_dim], ref_halo,
-                         return_volume=True, **geo)
-    if (nyf, nxf) == (nby, nbx):
-        return inner
-    k = 2 * span + 1
-    volume = torch.empty((k * k, nby, nbx), dtype=torch.int32, device=dev)
-    volume[:, :nyf, :nxf] = inner
-    cur_p = fs.pad_cur_frame(cur_t, h, w, blk_dim)
-    halo_p = fs.make_ref_halo(ref_t, h, w, blk_dim, span)
-    if h % blk_dim:
-        y = (nby - 1) * blk_dim
-        _, v = fs.full_search_tile(
-            cur_p[y : y + blk_dim], halo_p[y : y + blk_dim + 2 * span], y, 0,
-            **geo, return_cost_volume=True,
-        )
-        volume[:, nby - 1, :] = v[:, 0, :]
-    if w % blk_dim:
-        x = (nbx - 1) * blk_dim
-        _, v = fs.full_search_tile(
-            cur_p[:, x : x + blk_dim], halo_p[:, x : x + blk_dim + 2 * span],
-            0, x, **geo, return_cost_volume=True,
-        )
-        volume[:, :, nbx - 1] = v[:, :, 0]
-    return volume
+        return int_search(cur_t, ref_halo, frame_height=h, frame_width=w,
+                          **kw)[2]
+    return search_interior_and_edges(
+        cur_t, ref_halo, interior, _edge_slab_bottom, _edge_slab_right, **kw,
+    )[2]

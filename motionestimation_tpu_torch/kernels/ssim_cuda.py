@@ -5,20 +5,25 @@ the SSIM path:
 
 * `ssim_fast_search` launches `me_ssim_fast_search`, the port of the
   Pallas kernel `_kernel_ssim_fast` (ssim_pallas.py:214): all full
-  interior blocks, blk <= 32, span >= 0.
+  interior blocks, blk <= 32, span >= 0; optionally with the score volume
+  (its `emit_volume` mode).
 * `ssim_search` launches `me_ssim_search`, the port of `_kernel_ssim`
-  (:48): blocks with truncated extents, any blk.
+  (:48): blocks with truncated extents, any blk; optionally with the score
+  volume.
 * `ssim_search_frame_cuda` (the port of `ssim_search_frame_pallas`, :560)
   runs the interior, then the bottom and right edge slabs, merges them in
   the same order and decodes MVs.
+* `ssim_volume_cuda` (the port of `ssim_volume_pallas`, :690) returns the
+  whole-frame float32 [K², nby, nbx] score volume from the two emit modes.
 
 Beside the two kernels stands their plain PyTorch version, `ssim_plain`,
 built on `search.full_search.make_displacement_cost(metric="ssim")` and
 `scan_argmax` over the same inputs and output layout. A wrapper takes the
 plain version only for tensors on the CPU; for CUDA tensors it launches
 its kernel or raises. Each wrapper counts its launches in its `launches`
-attribute. Kernels and plain version evaluate the score one IEEE float32
-operation at a time in the same order, so they agree bit for bit.
+attribute, and those that write a volume in `volume_launches` as well.
+Kernels and plain version evaluate the score one IEEE float32 operation at
+a time in the same order, so they agree bit for bit.
 
 Operands (both wrappers), as in kernels/full_search_cuda.py:
   cur       uint8 [tile_h, tile_w], unit column stride; pixel (0, 0) is
@@ -44,7 +49,7 @@ from motionestimation_tpu_torch.kernels import full_search_cuda as fsc
 from motionestimation_tpu_torch.search import full_search as fs
 
 FAST_MAX_BLK = 32
-_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 @functools.cache
@@ -64,8 +69,9 @@ def ssim_supported(blk_dim: int, span: int) -> bool:
 
 
 def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, frame_height,
-            frame_width, y_origin, x_origin):
-    """Run one of the two CUDA launchers on a CUDA tensor pair."""
+            frame_width, y_origin, x_origin, volume=None):
+    """Run one of the two CUDA launchers on a CUDA tensor pair; `volume`, a
+    float32 [K², nby, nbx] tensor or None, receives every score."""
     fsc.check_kernel_operands(cur, ref_halo)
     score = torch.empty((nby, nbx), dtype=torch.float32, device=cur.device)
     idx = torch.empty((nby, nbx), dtype=torch.int32, device=cur.device)
@@ -74,6 +80,7 @@ def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, frame_height,
         err = fn(
             cur.data_ptr(), ref_halo.data_ptr(),
             score.data_ptr(), idx.data_ptr(),
+            None if volume is None else volume.data_ptr(),
             cur.stride(0), ref_halo.stride(0), nbx, nby, nbx,
             blk_dim, span, frame_height, frame_width, y_origin, x_origin,
             stream,
@@ -87,13 +94,16 @@ def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, frame_height,
 
 
 def ssim_plain(cur, ref_halo, *, blk_dim: int, span: int, frame_height: int,
-               frame_width: int, y_origin: int = 0, x_origin: int = 0):
+               frame_width: int, y_origin: int = 0, x_origin: int = 0,
+               return_volume: bool = False):
     """Plain PyTorch version of both kernels over the same operands.
 
     Block grid cdiv(tile, blk_dim), truncated extents from the frame, the
     raster scan with strict `>` from (0.0, centre). For the full in-frame
     blocks `ssim_fast_search` accepts, the extents are full and this is
-    the fast kernel's arithmetic too.
+    the fast kernel's arithmetic too. With `return_volume`, also the
+    float32 [K², nby, nbx] volume of every score (-inf at invalid
+    candidates).
     """
     fsc.check_operand_shapes(cur, ref_halo, span)
     tile_h, tile_w = cur.shape
@@ -109,15 +119,19 @@ def ssim_plain(cur, ref_halo, *, blk_dim: int, span: int, frame_height: int,
         frame_height=frame_height, frame_width=frame_width,
         blk_dim=blk_dim, span=span, metric="ssim",
     )
-    return fs.scan_argmax(cost_fn, span, (nby, nbx), cur.device)
+    return fs.scan_argmax(cost_fn, span, (nby, nbx), cur.device,
+                          return_volume=return_volume)
 
 
 def ssim_fast_search(cur, ref_halo, *, blk_dim: int, span: int,
                      frame_height: int, frame_width: int, y_origin: int = 0,
-                     x_origin: int = 0):
+                     x_origin: int = 0, return_volume: bool = False):
     """SSIM search of full interior blocks (`me_ssim_fast_search`, the port
     of `_kernel_ssim_fast`). Every block of the tile must lie inside the
-    frame; returns (float32 score, int32 idx), [tile_h // blk, tile_w // blk]."""
+    frame; returns (float32 score, int32 idx), [tile_h // blk, tile_w //
+    blk], and with `return_volume` the float32 [K², nby, nbx] volume of
+    every candidate's score (-inf at invalid candidates; the kernel's emit
+    mode)."""
     fsc.check_operand_shapes(cur, ref_halo, span)
     if not 1 <= blk_dim <= FAST_MAX_BLK or span < 0:
         raise ValueError(
@@ -126,68 +140,78 @@ def ssim_fast_search(cur, ref_halo, *, blk_dim: int, span: int,
         )
     fsc.check_interior_tile(cur.shape, blk_dim, frame_height, frame_width,
                             y_origin, x_origin)
-    kw = dict(blk_dim=blk_dim, span=span, frame_height=frame_height,
-              frame_width=frame_width, y_origin=y_origin, x_origin=x_origin)
-    if cur.device.type == "cpu":
-        return ssim_plain(cur, ref_halo, **kw)
-    nby, nbx = cur.shape[0] // blk_dim, cur.shape[1] // blk_dim
-    if nby == 0 or nbx == 0:
-        return _empty(nby, nbx, cur.device)
-    out = _launch(_lib().me_ssim_fast_search, cur, ref_halo, nby, nbx, **kw)
-    ssim_fast_search.launches += 1
-    return out
+    return _run(ssim_fast_search, cur, ref_halo,
+                (cur.shape[0] // blk_dim, cur.shape[1] // blk_dim),
+                return_volume, blk_dim=blk_dim, span=span,
+                frame_height=frame_height, frame_width=frame_width,
+                y_origin=y_origin, x_origin=x_origin)
 
 
-ssim_fast_search.launches = 0
+ssim_fast_search.launches = ssim_fast_search.volume_launches = 0
 
 
 def ssim_search(cur, ref_halo, *, blk_dim: int, span: int, frame_height: int,
-                frame_width: int, y_origin: int = 0, x_origin: int = 0):
+                frame_width: int, y_origin: int = 0, x_origin: int = 0,
+                return_volume: bool = False):
     """SSIM search with truncated block extents (`me_ssim_search`, the port
     of `_kernel_ssim`). The tile must hold every in-frame pixel of its
     blocks; returns (float32 score, int32 idx), [cdiv(tile_h, blk),
-    cdiv(tile_w, blk)]."""
+    cdiv(tile_w, blk)], and with `return_volume` the float32 [K², nby, nbx]
+    score volume (the kernel's emit mode)."""
     fsc.check_operand_shapes(cur, ref_halo, span)
     fsc.check_edge_tile(cur.shape, blk_dim, frame_height, frame_width,
                         y_origin, x_origin)
-    kw = dict(blk_dim=blk_dim, span=span, frame_height=frame_height,
-              frame_width=frame_width, y_origin=y_origin, x_origin=x_origin)
+    return _run(ssim_search, cur, ref_halo,
+                geometry.grid_shape(*cur.shape, blk_dim), return_volume,
+                blk_dim=blk_dim, span=span, frame_height=frame_height,
+                frame_width=frame_width, y_origin=y_origin, x_origin=x_origin)
+
+
+ssim_search.launches = ssim_search.volume_launches = 0
+
+
+def _run(wrapper, cur, ref_halo, grid, return_volume, **kw):
+    """A wrapper's body: the plain version for CPU tensors, else one launch
+    of `wrapper`'s kernel (`me_<wrapper name>`) on the [nby, nbx] `grid`,
+    counted by `count_launch`."""
     if cur.device.type == "cpu":
-        return ssim_plain(cur, ref_halo, **kw)
-    nby, nbx = geometry.grid_shape(*cur.shape, blk_dim)
+        return ssim_plain(cur, ref_halo, return_volume=return_volume, **kw)
+    nby, nbx = grid
+    k = 2 * kw["span"] + 1
+    volume = (torch.empty((k * k, nby, nbx), dtype=torch.float32,
+                          device=cur.device) if return_volume else None)
     if nby == 0 or nbx == 0:
-        return _empty(nby, nbx, cur.device)
-    out = _launch(_lib().me_ssim_search, cur, ref_halo, nby, nbx, **kw)
-    ssim_search.launches += 1
-    return out
+        out = (torch.empty((nby, nbx), dtype=torch.float32, device=cur.device),
+               torch.empty((nby, nbx), dtype=torch.int32, device=cur.device))
+    else:
+        out = _launch(getattr(_lib(), f"me_{wrapper.__name__}"), cur,
+                      ref_halo, nby, nbx, volume=volume, **kw)
+        fsc.count_launch(wrapper, volume)
+    return (*out, volume) if return_volume else out
 
 
-ssim_search.launches = 0
-
-
-def _empty(nby, nbx, device):
-    return (torch.empty((nby, nbx), dtype=torch.float32, device=device),
-            torch.empty((nby, nbx), dtype=torch.int32, device=device))
-
-
-def _ssim_edge_bottom(cur, ref_halo, *, blk_dim: int, span: int):
+def _ssim_edge_bottom(cur, ref_halo, *, blk_dim: int, span: int,
+                      return_volume: bool = False):
     """SSIM search of the last (truncated) block row: `ssim_search` on the
     slab of rows [y_org, H) (the port of `_ssim_edge_bottom`, :958).
-    Returns [1, nbx] block grids."""
+    Returns [1, nbx] block grids (and a [K², 1, nbx] volume)."""
     cur_s, halo_s, y_org = fsc.bottom_slab(cur, ref_halo, blk_dim, span)
     h, w = cur.shape
     return ssim_search(cur_s, halo_s, blk_dim=blk_dim, span=span,
-                       frame_height=h, frame_width=w, y_origin=y_org)
+                       frame_height=h, frame_width=w, y_origin=y_org,
+                       return_volume=return_volume)
 
 
-def _ssim_edge_right(cur, ref_halo, *, blk_dim: int, span: int):
+def _ssim_edge_right(cur, ref_halo, *, blk_dim: int, span: int,
+                     return_volume: bool = False):
     """SSIM search of the last (truncated) block column: `ssim_search` on
     the slab of columns [x_org, W) (the port of `_ssim_edge_right`, :999).
-    Returns [nby, 1] block grids."""
+    Returns [nby, 1] block grids (and a [K², nby, 1] volume)."""
     cur_s, halo_s, x_org = fsc.right_slab(cur, ref_halo, blk_dim, span)
     h, w = cur.shape
     return ssim_search(cur_s, halo_s, blk_dim=blk_dim, span=span,
-                       frame_height=h, frame_width=w, x_origin=x_org)
+                       frame_height=h, frame_width=w, x_origin=x_org,
+                       return_volume=return_volume)
 
 
 def ssim_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
@@ -218,3 +242,30 @@ def ssim_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
         )
     mv_y, mv_x = geometry.mv_from_flat_index(idx, span)
     return fs.MotionField(mv_y, mv_x, idx, score)
+
+
+def ssim_volume_cuda(cur, ref, *, blk_dim: int, span: int,
+                     device=None) -> torch.Tensor:
+    """Whole-frame float32 [K², nby, nbx] SSIM score volume, -inf at every
+    invalid candidate; equal entry for entry to the golden
+    `full_search_frame(metric="ssim", return_cost_volume=True)`.
+
+    The port of `ssim_volume_pallas` / `_ssim_volume_jit`
+    (ssim_pallas.py:690, :798): the fast kernel's emit mode on the whole
+    blocks, then the truncated-extent kernel's on the last block row and
+    then the last block column, which overwrites the corner (the JAX
+    package computes those slabs with its golden tile search, :852-874;
+    here that search is the emit modes' plain version and runs only for
+    CPU tensors). cur/ref: [H, W] integer frames, moved to `device`
+    (default "cuda"). Configs outside `ssim_supported` raise ValueError.
+    """
+    if not ssim_supported(blk_dim, span):
+        raise ValueError(
+            f"ssim_volume_cuda requires blk_dim <= {FAST_MAX_BLK} and "
+            f"span >= 1, got blk_dim={blk_dim} span={span}"
+        )
+    cur_t, ref_halo = fsc.frame_operands(cur, ref, span, resolve_device(device))
+    return fsc.search_interior_and_edges(
+        cur_t, ref_halo, ssim_fast_search, _ssim_edge_bottom,
+        _ssim_edge_right, blk_dim=blk_dim, span=span, return_volume=True,
+    )[2]

@@ -23,12 +23,8 @@ from motionestimation_tpu_torch.kernels.full_search_cuda import (
     full_search_frame_cuda,
 )
 from motionestimation_tpu_torch.kernels.ssim_cuda import ssim_search_frame_cuda
+from motionestimation_tpu_torch.search.diamond import diamond_search_frame
 from motionestimation_tpu_torch.search.full_search import MotionField
-
-DIAMOND_SLICE = (
-    "algorithm='diamond' is not ported yet; it arrives with ROADMAP.md "
-    "Queue 1 item 7 (diamond search)"
-)
 
 
 @dataclasses.dataclass
@@ -52,12 +48,6 @@ class PairResult:
             f"{self.total_ms:.6f} {self.h2d_ms:.6f} {self.kernel_ms:.6f} "
             f"{self.d2h_ms:.6f} {self.psnr:.4f}"
         )
-
-
-def check_supported(config: SearchConfig) -> None:
-    """Raise NotImplementedError for what this slice of the port lacks."""
-    if config.algorithm != "full":
-        raise NotImplementedError(DIAMOND_SLICE)
 
 
 def _mark(device: torch.device):
@@ -88,10 +78,11 @@ def run_pair(
     h2d = both frames to the card; kernel = the search (and the int8 MV
     packing); d2h = the MV field back to the host. Compensation, PSNR and
     scores are untimed host post-processing. `device` defaults to "cuda".
-    MSE and SAD search on `full_search_frame_cuda`, SSIM on
-    `ssim_search_frame_cuda`.
+    Full search runs `full_search_frame_cuda` (MSE, SAD) or
+    `ssim_search_frame_cuda` (SSIM); diamond search runs
+    `diamond_search_frame` with the config's `early_term` and
+    `escape_policy`.
     """
-    check_supported(config)
     dev = resolve_device(device)
     on_card = torch.cuda.device(dev) if dev.type == "cuda" else None
     with on_card or contextlib.nullcontext():
@@ -99,7 +90,13 @@ def run_pair(
         cur_d = to_tensor(cur, dev)
         ref_d = to_tensor(ref, dev)
         t1 = _mark(dev)
-        if config.metric == "ssim":
+        if config.algorithm == "diamond":
+            field = diamond_search_frame(
+                cur_d, ref_d, blk_dim=config.blk_dim, span=config.span,
+                metric=config.metric, early_term=config.early_term,
+                escape_policy=config.escape_policy, device=dev,
+            )
+        elif config.metric == "ssim":
             field = ssim_search_frame_cuda(
                 cur_d, ref_d, blk_dim=config.blk_dim, span=config.span,
                 device=dev,

@@ -1,0 +1,480 @@
+"""Diamond search (LDSP/SDSP) block matching.
+
+The port of `motionestimation_tpu.search.diamond`. Its semantics are the
+JAX package's canonical ones, pinned there by the numpy model
+`diamond_search_np`: geometry, costs and validity as in full search (exact
+int32 SSD/SAD compared with strict `<`, the float32 SSIM score with strict
+`>`); per block, from the centre (0, 0), LDSP rounds over
+
+    (-2,0) (-1,-1) (-1,1) (0,-2) (0,0) (0,2) (1,-1) (1,1) (2,0)
+
+(out-of-window candidates skipped, first in order wins ties) until the
+centre wins or `max_steps` rounds (default span + 2) have run; an early
+check before each round and once after the loop (per-pixel cost <=
+`early_term` for MSE/SAD, score >= `early_term` for SSIM, in float32)
+stops the block, SDSP included; otherwise one SDSP step over
+
+    (-1,0) (0,-1) (0,0) (0,1) (1,0)
+
+gives the MV.
+
+Every path replays the trajectories over a [K², nby, nbx] volume of
+candidate costs (`_replay`): one `torch.gather` per pattern step at the
+flat index (cy + oy + span) * K + (cx + ox + span), with every target
+outside the window masked to the sentinel (a horizontal step past the
+window edge would alias into the next dy row). The volume comes from:
+
+* "staged": the kernels' emit modes at radius 6, then the full span only
+  if some block's trajectory could leave the first level
+  (`_staged_levels`, `_diamond_staged`);
+* "lazy": the golden `make_displacement_cost`, round by round, only for
+  the planes near an active centre (`_round_plan`);
+* "full": the whole volume up front.
+
+All three give the same MVs, costs and trajectories. The JAX package's
+`lax.cond` around a round becomes a host branch on whether any block is
+still active.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from motionestimation_tpu_torch.core import geometry
+from motionestimation_tpu_torch.core.device import resolve_device, to_tensor
+from motionestimation_tpu_torch.kernels import full_search_cuda as fsc
+from motionestimation_tpu_torch.kernels import ssim_cuda as sc
+from motionestimation_tpu_torch.metrics import cost as cost_lib
+from motionestimation_tpu_torch.search import full_search as fs
+from motionestimation_tpu_torch.search.full_search import MotionField
+
+LDSP = ((-2, 0), (-1, -1), (-1, 1), (0, -2), (0, 0),
+        (0, 2), (1, -1), (1, 1), (2, 0))
+SDSP = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
+
+
+def default_max_steps(span: int) -> int:
+    return span + 2
+
+
+@functools.lru_cache(maxsize=64)
+def _round_plan(span: int, max_steps: int):
+    """Static fill/lookup schedule shared by every block (the JAX package's
+    `_round_plan`, with the same tuples).
+
+    The possible centres after t LDSP rounds are data-independent:
+    R_0 = {(0,0)}, R_{t+1} = clamp(R_t ⊕ LDSP). Round t can only look up
+    displacements in R_{t+1} (LDSP around centres in R_t) and, for blocks
+    that converge this round, SDSP around centres in R_{t+1}.
+
+    Returns (need_lists, radii, sdsp_radius):
+      need_lists[t]: sorted flat displacement indices any round-t lookup
+        (LDSP now, SDSP later) could touch, cumulative since
+        R_t ⊆ R_{t+1};
+      radii[t]: Chebyshev radius bounding every round-t lookup;
+      sdsp_radius: radius bounding the post-loop SDSP lookups.
+    """
+    k = 2 * span + 1
+
+    def clamped(ps):
+        return {
+            (y, x) for (y, x) in ps if abs(y) <= span and abs(x) <= span
+        }
+
+    def flat(p):
+        return (p[0] + span) * k + (p[1] + span)
+
+    reach = {(0, 0)}
+    need_lists, radii = [], []
+    for _ in range(max_steps):
+        r_c = max((max(abs(y), abs(x)) for y, x in reach), default=0)
+        radii.append(min(r_c + 2, span))
+        nxt = clamped(
+            {(y + oy, x + ox) for (y, x) in reach for oy, ox in LDSP}
+        )
+        need = nxt | clamped(
+            {(y + oy, x + ox) for (y, x) in nxt for oy, ox in SDSP}
+        )
+        need_lists.append(tuple(sorted(flat(p) for p in need)))
+        reach = nxt
+    sdsp_radius = min(
+        max((max(abs(y), abs(x)) for y, x in reach), default=0) + 1, span
+    )
+    return tuple(need_lists), tuple(radii), sdsp_radius
+
+
+def _staged_levels(span: int) -> tuple[int, ...]:
+    """Volume radii to try in order (the JAX package's `_staged_levels`): a
+    candidate level r in 6, 12, 24, ... below the span is kept iff
+    (2r+1)² <= 0.3 (2·span+1)², so the worst case (every level computed)
+    stays <= 1.4x the full volume; the full span comes last. Span 15 gives
+    (6, 15); span <= 10 the span alone."""
+    full = (2 * span + 1) ** 2
+    levels = []
+    r = 6
+    while r < span:
+        if (2 * r + 1) ** 2 <= 0.3 * full:
+            levels.append(r)
+        r *= 2
+    levels.append(span)
+    return tuple(levels)
+
+
+def staged_supported(blk_dim: int, span: int, metric: str) -> bool:
+    """Whether the staged path covers this config: span >= 2 and the level
+    volumes come from the kernels' emit modes (`volume_supported` for
+    MSE/SAD, `ssim_supported` for SSIM)."""
+    if span < 2:
+        return False
+    if metric == "ssim":
+        return sc.ssim_supported(blk_dim, span)
+    return fsc.volume_supported(blk_dim, span, metric)
+
+
+def _replay(volume, *, blk_dim: int, span: int, metric: str, early_term,
+            max_steps: int, record_trajectory: bool, frame_height: int,
+            frame_width: int, track_escape: bool = False, fill=None):
+    """Replay the canonical trajectories over a [K², nby, nbx] volume (int32
+    with INT32_MAX, or float32 SSIM scores with -inf, at invalid
+    candidates): the port of `_diamond_replay` (diamond.py:259).
+
+    With `track_escape`, `span` is the radius of a volume cropped below the
+    search window (a staged level): the third result marks the blocks whose
+    trajectory could reach past it, a centre beyond span - 2 while active
+    or beyond span - 1 at SDSP. Up to that event the trajectory is exact.
+
+    `fill(t, cy, cx, active)`, where given, fills planes of `volume` in
+    place before round t's lookups (the lazy path).
+
+    Returns (field, trajectory or None, escaped); the trajectory is int32
+    [max_steps + 1, nby, nbx, 2], the centre after each LDSP round, frozen
+    once no block is active.
+    """
+    kk, nby, nbx = volume.shape
+    dev = volume.device
+    minimise = metric in ("mse", "sad")
+    k = 2 * span + 1
+    _, _, blk_h, blk_w = geometry.block_extents(
+        0, 0, nby, nbx, blk_dim, frame_height, frame_width, dev
+    )
+    count = blk_h * blk_w
+    sentinel = cost_lib.INT32_MAX if minimise else float("-inf")
+    planes = volume.view(kk, nby * nbx)
+    threshold = (None if early_term is None else
+                 torch.tensor(early_term, dtype=torch.float32, device=dev))
+
+    def offsets(pattern):
+        """(oy, ox) of the pattern's non-centre offsets, [n, 1, 1] each, and
+        the [n + 1] tables that decode a winner (0: the centre)."""
+        offs = [o for o in pattern if o != (0, 0)]
+        t = torch.tensor([(0, 0)] + offs, dtype=torch.int32, device=dev)
+        return t[1:, 0, None, None], t[1:, 1, None, None], t[:, 0], t[:, 1]
+
+    ldsp, sdsp = offsets(LDSP), offsets(SDSP)
+
+    def pattern_step(cy, cx, ccost, pattern):
+        """The winning offset and cost per block; (0, 0) and ccost when no
+        candidate beats the centre. The centre comes first and the
+        candidates in pattern order, and argmin/argmax return the first
+        extremum: strict comparisons, first in order winning ties."""
+        oy, ox, table_y, table_x = pattern
+        ty, tx = cy + oy, cx + ox
+        ok = (ty.abs() <= span) & (tx.abs() <= span)
+        flat = torch.where(ok, (ty + span) * k + (tx + span), 0)
+        cand = planes.gather(0, flat.view(len(oy), -1).long())
+        cand = cand.view(len(oy), nby, nbx).masked_fill(~ok, sentinel)
+        costs = torch.cat([ccost[None], cand])
+        win = costs.argmin(0) if minimise else costs.argmax(0)
+        return (table_y[win], table_x[win],
+                costs.gather(0, win[None])[0])
+
+    def early_mask(ccost):
+        if threshold is None:
+            return torch.zeros(ccost.shape, dtype=torch.bool, device=dev)
+        if minimise:
+            per_px = ccost.to(torch.float32) / count.clamp(min=1).to(
+                torch.float32)
+            return per_px <= threshold
+        return ccost >= threshold
+
+    def chebyshev(cy, cx):
+        return torch.maximum(cy.abs(), cx.abs())
+
+    cy = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    cx = torch.zeros_like(cy)
+    ccost = volume[span * k + span].clone()
+    active = torch.ones((nby, nbx), dtype=torch.bool, device=dev)
+    terminated = torch.zeros_like(active)
+    escaped = torch.zeros_like(active)
+    trajs = [torch.stack([cy, cx], -1)] if record_trajectory else None
+    for t in range(max_steps):
+        if not bool(active.any()):  # every block converged or terminated
+            break
+        hit = early_mask(ccost) & active
+        terminated |= hit
+        active &= ~hit
+        if track_escape:
+            escaped |= active & (chebyshev(cy, cx) > span - 2)
+        if fill is not None:
+            fill(t, cy, cx, active)
+        wy, wx, wc = pattern_step(cy, cx, ccost, ldsp)
+        moved = active & ((wy != 0) | (wx != 0))
+        active = moved
+        cy = torch.where(moved, cy + wy, cy)
+        cx = torch.where(moved, cx + wx, cx)
+        ccost = torch.where(moved, wc, ccost)
+        if record_trajectory:
+            trajs.append(torch.stack([cy, cx], -1))
+    traj = None
+    if record_trajectory:
+        trajs += [trajs[-1]] * (max_steps + 1 - len(trajs))
+        traj = torch.stack(trajs)
+
+    # The post-loop early check mirrors the golden model's final state.
+    terminated |= early_mask(ccost)
+    wy, wx, wc = pattern_step(cy, cx, ccost, sdsp)
+    apply_sdsp = ~terminated
+    if track_escape:
+        escaped |= apply_sdsp & (chebyshev(cy, cx) > span - 1)
+    cy = torch.where(apply_sdsp, cy + wy, cy)
+    cx = torch.where(apply_sdsp, cx + wx, cx)
+    ccost = torch.where(apply_sdsp, wc, ccost)
+
+    if minimise:
+        mean = (cost_lib.mse_from_ssd if metric == "mse"
+                else cost_lib.mad_from_sad)(ccost, count)
+        field = MotionField(cy, cx, ccost, mean)
+    else:
+        field = MotionField(cy, cx, (cy + span) * k + (cx + span), ccost)
+    return field, traj, escaped
+
+
+def _diamond_lazy(cur, ref, *, blk_dim: int, span: int, metric: str,
+                  early_term, max_steps: int, record_trajectory: bool):
+    """Lazy replay (the port of `_diamond_lazy`, diamond.py:463): before
+    round t, evaluate with the golden `make_displacement_cost` the planes of
+    the round's fill list (`_round_plan`) that are not filled yet and lie
+    within Chebyshev distance 3 of some active block's centre (this round's
+    LDSP reach plus the next SDSP). Covers every metric and block size.
+    Returns (field, trajectory or None)."""
+    frame_height, frame_width = cur.shape
+    cur_p = fs.pad_cur_frame(cur, frame_height, frame_width, blk_dim)
+    ref_halo = fs.make_ref_halo(ref, frame_height, frame_width, blk_dim, span)
+    nby, nbx = cur_p.shape[0] // blk_dim, cur_p.shape[1] // blk_dim
+    k = 2 * span + 1
+    disp_cost = fs.make_displacement_cost(
+        cur_p, ref_halo, 0, 0, frame_height=frame_height,
+        frame_width=frame_width, blk_dim=blk_dim, span=span, metric=metric,
+    )
+    need_lists, _, _ = _round_plan(span, max_steps)
+    if metric == "ssim":
+        volume = torch.full((k * k, nby, nbx), float("-inf"),
+                            dtype=torch.float32, device=cur_p.device)
+    else:
+        volume = torch.full((k * k, nby, nbx), cost_lib.INT32_MAX,
+                            dtype=torch.int32, device=cur_p.device)
+    filled = np.zeros(k * k, dtype=bool)
+    centre = span * k + span
+    volume[centre] = disp_cost(centre)
+    filled[centre] = True
+
+    def fill(t, cy, cx, active):
+        idxs = np.asarray(need_lists[t])
+        idxs = idxs[~filled[idxs]]
+        if not len(idxs):
+            return
+        centres = torch.stack([cy[active], cx[active]], 1).unique(dim=0)
+        centres = centres.cpu().numpy()
+        near = (
+            (np.abs(centres[None, :, 0] - (idxs // k - span)[:, None]) <= 3)
+            & (np.abs(centres[None, :, 1] - (idxs % k - span)[:, None]) <= 3)
+        ).any(1)
+        for idx in idxs[near]:
+            volume[idx] = disp_cost(int(idx))
+        filled[idxs[near]] = True
+
+    field, traj, _ = _replay(
+        volume, blk_dim=blk_dim, span=span, metric=metric,
+        early_term=early_term, max_steps=max_steps,
+        record_trajectory=record_trajectory, frame_height=frame_height,
+        frame_width=frame_width, fill=fill,
+    )
+    return field, traj
+
+
+def _merge(esc, new: MotionField, old: MotionField) -> MotionField:
+    """`new` where `esc`, else `old`, field by field."""
+    return MotionField(*(torch.where(esc, a, b) for a, b in zip(new, old)))
+
+
+def _diamond_staged(cur, ref, *, blk_dim: int, span: int, metric: str,
+                    early_term, max_steps: int, record_trajectory: bool,
+                    escape_policy: str = "canonical"):
+    """Staged level volumes (the port of `_diamond_staged`, diamond.py:893).
+
+    Level r is the radius-r volume from the kernels' emit modes
+    (`full_search_volume_cuda`, `ssim_volume_cuda`; their plain versions
+    for CPU tensors), replayed with escape tracking. A block's costs do not
+    depend on the window's radius, so blocks that never approach the cap
+    are exact. escape_policy "canonical" recomputes escaped blocks at the
+    next level (skipped when none escaped; the last level is the full
+    span, where none can escape); "crossover" (MSE/SAD, no trajectory)
+    gives every block that escaped the first level the full-search optimum
+    instead. Returns (field, trajectory or None).
+    """
+    if escape_policy not in ("canonical", "crossover"):
+        raise ValueError(f"unknown escape_policy {escape_policy!r}")
+    if escape_policy == "crossover" and (
+        record_trajectory or metric == "ssim"
+    ):
+        raise ValueError(
+            "escape_policy='crossover' supports MSE/SAD without "
+            "trajectory recording (escaped blocks take the full-search "
+            "argmin, which has no diamond trajectory)"
+        )
+    frame_height, frame_width = cur.shape
+    levels = _staged_levels(span)
+
+    def run_level(r):
+        if metric == "ssim":
+            volume = sc.ssim_volume_cuda(cur, ref, blk_dim=blk_dim, span=r,
+                                         device=cur.device)
+        else:
+            volume = fsc.full_search_volume_cuda(
+                cur, ref, blk_dim=blk_dim, span=r, metric=metric,
+                device=cur.device,
+            )
+        return _replay(
+            volume, blk_dim=blk_dim, span=r, metric=metric,
+            early_term=early_term, max_steps=max_steps,
+            record_trajectory=record_trajectory, frame_height=frame_height,
+            frame_width=frame_width, track_escape=r < span,
+        )
+
+    field, traj, esc = run_level(levels[0])
+    if escape_policy == "crossover":
+        if len(levels) > 1 and bool(esc.any()):
+            if cur.device.type == "cuda":
+                best = fsc.full_search_frame_cuda(
+                    cur, ref, blk_dim=blk_dim, span=span, metric=metric,
+                    device=cur.device,
+                )
+            else:
+                best = fs.full_search_frame(cur, ref, blk_dim=blk_dim,
+                                            span=span, metric=metric)
+            field = _merge(esc, best, field)
+    else:
+        for r in levels[1:]:
+            if not bool(esc.any()):
+                break
+            f2, t2, e2 = run_level(r)
+            field = _merge(esc, f2, field)
+            if record_trajectory:
+                traj = torch.where(esc[None, :, :, None], t2, traj)
+            esc = esc & e2
+    if metric == "ssim":
+        # Level volumes index flat displacements by their own radius; the
+        # other paths index by the search span.
+        k = 2 * span + 1
+        field = field._replace(
+            best_cost_i32=(field.mv_y + span) * k + (field.mv_x + span))
+    return field, traj
+
+
+def diamond_search_frame(
+    cur,
+    ref,
+    *,
+    blk_dim: int,
+    span: int,
+    metric: str = "mse",
+    early_term: float | None = None,
+    max_steps: int | None = None,
+    record_trajectory: bool = False,
+    volume_mode: str = "auto",
+    escape_policy: str = "canonical",
+    device=None,
+):
+    """Whole-frame diamond search (the port of `diamond_search_frame`,
+    diamond.py:688). cur/ref: [H, W] integer frames (numpy or torch), moved
+    to `device` (default "cuda"; "cpu" runs the plain versions of the
+    kernels).
+
+    volume_mode:
+      "auto" / "staged": the staged level volumes where `staged_supported`,
+        else "lazy". "auto" takes "lazy" for SSIM on the CPU, where the
+        volume is the golden full-plane scan (more planes than lazy's), as
+        the JAX package does off the TPU.
+      "lazy": only diamond-reachable planes, round by round, from the
+        golden `make_displacement_cost`; every metric and block size.
+      "full": the whole [K², nby, nbx] volume up front (the kernels' emit
+        modes where they cover the config, else the golden volume).
+    All modes give the same MVs, costs and trajectories.
+
+    escape_policy: "canonical" (default; exact in every mode) or
+    "crossover" (staged MSE/SAD only: blocks escaping the first level take
+    the full-search optimum, a deviation from the canonical endpoint).
+
+    Returns a MotionField (tensors on `device`), or (MotionField,
+    trajectory) with `record_trajectory`: int32 [max_steps + 1, nby, nbx,
+    2], equal to `diamond_search_np`'s.
+    """
+    if tuple(cur.shape) != tuple(ref.shape):
+        raise ValueError(
+            f"current and reference frames must have identical shapes, "
+            f"got {tuple(cur.shape)} vs {tuple(ref.shape)}"
+        )
+    if metric not in ("mse", "sad", "ssim"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if volume_mode not in ("auto", "staged", "lazy", "full"):
+        raise ValueError(f"unknown volume_mode {volume_mode!r}")
+    if max_steps is None:
+        max_steps = default_max_steps(span)
+    if escape_policy == "crossover" and (
+        volume_mode not in ("auto", "staged")
+        or not staged_supported(blk_dim, span, metric)
+        or metric == "ssim"
+    ):
+        raise ValueError(
+            "escape_policy='crossover' requires the staged MSE/SAD fast "
+            f"path (volume_mode auto/staged; blk_dim={blk_dim}, "
+            f"span={span}, metric={metric!r} not covered)"
+        )
+    dev = resolve_device(device)
+    cur_t, ref_t = to_tensor(cur, dev), to_tensor(ref, dev)
+    kw = dict(blk_dim=blk_dim, span=span, metric=metric,
+              early_term=early_term, max_steps=max_steps,
+              record_trajectory=record_trajectory)
+    if volume_mode in ("auto", "staged"):
+        use_staged = staged_supported(blk_dim, span, metric)
+        if metric == "ssim" and volume_mode == "auto":
+            use_staged = use_staged and dev.type == "cuda"
+        if use_staged:
+            field, traj = _diamond_staged(cur_t, ref_t,
+                                          escape_policy=escape_policy, **kw)
+        else:
+            volume_mode = "lazy"
+    if volume_mode == "lazy":
+        field, traj = _diamond_lazy(cur_t, ref_t, **kw)
+    elif volume_mode == "full":
+        if metric == "ssim" and sc.ssim_supported(blk_dim, span):
+            volume = sc.ssim_volume_cuda(cur_t, ref_t, blk_dim=blk_dim,
+                                         span=span, device=dev)
+        elif fsc.volume_supported(blk_dim, span, metric):
+            volume = fsc.full_search_volume_cuda(
+                cur_t, ref_t, blk_dim=blk_dim, span=span, metric=metric,
+                device=dev,
+            )
+        else:
+            _, volume = fs.full_search_frame(
+                cur_t, ref_t, blk_dim=blk_dim, span=span, metric=metric,
+                return_cost_volume=True,
+            )
+        frame_height, frame_width = cur_t.shape
+        field, traj, _ = _replay(volume, frame_height=frame_height,
+                                 frame_width=frame_width, **kw)
+    if record_trajectory:
+        return field, traj
+    return field

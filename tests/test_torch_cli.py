@@ -6,6 +6,10 @@ and `Original Score` / `Compensated Score` line, and no `PSNR` line. Path
 lines and the `Computation time` value differ by nature and are not
 compared. `--debug-block` must print the JAX CLI's `[debug]` lines, and the
 routes through the chunked and wide kernels (7x7, 24x24) its stack.
+`--algorithm diamond --early-term 40` on Foreman 16x16 +-7 must write the
+stack and `PSNR:` line of a host rebuild from JAX `diamond_search_np`, and
+diamond with `--escape-policy crossover` or `--metric ssim` the JAX CLI's
+stack and score lines.
 """
 import os
 
@@ -15,6 +19,8 @@ import torch
 
 from conftest import FixtureCase, mse_cases, ssim_cases
 from motionestimation_tpu import cli as jax_cli
+from motionestimation_tpu.core import frames as jax_frames
+from motionestimation_tpu.search import diamond as jax_diamond
 from motionestimation_tpu_torch import cli
 
 # The tests run in several worker processes on shared cores; one torch
@@ -86,7 +92,6 @@ def test_cli_cpu_ssim_byte_exact(name, tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,match",
     [
-        pytest.param(["--algorithm", "diamond"], "diamond", id="extra1-diamond"),
         pytest.param(["--gop", "a.yuv", "b.yuv"], "GOP", id="extra2-GOP"),
         pytest.param(["--profile", "trace"], "bench", id="extra4-bench"),
     ],
@@ -141,4 +146,75 @@ def test_cli_chunked_routes_match_jax(blk, span, h, w, tmp_path, capsys):
         stack = np.fromfile(tmp_path / tag / f"output_{blk}_{span}.yuv",
                             np.uint8)
         out[tag] = psnr, stack.tobytes()
+    assert out["port"] == out["jax"]
+
+
+def test_cli_diamond_early_term_foreman(tmp_path, capsys):
+    """`--algorithm diamond --early-term 40` on Foreman F4 -> F1, 16x16
+    +-7: the stack and `PSNR:` lines equal a host rebuild from JAX
+    `diamond_search_np` with the same threshold, as tests/test_cli.py
+    holds the JAX CLI."""
+    case = FixtureCase("foreman_mse_16_7")
+    cur_p, ref_p = _frame_paths(case, tmp_path)
+    assert cli.main([cur_p, ref_p, str(tmp_path / "out"), "16", "7", "352",
+                     "288", "--device", "cpu", "--algorithm", "diamond",
+                     "--early-term", "40"]) == 0
+    stdout = capsys.readouterr().out
+    cur = jax_frames.load_yuv(cur_p, 288, 352)
+    ref = jax_frames.load_yuv(ref_p, 288, 352)
+    mv_y, mv_x, _, _ = jax_diamond.diamond_search_np(
+        cur, ref, blk_dim=16, span=7, early_term=40.0)
+    comp = jax_frames.compensate_frame_np(ref, mv_y, mv_x, 16)
+    psnr = jax_frames.image_psnr(comp, cur.astype(np.int32))
+    assert f"PSNR: {psnr:.6f}" in stdout.splitlines()
+    assert f"PSNR: {psnr:.0f} " in stdout.splitlines()
+    stack = jax_frames.stack_output(ref, cur, comp).astype(np.uint8)
+    got = np.fromfile(tmp_path / "out" / "output_16_7.yuv", np.uint8)
+    assert got.tobytes() == stack.tobytes()
+    full_mv = jax_diamond.diamond_search_np(cur, ref, blk_dim=16, span=7)
+    assert not (np.array_equal(mv_y, full_mv[0])
+                and np.array_equal(mv_x, full_mv[1])), (
+        "the threshold must change the field")
+
+
+def _smooth_pair(seed, h, w, shift):
+    """Low-frequency content moved by `shift` plus noise +-2, as
+    tests/test_diamond.py makes it."""
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2)).astype(np.float64)
+    ref = np.clip(np.kron(small, np.ones((8, 8)))[:h, :w]
+                  + rng.normal(0, 2, (h, w)), 0, 255).astype(np.uint8)
+    cur = np.clip(np.roll(ref, shift, (0, 1)).astype(np.int32)
+                  + rng.integers(-2, 3, (h, w)), 0, 255).astype(np.uint8)
+    return cur, ref
+
+
+@pytest.mark.parametrize("frames,blk,span,extra", [
+    # adversarial shift past the first level: the crossover merges the
+    # full-search optimum into the escaped blocks.
+    pytest.param((64, 96, (13, -13)), 8, 15, ["--escape-policy", "crossover"],
+                 id="crossover"),
+    pytest.param("foreman", 16, 7, ["--metric", "ssim"], id="ssim"),
+])
+def test_cli_diamond_matches_jax(frames, blk, span, extra, tmp_path, capsys):
+    if frames == "foreman":
+        cur_p, ref_p = _frame_paths(FixtureCase("foreman_ssim_16_7"),
+                                    tmp_path)
+        h, w = 288, 352
+    else:
+        h, w, shift = frames
+        cur, ref = _smooth_pair(4, h, w, shift)
+        cur_p, ref_p = str(tmp_path / "cur.yuv"), str(tmp_path / "ref.yuv")
+        cur.tofile(cur_p)
+        ref.tofile(ref_p)
+    out = {}
+    for tag, main, device in (("jax", jax_cli.main, ["--backend", "xla"]),
+                              ("port", cli.main, ["--device", "cpu"])):
+        assert main([cur_p, ref_p, str(tmp_path / tag), str(blk), str(span),
+                     str(w), str(h), "--algorithm", "diamond", *extra,
+                     *device]) == 0
+        lines = _compared_lines(capsys.readouterr().out)
+        stack = np.fromfile(tmp_path / tag / f"output_{blk}_{span}.yuv",
+                            np.uint8)
+        out[tag] = lines, stack.tobytes()
     assert out["port"] == out["jax"]

@@ -16,7 +16,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from motionestimation_tpu.core.config import SearchConfig as JaxSearchConfig
 from motionestimation_tpu.kernels import full_search_pallas as kp
+from motionestimation_tpu.pipeline import runner as jax_runner
 from motionestimation_tpu_torch import cli
 from motionestimation_tpu_torch.core.config import SearchConfig
 from motionestimation_tpu_torch.kernels import full_search_cuda as kc
@@ -223,11 +225,18 @@ def test_run_pair_cpu_matches_golden():
     np.testing.assert_array_equal(res.field.mv_x, gold.mv_x.numpy())
     np.testing.assert_array_equal(res.field.best_cost_i32, gold.best_cost_i32.numpy())
     assert len(res.timing_row.split()) == 5
-    with pytest.raises(NotImplementedError, match="diamond"):
-        runner.run_pair(
-            cur, ref, SearchConfig(algorithm="diamond", frame_width=56,
-                                   frame_height=40), device="cpu",
-        )
+    # Diamond (early termination, crossover) equals JAX run_pair on the CPU.
+    for extra in ({"early_term": 30.0}, {"escape_policy": "crossover"}):
+        kw = dict(blk_dim=8, span=15, algorithm="diamond", frame_width=56,
+                  frame_height=40, **extra)
+        got = runner.run_pair(cur, ref, SearchConfig(**kw), device="cpu")
+        want = jax_runner.run_pair(cur, ref, JaxSearchConfig(**kw))
+        for a, b in zip(got.field, want.field):
+            b = np.asarray(b)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got.comp, want.comp)
+        assert got.psnr == want.psnr
 
 
 # --- on the card -----------------------------------------------------------
