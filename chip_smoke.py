@@ -45,7 +45,19 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    1080p 16x16 +-15; `run_pair` diamond beside full search on the config3
    frames and on the adversarial frames (canonical and crossover), and the
    diamond replay alone.
-6. One JSON line listing the kernels and emit modes, the nvidia-smi
+6. The speed-of-light tools' main path, counted: `vpu_peak.main()` (the
+   fma, mix and roll mixes of P1 and the P2 chain at the JAX tool's
+   shapes) and `kern_lab.main()` on the lab's L2 ("P0", "P1") and L4
+   ("P4", "P4S") variants at tile_h 64 and 128 (2048x2048 8x8 +-12, frames
+   from --seed). Then P1 against its plain version at the tool's shape
+   on inputs where every step of each chain moves the result
+   (`vpu_peak.check_input`, OUTER 8: finite, 1e-4 relative for fma and
+   mix, whose kernel fuses the multiply-add, 1e-5 for roll), P2 exactly,
+   each L2/L4 variant exactly and, decoded, against K1's cost and index on
+   the same frames; T elem-ops/s at the tool's shapes and at card-filling
+   sizes beside the FP32-lane floor (a rate above it fails: the compiler
+   dropped work), and L2/L4 timed in turns beside K1.
+7. One JSON line listing the kernels and emit modes, the nvidia-smi
    name/power-limit line, and as the last line {"ok": true, "device":
    {...}}.
 
@@ -79,6 +91,10 @@ SOURCE = {
     "me_chunked_search": CSRC + "chunked.cu",
     "me_chunked_u8_search": CSRC + "chunked.cu",
     "me_wide_search": CSRC + "chunked.cu",
+    "me_lab_peak": CSRC + "lab.cu",
+    "me_lab_chain": CSRC + "lab.cu",
+    "me_lab_phase": CSRC + "lab.cu",
+    "me_lab_diff": CSRC + "lab.cu",
 }
 REPLACES = {
     "me_phase_search": "motionestimation_tpu/kernels/full_search_pallas.py:729",
@@ -90,6 +106,10 @@ REPLACES = {
     "me_chunked_u8_search":
         "motionestimation_tpu/kernels/full_search_pallas.py:348",
     "me_wide_search": "motionestimation_tpu/kernels/full_search_pallas.py:471",
+    "me_lab_peak": "tools/vpu_peak.py:44",
+    "me_lab_chain": "tools/vpu_peak.py:99",
+    "me_lab_phase": "tools/kern_lab.py:357",
+    "me_lab_diff": "tools/kern_lab.py:657",
 }
 # An emit mode is listed apart from its kernel's search: "<launcher> (emit)".
 EMIT = " (emit)"
@@ -146,6 +166,13 @@ DIAMOND_RUNS = [
     ("mse adversarial crossover", "adversarial",
      ["--escape-policy", "crossover"], "mse"),
 ]
+# The speed-of-light tools: the lab's variants at 2048x2048 8x8 +-12 and
+# tile_h 64 and 128 (L2 "P0"/"P1", L4 "P4"/"P4S"), and the card-filling
+# sizes of the peak kernels: 8x the rows of P1, 32x the width of P2.
+LAB_SPECS = [f"{v}:{t}" for v in ("P0", "P1", "P4", "P4S") for t in (64, 128)]
+LAB_KERNELS = ("me_lab_peak", "me_lab_chain", "me_lab_phase", "me_lab_diff")
+FILL_ROWS = 512
+FILL_CH_W = 65536
 
 
 def fail(message: str):
@@ -269,10 +296,12 @@ def main(argv=None) -> int:
     from motionestimation_tpu_torch.core.config import SearchConfig
     from motionestimation_tpu_torch.kernels import _build
     from motionestimation_tpu_torch.kernels import full_search_cuda as kc
+    from motionestimation_tpu_torch.kernels import lab_cuda as lab
     from motionestimation_tpu_torch.kernels import ssim_cuda as sc
     from motionestimation_tpu_torch.pipeline import runner
     from motionestimation_tpu_torch.search import diamond
     from motionestimation_tpu_torch.search import full_search as fs
+    from motionestimation_tpu_torch.tools import kern_lab, vpu_peak
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -302,7 +331,11 @@ def main(argv=None) -> int:
                 "me_ssim_search": sc.ssim_search,
                 "me_chunked_search": kc.chunked_search,
                 "me_chunked_u8_search": kc.chunked_u8_search,
-                "me_wide_search": kc.wide_search}
+                "me_wide_search": kc.wide_search,
+                "me_lab_peak": lab.lab_peak,
+                "me_lab_chain": lab.lab_chain,
+                "me_lab_phase": lab.lab_phase,
+                "me_lab_diff": lab.lab_diff}
     counters = {name: (fn, "launches") for name, fn in counters.items()}
     for name in ("me_phase_search", "me_int_search", "me_chunked_search",
                  "me_ssim_fast_search", "me_ssim_search"):
@@ -942,7 +975,182 @@ def main(argv=None) -> int:
               f"{bound(*geo, ssim=fn is not kc.int_search, volume=True)[0]:.6f}"
               f" ms | {card}")
 
-    # -- 6. the kernels line ----------------------------------------------
+    # -- 6. the speed-of-light tools ----------------------------------------
+    print(f"== main path (speed-of-light tools): vpu_peak.main() and "
+          f"kern_lab.main({' '.join(LAB_SPECS)}) ({card}; "
+          f"{time.perf_counter() - t_start:.1f} s in)")
+    t_tools = time.perf_counter()
+    reset_counts()
+    for tool, tool_argv in ((vpu_peak, []), (kern_lab, LAB_SPECS)):
+        out = run_cli(tool, tool_argv)
+        if "FAILED" in out:
+            fail(f"{tool.__name__}: a variant failed")
+    main_launches.update(read_counts(LAB_KERNELS,
+                                     "main path (speed-of-light tools)"))
+    sms = props.multi_processor_count
+    lane_ops_s = sms * 128 * max_clock_mhz * 1e6
+    floor = (f"FP32-lane floor {lane_ops_s / 1e12:.2f} T ops/s ({sms} SMs x "
+             f"128 lanes x {max_clock_mhz:.0f} MHz)")
+    print(floor)
+
+    def timed(fn):
+        """(fn(), device ms of that one call)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def compare_rel(name, got, want, tol, what):
+        """Finite values on both sides, every entry within `tol` relative;
+        records the largest absolute difference."""
+        if (got.shape != want.shape or not torch.isfinite(got).all()
+                or not torch.isfinite(want).all()):
+            fail(f"{what}: a NaN or an infinity, or shapes that differ")
+        diff = (got.double() - want.double()).abs()
+        err = float(diff.max())
+        rel = float((diff / want.double().abs()).max())
+        max_err[name] = max(max_err[name], err)
+        print(f"{what}: max |kernel - plain| = {err}, max relative {rel:.3g} "
+              f"(tolerance {tol})")
+        if rel > tol:
+            fail(f"{what}: kernel disagrees with its plain version")
+
+    def rate(ops, ms, what):
+        """T elem-ops/s of `ops` in `ms`; fails above the FP32-lane floor,
+        which only work the compiler dropped could pass."""
+        t = ops / ms / 1e9
+        if t * 1e12 > lane_ops_s:
+            fail(f"{what}: {t:.3f} T elem-ops/s is above the {floor}")
+        return t
+
+    # P1 against its plain version at the tool's shape, on inputs where every
+    # step of the chain moves the result (vpu_peak.check_input), at
+    # CHECK_OUTER iterations; timed on the tool's own input at OUTER.
+    lab_times = {}  # kernel -> (ms, plain ms, bound ms, bound by)
+    inner, outer = vpu_peak.INNER, vpu_peak.CHECK_OUTER
+    for mix in vpu_peak.MIXES:
+        chk = vpu_peak.check_input(mix).to(dev)
+        compare_rel("me_lab_peak",
+                    lab.lab_peak(chk, mix=mix, inner=inner, outer=outer),
+                    lab.peak_plain(chk, mix, inner=inner, outer=outer),
+                    vpu_peak.CHECK_TOL[mix],
+                    f"me_lab_peak {mix} {tuple(chk.shape)} OUTER {outer}")
+    a = vpu_peak.peak_input().to(dev)
+    rows, cols = a.shape
+    _, plain_ms = timed(lambda: lab.peak_plain(a, "fma", inner=inner,
+                                               outer=vpu_peak.OUTER))
+    peak_ops = vpu_peak.peak_ops()
+    for mix in vpu_peak.MIXES:
+        ms = cuda_ms(lambda: lab.lab_peak(a, mix=mix, inner=inner,
+                                          outer=vpu_peak.OUTER), 10)
+        t = rate(peak_ops, ms, f"P1 {mix}")
+        print(f"  P1 {mix} {rows}x{cols}: {ms:.4f} ms, {t:.3f} T elem-ops/s, "
+              f"{t * 1e12 / lane_ops_s:.1%} of the {floor}"
+              f"{f' (plain {plain_ms:.1f} ms)' if mix == 'fma' else ''} | "
+              f"{card}")
+        if mix == "fma":
+            lab_times["me_lab_peak"] = (ms, plain_ms,
+                                        peak_ops / lane_ops_s * 1e3,
+                                        "operations")
+    fill_ops = vpu_peak.peak_ops(rows=FILL_ROWS)
+    for mix in vpu_peak.MIXES:
+        t = vpu_peak.measure(mix, rows=FILL_ROWS)
+        rate(fill_ops, fill_ops / t / 1e9, f"P1 {mix} {FILL_ROWS} rows")
+        print(f"  P1 {mix} {FILL_ROWS}x{cols}: {fill_ops / t / 1e9:.4f} ms, "
+              f"{t:.3f} T elem-ops/s, {t * 1e12 / lane_ops_s:.1%} of the "
+              f"floor | {card}")
+
+    c, e = (t.to(dev) for t in vpu_peak.chain_inputs())
+    want, plain_ms = timed(lambda: lab.chain_plain(c, e, ch_g=vpu_peak.CH_G))
+    compare(["me_lab_chain"], [lab.lab_chain(c, e, ch_g=vpu_peak.CH_G)],
+            [want], f"me_lab_chain [{vpu_peak.CH_G}, {vpu_peak.CH_W}]")
+    ms = cuda_ms(lambda: lab.lab_chain(c, e, ch_g=vpu_peak.CH_G), 20)
+    chain_ops = vpu_peak.chain_ops()
+    lab_times["me_lab_chain"] = (ms, plain_ms, chain_ops / lane_ops_s * 1e3,
+                                 "operations")
+    t_tool = rate(chain_ops, ms, "P2")
+    t = vpu_peak.measure_chain(ch_w=FILL_CH_W)
+    fill_ops = vpu_peak.chain_ops(ch_w=FILL_CH_W)
+    rate(fill_ops, fill_ops / t / 1e9, f"P2 width {FILL_CH_W}")
+    print(f"  P2 chain [{vpu_peak.CH_G}, {vpu_peak.CH_W}]: {ms:.4f} ms, "
+          f"{t_tool:.3f} T elem-ops/s, {t_tool * 1e12 / lane_ops_s:.1%} of "
+          f"the floor (plain {plain_ms:.1f} ms) | [{vpu_peak.CH_G}, "
+          f"{FILL_CH_W}]: {fill_ops / t / 1e9:.4f} ms, {t:.3f} T elem-ops/s, "
+          f"{t * 1e12 / lane_ops_s:.1%} of the floor | {card}")
+    del a, chk, c, e
+
+    # L2 and L4 against their plain versions (exact) and against K1 on the
+    # same frames: decoded cost and index equal.
+    cur, ref_p = (torch.from_numpy(x).to(dev)
+                  for x in kern_lab.make_inputs(args.seed))
+    h, w = cur.shape
+    span, blk = kern_lab.SPAN, kern_lab.BLK
+    cur_u8 = cur.to(torch.uint8)
+    halo_u8 = ref_p[: h + 2 * span, : w + 2 * span].to(torch.uint8)
+    geo = (h, w, blk, span, (h, w), (0, 0))
+    lab_bound = bound(*geo)
+    turns, lab_plain_ms = {}, {}
+    for metric in ("mse", "sad"):
+        sad = metric == "sad"
+        k1kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
+                    frame_width=w)
+        k1 = kc.phase_search(cur_u8, halo_u8, **k1kw)
+        plains = {"me_lab_phase": timed(lambda: lab.phase_plain(
+                      cur, ref_p, sad=sad)),
+                  "me_lab_diff": timed(lambda: lab.diff_plain(
+                      cur, ref_p, sad=sad))}
+        fns = {"K1 me_phase_search": lambda: kc.phase_search(cur_u8, halo_u8,
+                                                             **k1kw)}
+        for name, variant, run in (
+            ("me_lab_phase", "P1" if sad else "P0",
+             lambda t, v="P1" if sad else "P0": kern_lab.run_phase(
+                 cur, ref_p, variant=v, tile_h=t)),
+            ("me_lab_diff", "P4S" if sad else "P4",
+             lambda t, sad=sad: kern_lab.run_p4(cur, ref_p, tile_h=t,
+                                                sad=sad)),
+        ):
+            want, plain_ms = plains[name]
+            for tile_h in (64, 128):
+                got = run(tile_h)
+                what = f"{name} \"{variant}\" {w}x{h} tile_h {tile_h}"
+                compare([name], got if isinstance(got, tuple) else [got],
+                        want if isinstance(want, tuple) else [want], what)
+                cost, idx = (got if name == "me_lab_phase"
+                             else kern_lab.decode_key(got))
+                if not (torch.equal(cost.to(torch.int32), k1[0])
+                        and torch.equal(idx, k1[1])):
+                    fail(f"{what}: cost or index differs from K1's")
+                fns[f"{name} \"{variant}\":{tile_h}"] = (
+                    lambda run=run, tile_h=tile_h: run(tile_h))
+            lab_plain_ms.setdefault(name, plain_ms)
+            print(f"{name} \"{variant}\": decoded cost and index equal K1's "
+                  f"({metric}) at both tile_h")
+        for fn in fns.values():
+            fn()  # warm-up
+        times = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(cuda_ms(fns[name], 20))
+        pixel_cands, _ = valid_candidates(*geo)
+        for name, ts in times.items():
+            ms = statistics.mean(ts)
+            turns[name, metric] = ms
+            print(f"  {metric} {name} {ms:.4f} ms (runs "
+                  f"{[round(t, 4) for t in ts]}), {pixel_cands / ms / 1e9:.2f} "
+                  f"T pixel-candidates/s | {card}")
+    print(f"  L2/L4 bound {lab_bound[0]:.6f} ms ({lab_bound[1]}; int8 "
+          f"data-sheet rate); FP32-lane floor {2 * pixel_cands / lane_ops_s * 1e3:.4f}"
+          f" ms (2 lane-ops per pixel-candidate) | {card}")
+    for name, variant in (("me_lab_phase", "P0"), ("me_lab_diff", "P4")):
+        lab_times[name] = (turns[f"{name} \"{variant}\":128", "mse"],
+                           lab_plain_ms[name], *lab_bound)
+    del cur, ref_p, cur_u8, halo_u8
+    print(f"speed-of-light tools phase: "
+          f"{time.perf_counter() - t_tools:.1f} s")
+
+    # -- 7. the kernels line ----------------------------------------------
     kernels = []
     for name, (fn, plain, fargs, fkw, geo) in shapes.items():
         base = name.removesuffix(EMIT)
@@ -964,6 +1172,13 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[base],
             "replaces": REPLACES[base], "launches": main_launches[name],
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+    for name, (ms, plain_ms, bound_ms, bound_by) in lab_times.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": main_launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })

@@ -44,7 +44,10 @@ def test_port_file_imports_no_jax(path):
 def test_scan_covers_the_port():
     files = _port_files()
     assert "chip_smoke.py" in files
-    for name in ("full_search_cuda.py", "ssim_cuda.py"):
+    for name in ("full_search_cuda.py", "ssim_cuda.py", "lab_cuda.py"):
         assert os.path.join("motionestimation_tpu_torch", "kernels",
                             name) in files
-    assert len(files) >= 16
+    for name in ("__init__.py", "vpu_peak.py", "kern_lab.py"):
+        assert os.path.join("motionestimation_tpu_torch", "tools",
+                            name) in files
+    assert len(files) >= 20
