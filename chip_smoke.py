@@ -95,6 +95,11 @@ SOURCE = {
     "me_lab_chain": CSRC + "lab.cu",
     "me_lab_phase": CSRC + "lab.cu",
     "me_lab_diff": CSRC + "lab.cu",
+    "me_lab_padded": CSRC + "lab.cu",
+    "me_lab_p3": CSRC + "lab.cu",
+    "me_lab_p5": CSRC + "lab.cu",
+    "me_lab_p6": CSRC + "lab.cu",
+    "me_lab_p7": CSRC + "lab.cu",
 }
 REPLACES = {
     "me_phase_search": "motionestimation_tpu/kernels/full_search_pallas.py:729",
@@ -110,6 +115,11 @@ REPLACES = {
     "me_lab_chain": "tools/vpu_peak.py:99",
     "me_lab_phase": "tools/kern_lab.py:357",
     "me_lab_diff": "tools/kern_lab.py:657",
+    "me_lab_padded": "tools/kern_lab.py:74",
+    "me_lab_p3": "tools/kern_lab.py:504",
+    "me_lab_p5": "tools/kern_lab.py:773",
+    "me_lab_p6": "tools/kern_lab.py:898",
+    "me_lab_p7": "tools/kern_lab.py:1044",
 }
 # An emit mode is listed apart from its kernel's search: "<launcher> (emit)".
 EMIT = " (emit)"
@@ -170,7 +180,34 @@ DIAMOND_RUNS = [
 # tile_h 64 and 128 (L2 "P0"/"P1", L4 "P4"/"P4S"), and the card-filling
 # sizes of the peak kernels: 8x the rows of P1, 32x the width of P2.
 LAB_SPECS = [f"{v}:{t}" for v in ("P0", "P1", "P4", "P4S") for t in (64, 128)]
-LAB_KERNELS = ("me_lab_peak", "me_lab_chain", "me_lab_phase", "me_lab_diff")
+# Every other variant of the JAX lab at tile_h 128: (name, kernel, plain
+# version, K1 metric its decoded output equals: on every block for the key
+# forms, on the blocks whose whole window lies inside the frame for the
+# unmasked L1 forms). The kernel line reports each kernel's first variant.
+NEW_LAB = [
+    ("L0", "me_lab_padded", "padded mse", "mse"),
+    ("NOP", "me_lab_padded", "nop", None),
+    ("L1", "me_lab_padded", "raw", None),
+    ("M1", "me_lab_padded", "padded mse", "mse"),
+    ("M2", "me_lab_padded", "padded sad", "sad"),
+    ("M3", "me_lab_padded", "padded bf16", None),
+    ("P3", "me_lab_p3", "diff mse", "mse"),
+    ("P3S", "me_lab_p3", "diff sad", "sad"),
+    ("P3A", "me_lab_p3", "nochain", None),
+    ("P3B", "me_lab_p3", "nofold", None),
+    ("P5", "me_lab_p5", "diff mse", "mse"),
+    ("P5S", "me_lab_p5", "diff sad", "sad"),
+    ("P5B", "me_lab_p5", "diff mse", "mse"),
+    ("P5SB", "me_lab_p5", "diff sad", "sad"),
+    ("P6", "me_lab_p6", "diff mse", "mse"),
+    ("P6B", "me_lab_p6", "diff mse", "mse"),
+    ("P7", "me_lab_p7", "diff mse", "mse"),
+    ("P7S", "me_lab_p7", "diff sad", "sad"),
+]
+NEW_SPECS = [f"{v}:128" for v, *_ in NEW_LAB]
+LAB_KERNELS = ("me_lab_peak", "me_lab_chain", "me_lab_phase", "me_lab_diff",
+               "me_lab_padded", "me_lab_p3", "me_lab_p5", "me_lab_p6",
+               "me_lab_p7")
 FILL_ROWS = 512
 FILL_CH_W = 65536
 
@@ -335,7 +372,12 @@ def main(argv=None) -> int:
                 "me_lab_peak": lab.lab_peak,
                 "me_lab_chain": lab.lab_chain,
                 "me_lab_phase": lab.lab_phase,
-                "me_lab_diff": lab.lab_diff}
+                "me_lab_diff": lab.lab_diff,
+                "me_lab_padded": lab.lab_padded,
+                "me_lab_p3": lab.lab_p3,
+                "me_lab_p5": lab.lab_p5,
+                "me_lab_p6": lab.lab_p6,
+                "me_lab_p7": lab.lab_p7}
     counters = {name: (fn, "launches") for name, fn in counters.items()}
     for name in ("me_phase_search", "me_int_search", "me_chunked_search",
                  "me_ssim_fast_search", "me_ssim_search"):
@@ -977,11 +1019,12 @@ def main(argv=None) -> int:
 
     # -- 6. the speed-of-light tools ----------------------------------------
     print(f"== main path (speed-of-light tools): vpu_peak.main() and "
-          f"kern_lab.main({' '.join(LAB_SPECS)}) ({card}; "
+          f"kern_lab.main({' '.join(LAB_SPECS + NEW_SPECS)}) ({card}; "
           f"{time.perf_counter() - t_start:.1f} s in)")
     t_tools = time.perf_counter()
     reset_counts()
-    for tool, tool_argv in ((vpu_peak, []), (kern_lab, LAB_SPECS)):
+    for tool, tool_argv in ((vpu_peak, []),
+                            (kern_lab, LAB_SPECS + NEW_SPECS)):
         out = run_cli(tool, tool_argv)
         if "FAILED" in out:
             fail(f"{tool.__name__}: a variant failed")
@@ -1146,7 +1189,73 @@ def main(argv=None) -> int:
     for name, variant in (("me_lab_phase", "P0"), ("me_lab_diff", "P4")):
         lab_times[name] = (turns[f"{name} \"{variant}\":128", "mse"],
                            lab_plain_ms[name], *lab_bound)
-    del cur, ref_p, cur_u8, halo_u8
+
+    # L1, L3, L5-L7: every variant exactly against its plain version, and
+    # against K1 as NEW_LAB says.
+    k1 = {metric: kc.phase_search(cur_u8, halo_u8, blk_dim=blk, span=span,
+                                  metric=metric, frame_height=h,
+                                  frame_width=w)
+          for metric in ("mse", "sad")}
+    plain_fns = {
+        "nop": lambda: lab.nop_plain(cur, ref_p),
+        "padded mse": lambda: lab.padded_plain(cur, ref_p),
+        "padded sad": lambda: lab.padded_plain(cur, ref_p, sad=True),
+        "padded bf16": lambda: lab.padded_plain(cur, ref_p, rounding=True),
+        "raw": lambda: lab.raw_plain(cur, ref_p, tile_h=128),
+        "diff mse": lambda: lab.diff_plain(cur, ref_p),
+        "diff sad": lambda: lab.diff_plain(cur, ref_p, sad=True),
+        "nochain": lambda: lab.nochain_plain(cur, ref_p),
+        "nofold": lambda: lab.nofold_plain(cur, ref_p),
+    }
+    plains = {}  # plain name -> (output, ms)
+    inner = slice(-(-span // blk), (h - blk - span) // blk + 1)
+    fns = {"K1 me_phase_search": lambda: kc.phase_search(
+               cur_u8, halo_u8, blk_dim=blk, span=span, metric="mse",
+               frame_height=h, frame_width=w),
+           "me_lab_diff \"P4\":128": lambda: kern_lab.run_p4(cur, ref_p,
+                                                            tile_h=128)}
+    for variant, name, plain, metric in NEW_LAB:
+        if plain not in plains:
+            plains[plain] = timed(plain_fns[plain])
+        want = plains[plain][0]
+        run, decode = kern_lab.variant_fn(f"{variant}:128")
+        got = run(cur, ref_p)
+        what = f"{name} \"{variant}\" {w}x{h} tile_h 128"
+        compare([name], got if isinstance(got, tuple) else [got],
+                want if isinstance(want, tuple) else [want], what)
+        if metric:
+            cost, idx = decode(got)
+            cost, idx = cost.to(torch.int32), idx
+            want_cost, want_idx = k1[metric][0], k1[metric][1]
+            where = "every block"
+            if name == "me_lab_padded":  # unmasked: the inner blocks only
+                cost, idx, want_cost, want_idx = (
+                    t[inner, inner] for t in (cost, idx, want_cost, want_idx))
+                where = f"the {cost.numel()} blocks whose window is inside"
+            if not (torch.equal(cost, want_cost)
+                    and torch.equal(idx, want_idx)):
+                fail(f"{what}: cost or index differs from K1's ({metric})")
+            print(f"  decoded cost and index equal K1's ({metric}) on "
+                  f"{where}")
+        fns[f"{name} \"{variant}\":128"] = (
+            lambda run=run: run(cur, ref_p))
+    for fn in fns.values():
+        fn()  # warm-up
+    times = {n: [] for n in fns}
+    for n in [*fns, *reversed(fns)]:
+        times[n].append(cuda_ms(fns[n], 20))
+    print(f"  L1, L3, L5-L7 in turns with K1 and L4 (mse, 20 launches each) "
+          f"| {card}")
+    for n, ts in times.items():
+        print(f"  {n} {statistics.mean(ts):.4f} ms (runs "
+              f"{[round(t, 4) for t in ts]}) | {card}")
+    for plain, (_, ms) in plains.items():
+        print(f"  plain {plain} {ms:.2f} ms | {card}")
+    for variant, name, plain, _ in NEW_LAB:
+        if name not in lab_times:  # each kernel's first variant
+            lab_times[name] = (statistics.mean(times[
+                f"{name} \"{variant}\":128"]), plains[plain][1], *lab_bound)
+    del cur, ref_p, cur_u8, halo_u8, plains, k1
     print(f"speed-of-light tools phase: "
           f"{time.perf_counter() - t_tools:.1f} s")
 

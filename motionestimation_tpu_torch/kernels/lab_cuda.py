@@ -16,16 +16,30 @@ The PyTorch counterparts of the Pallas kernels of the JAX repo's
 * `lab_diff` launches `me_lab_diff` (L4), the port of `make_p4_kernel`
   (kern_lab.py:657): SSD by the diff form, or SAD, as the packed int32 key
   cost * 625 + flat - 2^31 (wrapping), INT32_MAX where invalid.
+* `lab_padded` launches `me_lab_padded` (L1), the port of `make_kernel`
+  (kern_lab.py:74): the unmasked search over the zero-padded reference
+  through a product scratch, variants "NOP", "L0", "L1", "M1", "M2", "M3".
+* `lab_p3` launches `me_lab_p3` (L3), the port of `make_p3_kernel`
+  (kern_lab.py:504): L4's key by the cross term (Qcur + Qref) - 2X, or
+  SAD, and the `nochain` / `nofold` ablations.
+* `lab_p5`, `lab_p6`, `lab_p7` launch `me_lab_p5` (L5, `make_p5_kernel`
+  :773: the diff form or SAD, float32 or bfloat16 planes), `me_lab_p6`
+  (L6, `make_p6_kernel` :898: the cross term (Qcur - X) + (Qref - X)) and
+  `me_lab_p7` (L7, `make_p7_kernel` :1044: the diff form over bfloat16
+  planes), each L4's key.
 
 Beside each kernel stands its plain PyTorch version (`peak_plain`,
-`chain_plain`, `phase_plain`, `diff_plain`). The lab's two search kernels
-compute the exact full search over valid candidates with the first-in-
-raster-order tie rule, so their plain versions are a thin layer over the
-golden `search.full_search.full_search_frame`. A wrapper takes the plain
-version only for tensors on the CPU; for CUDA tensors it launches its
-kernel or raises. Each wrapper counts its launches in `launches`.
+`chain_plain`, `phase_plain`, `diff_plain`, `padded_plain`, `raw_plain`,
+`nop_plain`, `nochain_plain`, `nofold_plain`). The lab's masked search
+kernels compute the exact full search over valid candidates with the
+first-in-raster-order tie rule, so their plain versions are a thin layer
+over the golden `search.full_search.full_search_frame`; L3's "P3", "P3S"
+and L5-L7 give L4's key (bfloat16 holds 0..255 exactly), so `diff_plain`
+is theirs too. A wrapper takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches its kernel or raises. Each wrapper
+counts its launches in `launches`.
 
-Lab operands (`lab_phase`, `lab_diff`): cur float32 [H, W] of integer
+Lab operands (every search above): cur float32 [H, W] of integer
 pixels 0..255; ref_p float32, at least [H + 24, W + 24], reference pixel
 (y, x) at [y + 12, x + 12] (the tool's zero-padded halo, [H + 24, 2176] at
 2048x2048). Blocks 8x8, span 12. `tile_h` is the number of pixel rows a
@@ -62,6 +76,11 @@ _SIGNATURES = {
     "me_lab_chain": [_PTR] * 3 + [_INT] * 5 + [_PTR],
     "me_lab_phase": [_PTR] * 4 + [_INT] * 7 + [_PTR],
     "me_lab_diff": [_PTR] * 3 + [_INT] * 7 + [_PTR],
+    "me_lab_padded": [_PTR] * 4 + [_INT] * 7 + [_PTR],
+    "me_lab_p3": [_PTR] * 3 + [_INT] * 8 + [_PTR],
+    "me_lab_p5": [_PTR] * 3 + [_INT] * 8 + [_PTR],
+    "me_lab_p6": [_PTR] * 3 + [_INT] * 7 + [_PTR],
+    "me_lab_p7": [_PTR] * 3 + [_INT] * 7 + [_PTR],
 }
 
 
@@ -288,3 +307,276 @@ def lab_diff(cur, ref_p, *, tile_h: int, sad: bool = False) -> torch.Tensor:
 
 
 lab_diff.launches = 0
+
+
+# -- L1 ----------------------------------------------------------------------
+
+# L1's variants (tools/kern_lab.py `make_kernel`), by launcher code.
+PADDED_VARIANTS = {"NOP": 0, "L0": 1, "L1": 2, "M1": 3, "M2": 4, "M3": 5}
+START_IDX = SPAN * K + SPAN  # L1's start pair is (BIG, START_IDX)
+
+
+def check_padded_variant(variant: str) -> None:
+    if variant not in PADDED_VARIANTS:
+        raise ValueError(variant)  # as the JAX tool's make_kernel raises
+
+
+def _frame_window(cur, ref_p):
+    """ref_p cut to [H + 24, W + 24], as float64."""
+    h, w = cur.shape
+    return ref_p[: h + 2 * SPAN, : w + 2 * SPAN].double()
+
+
+def _block_sums(x: torch.Tensor) -> torch.Tensor:
+    """[..., H, W] -> [..., H/8, W/8]: the sum of each 8x8 block."""
+    *lead, h, w = x.shape
+    return x.reshape(*lead, h // BLK, BLK, w // BLK, BLK).sum((-3, -1))
+
+
+def _box_squares(ref: torch.Tensor) -> torch.Tensor:
+    """S[y, x] = sum over the 8x8 box at (y, x) of ref^2: [h - 7, w - 7]."""
+    sq = ref * ref
+    col = sq.unfold(0, BLK, 1).sum(-1)
+    return col.unfold(1, BLK, 1).sum(-1)
+
+
+def _qref(s: torch.Tensor, oy: int, nby: int, nbx: int) -> torch.Tensor:
+    """[K, nby, nbx]: Qref at offset row oy and each offset column ox of
+    every block, from the box-sum plane of the window."""
+    rows = s[oy : oy + BLK * nby : BLK]                    # [nby, w - 7]
+    cols = (torch.arange(K, device=s.device)[:, None]
+            + BLK * torch.arange(nbx, device=s.device)[None])  # [K, nbx]
+    return rows[:, cols].permute(1, 0, 2)
+
+
+def _lexmin(costs):
+    """(float32 cost, int32 flat) of the first minimum over candidates in
+    raster order; `costs` yields [K, nby, nbx] float64 integer costs per
+    offset row. cost * 625 + flat (exact in float64) orders candidates as
+    (cost, flat) does, so its least value is the first minimum."""
+    best = None
+    for oy, c in enumerate(costs):
+        flat = oy * K + torch.arange(K, dtype=c.dtype, device=c.device)
+        key = (c * (K * K) + flat[:, None, None]).amin(0)
+        best = key if best is None else torch.minimum(best, key)
+    cost = torch.div(best, K * K, rounding_mode="floor")
+    return cost.to(torch.float32), (best - cost * (K * K)).to(torch.int32)
+
+
+def padded_plain(cur, ref_p, *, sad: bool = False, rounding: bool = False):
+    """Plain version of L1's "L0", "M1" (sad False), "M2" (sad True) and
+    "M3" (rounding True): the first minimum in raster order over all 625
+    offsets of the zero-padded reference, unmasked, so out-of-frame
+    pixels count as 0. SSD is (Qcur - X) + (Qref - X); with `rounding`
+    each product of X is first rounded to bfloat16 (to nearest even).
+    Returns (float32 cost, int32 flat index), [H/8, W/8]."""
+    h, w = cur.shape
+    c = cur.double()
+    win = _frame_window(cur, ref_p)
+    nby, nbx = h // BLK, w // BLK
+    if not sad:
+        qcur = _block_sums(c * c)
+        s = _box_squares(win)
+
+    def costs():
+        for oy in range(K):
+            e = win[oy : oy + h].unfold(1, w, 1).permute(1, 0, 2)  # [K, h, w]
+            if sad:
+                yield _block_sums((c - e).abs())
+                continue
+            prod = c * e
+            if rounding:
+                prod = prod.float().to(torch.bfloat16).double()
+            x = _block_sums(prod)
+            yield (qcur - x) + (_qref(s, oy, nby, nbx) - x)
+
+    return _lexmin(costs())
+
+
+def raw_plain(cur, ref_p, *, tile_h: int):
+    """Plain version of L1's "L1" ablation: no block sum, no slide. Block
+    row Rg in stripe Rg // (tile_h / 8) takes X at pixel row
+    y0 + Rg % (tile_h / 8) (the stripe's row R, not 8R) and the block's
+    first column: X = cur[y0 + R, c] * ref_p[y0 + R + oy, c + ox]; cost
+    (Qcur - X) + (Qref - X), first minimum over all 625 offsets."""
+    h, w = cur.shape
+    nby, nbx = h // BLK, w // BLK
+    c = cur.double()
+    win = _frame_window(cur, ref_p)
+    g = tile_h // BLK
+    rg = torch.arange(nby, device=cur.device)
+    py = rg // g * tile_h + rg % g                            # [nby]
+    bx = BLK * torch.arange(nbx, device=cur.device)
+    cols = torch.arange(K, device=cur.device)[:, None] + bx[None]  # [K, nbx]
+    qcur = _block_sums(c * c)
+    s = _box_squares(win)
+    cv = c[py][:, bx]                                         # [nby, nbx]
+
+    def costs():
+        for oy in range(K):
+            x = cv[None] * win[py + oy][:, cols].permute(1, 0, 2)
+            yield (qcur - x) + (_qref(s, oy, nby, nbx) - x)
+
+    return _lexmin(costs())
+
+
+def nop_plain(cur, ref_p):
+    """Plain version of L1's "NOP": the start pair (3e8, 312) per block."""
+    h, w = cur.shape
+    shape = (h // BLK, w // BLK)
+    return (torch.full(shape, BIG, dtype=torch.float32, device=cur.device),
+            torch.full(shape, START_IDX, dtype=torch.int32,
+                       device=cur.device))
+
+
+def lab_padded(cur, ref_p, *, tile_h: int, variant: str):
+    """L1 (`me_lab_padded`): (float32 cost, int32 flat index), [H/8, W/8],
+    for variant "NOP", "L0", "L1", "M1", "M2" or "M3"."""
+    check_padded_variant(variant)
+    _check_lab_operands(cur, ref_p, tile_h)
+    if cur.device.type == "cpu":
+        if variant == "NOP":
+            return nop_plain(cur, ref_p)
+        if variant == "L1":
+            return raw_plain(cur, ref_p, tile_h=tile_h)
+        return padded_plain(cur, ref_p, sad=variant == "M2",
+                            rounding=variant == "M3")
+    _check_cuda(cur, ref_p)
+    h, w = cur.shape
+    cost = torch.empty((h // BLK, w // BLK), dtype=torch.float32,
+                       device=cur.device)
+    idx = torch.empty((h // BLK, w // BLK), dtype=torch.int32,
+                      device=cur.device)
+    _launch(lab_padded, cur.device, cur.data_ptr(), ref_p.data_ptr(),
+            cost.data_ptr(), idx.data_ptr(), cur.stride(0), ref_p.stride(0),
+            w // BLK, h, w, tile_h, PADDED_VARIANTS[variant])
+    return cost, idx
+
+
+lab_padded.launches = 0
+
+
+# -- L3, L5, L6, L7 ------------------------------------------------------------
+
+ABLATIONS = {None: 0, "nochain": 1, "nofold": 2}
+
+
+def nochain_plain(cur, ref_p) -> torch.Tensor:
+    """Plain version of L3's "P3A" (`nochain`), as the port defines it. The
+    TPU kernel writes only the dy = 0 rows of its chain buffer with the
+    first term C_0 * E_0 and reads the other 24 dy groups unwritten; here
+    they are 0. So for offset row oy = 0, X = sum_{k<8} cur[8Rg, c + k] *
+    ref_p[8Rg, c + ox + k] (the block's first row against reference row
+    8Rg - 12), and X = 0 for oy >= 1; cost (Qcur + Qref) - 2X, packed as
+    L4's key over L4's valid candidates: u = (cost * 625 + flat) mod 2^32,
+    the least u (2^32 - 1 where no candidate is valid), key = u - 2^31."""
+    h, w = cur.shape
+    nby, nbx = h // BLK, w // BLK
+    c = cur.double()
+    win = _frame_window(cur, ref_p)
+    qcur = _block_sums(c * c)
+    s = _box_squares(win)
+    dev = cur.device
+    ty = BLK * torch.arange(nby, device=dev)
+    tx = BLK * torch.arange(nbx, device=dev)
+    row = win[ty].unfold(1, BLK, 1)                 # [nby, w + 17, 8]
+    crow = c[ty].reshape(nby, nbx, BLK)             # each block's first row
+    cols = torch.arange(K, device=dev)[:, None] + tx[None]    # [K, nbx]
+    x0 = (crow[:, None] * row[:, cols]).sum(-1).permute(1, 0, 2)  # [K, nby, nbx]
+    best = torch.full((nby, nbx), 2**32 - 1, dtype=torch.int64, device=dev)
+    ok_x = (cols - SPAN >= 0) & (cols - SPAN <= w - BLK)     # [K, nbx]
+    for oy in range(K):
+        x = x0 if oy == 0 else torch.zeros_like(x0)
+        cost = (qcur + _qref(s, oy, nby, nbx)) - 2 * x
+        flat = oy * K + torch.arange(K, device=dev)[:, None, None]
+        u = (cost.long() * (K * K) + flat) % 2**32
+        ok_y = ((ty + oy - SPAN >= 0) & (ty + oy - SPAN <= h - BLK))
+        u = torch.where(ok_y[None, :, None] & ok_x[:, None, :], u, 2**32 - 1)
+        best = torch.minimum(best, u.amin(0))
+    return (best + KEY_BIAS).to(torch.int32)
+
+
+def nofold_plain(cur, ref_p) -> torch.Tensor:
+    """Plain version of L3's "P3B" (`nofold`): per block, the least over
+    ox of int32(sum_{r<8} cur[8Rg + r, c] * ref_p[8Rg + r, c + ox]), the
+    dy = 0 group's chain at the block's first column, with no slide, no
+    key and no mask."""
+    h, w = cur.shape
+    nby, nbx = h // BLK, w // BLK
+    tx = BLK * torch.arange(nbx, device=cur.device)
+    cols = torch.arange(K, device=cur.device)[:, None] + tx[None]  # [K, nbx]
+    e = ref_p[:h].double()[:, cols]                          # [h, K, nbx]
+    prod = cur.double()[:, tx][:, None] * e
+    chain = prod.reshape(nby, BLK, K, nbx).sum(1)            # [nby, K, nbx]
+    return chain.amin(1).to(torch.int32)
+
+
+def _key_wrapper(wrapper, plain, cur, ref_p, tile_h, *flags):
+    """Shared body of the key-form wrappers: the plain version on the CPU,
+    else one launch of `wrapper`'s kernel with `flags` (ints)."""
+    _check_lab_operands(cur, ref_p, tile_h)
+    if cur.device.type == "cpu":
+        return plain()
+    _check_cuda(cur, ref_p)
+    h, w = cur.shape
+    key = torch.empty((h // BLK, w // BLK), dtype=torch.int32,
+                      device=cur.device)
+    _launch(wrapper, cur.device, cur.data_ptr(), ref_p.data_ptr(),
+            key.data_ptr(), cur.stride(0), ref_p.stride(0), w // BLK, h, w,
+            tile_h, *flags)
+    return key
+
+
+def lab_p3(cur, ref_p, *, tile_h: int, sad: bool = False,
+           ablate: str | None = None) -> torch.Tensor:
+    """L3 (`me_lab_p3`): "P3" (SSD by the cross term (Qcur + Qref) - 2X)
+    and "P3S" (SAD) give L4's key; `ablate` "nochain" ("P3A") and
+    "nofold" ("P3B") give the ablations of `nochain_plain` and
+    `nofold_plain` (SSD only)."""
+    if ablate not in ABLATIONS or (sad and ablate):
+        raise ValueError(f"ablate must be None, 'nochain' or 'nofold' (SSD "
+                         f"only), got {ablate!r} with sad={sad}")
+
+    def plain():
+        if ablate == "nochain":
+            return nochain_plain(cur, ref_p)
+        if ablate == "nofold":
+            return nofold_plain(cur, ref_p)
+        return diff_plain(cur, ref_p, sad=sad)
+
+    return _key_wrapper(lab_p3, plain, cur, ref_p, tile_h, int(sad),
+                        ABLATIONS[ablate])
+
+
+lab_p3.launches = 0
+
+
+def lab_p5(cur, ref_p, *, tile_h: int, sad: bool = False,
+           bf16: bool = False) -> torch.Tensor:
+    """L5 (`me_lab_p5`): the diff form ("P5"), or SAD ("P5S"), over float32
+    or (`bf16`: "P5B", "P5SB") bfloat16 planes; L4's key."""
+    return _key_wrapper(lab_p5, lambda: diff_plain(cur, ref_p, sad=sad), cur,
+                        ref_p, tile_h, int(sad), int(bf16))
+
+
+lab_p5.launches = 0
+
+
+def lab_p6(cur, ref_p, *, tile_h: int, bf16: bool = False) -> torch.Tensor:
+    """L6 (`me_lab_p6`): SSD by the cross term (Qcur - X) + (Qref - X),
+    over float32 or (`bf16`: "P6B") bfloat16 planes; L4's key."""
+    return _key_wrapper(lab_p6, lambda: diff_plain(cur, ref_p), cur, ref_p,
+                        tile_h, int(bf16))
+
+
+lab_p6.launches = 0
+
+
+def lab_p7(cur, ref_p, *, tile_h: int, sad: bool = False) -> torch.Tensor:
+    """L7 (`me_lab_p7`): the diff form ("P7"), or SAD ("P7S"), over
+    bfloat16 planes; L4's key."""
+    return _key_wrapper(lab_p7, lambda: diff_plain(cur, ref_p, sad=sad), cur,
+                        ref_p, tile_h, int(sad))
+
+
+lab_p7.launches = 0
