@@ -8,7 +8,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 1. Set-up: the card's name and power limit, the torch / CUDA / nvcc
    versions, and the build of every kernel under
    motionestimation_tpu_torch/kernels/csrc (one nvcc per source, all
-   started together).
+   started together); the chunked kernel's registers, spills, shared
+   memory and resident CUDA blocks per SM at 4K 7x7 +-15, 4K 8x8 +-12,
+   4K 16x16 +-15 and 1080p 7x7 +-7.
 2. Byte-exact CLI runs against the C reference's fixtures: MSE (Foreman
    8x8 +-12 both ways, the truncated rand_mse_90x70_32_8) and SSIM
    (`--metric ssim`: Foreman 16x16 +-7 and 4x4 +-15, the truncated
@@ -41,10 +43,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    and 1080p 24x24 +-15 (MSE) and 4K 16x16 +-7, 1080p 16x16 +-15 and 4K
    32x32 +-7 (SSIM), and each kernel's own time beside its plain
    version's; the phase, chunked and packed-byte chunked kernels in turns
-   on the same 4K 8x8 +-12 work; the volume entries and the emit modes at
-   1080p 16x16 +-15; `run_pair` diamond beside full search on the config3
-   frames and on the adversarial frames (canonical and crossover), and the
-   diamond replay alone.
+   on the same 4K 8x8 +-12 work, the two chunked kernels on the same 4K
+   7x7 +-15 interior and the phase and chunked kernels on the same 4K
+   16x16 +-15 work, each group giving the same (cost, idx); the volume
+   entries and the emit modes at 1080p 16x16 +-15, and the chunked kernel
+   with and without its volume at 1080p 7x7 +-7; `run_pair` diamond
+   beside full search on the config3 frames and on the adversarial frames
+   (canonical and crossover), and the diamond replay alone.
 6. The speed-of-light tools' main path, counted: `vpu_peak.main()` (the
    fma, mix and roll mixes of P1 and the P2 chain at the JAX tool's
    shapes) and `kern_lab.main()` on the lab's L2 ("P0", "P1") and L4
@@ -360,6 +365,15 @@ def main(argv=None) -> int:
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip())
     print(f"build phase {time.perf_counter() - t0:.1f} s")
+    for label, h, w, blk, span in (CHUNKED_CONFIGS[0], U8_CONFIG, CONFIGS[2],
+                                   VOLUME_CONFIGS[2][:5]):
+        occ = kc.chunked_occupancy(blk, span, w // blk)
+        print(f"me_chunked_search at {label}: {occ['registers']} registers "
+              f"and {occ['local_bytes']} bytes of local memory (spills) per "
+              f"thread, {occ['smem_bytes']} B of shared memory for "
+              f"{occ['tbx']} macroblocks per CUDA block, "
+              f"{occ['blocks_per_sm']} CUDA blocks ({occ['warps_per_sm']} "
+              f"warps) resident per SM")
     # name -> (wrapper, counter): a kernel's launches, and its emit mode's
     # launches (the launches with a volume) apart.
     counters = {"me_phase_search": kc.phase_search,
@@ -892,25 +906,38 @@ def main(argv=None) -> int:
                          f"{sp_ms:.2f} ms)")
             print(line + f" | {card}")
 
-    label, h, w, blk, span = U8_CONFIG
-    print(f"== the phase, chunked and packed-byte chunked kernels on the same "
-          f"work ({label} interior), in turns, 20 launches each ({card})")
-    cur_t, halo = operands(h, w, span, args.seed)
-    kw = dict(blk_dim=blk, span=span, metric="mse", frame_height=h,
-              frame_width=w)
-    trio = (kc.phase_search, kc.chunked_search, kc.chunked_u8_search)
-    times = {fn.__name__: [] for fn in trio}
-    for fn in trio:
-        fn(cur_t, halo, **kw)  # warm-up: loads the instance
-    for fn in trio + trio[::-1]:
-        times[fn.__name__].append(cuda_ms(lambda: fn(cur_t, halo, **kw), 20))
-    geo = (h, w, blk, span, (h, w), (0, 0))
-    pixel_cands, _ = valid_candidates(*geo)
-    for name, ts in times.items():
-        ms = statistics.mean(ts)
-        print(f"  {name} {ms:.4f} ms (runs {[round(t, 4) for t in ts]}), "
-              f"{pixel_cands / ms / 1e9:.2f} T pixel-candidates/s | "
-              f"bound {bound(*geo)[0]:.6f} ms | {card}")
+    # The phase, chunked and packed-byte chunked kernels on the same work,
+    # the two chunked kernels on the Jockey config's interior, and the phase
+    # and chunked kernels at blk 16. Each gives the same (cost, idx).
+    for (label, h, w, blk, span), fns in (
+        (U8_CONFIG, (kc.phase_search, kc.chunked_search,
+                     kc.chunked_u8_search)),
+        (CHUNKED_CONFIGS[0], (kc.chunked_search, kc.chunked_u8_search)),
+        (CONFIGS[2], (kc.phase_search, kc.chunked_search)),
+    ):
+        print(f"== {', '.join(fn.__name__ for fn in fns)} on the same work "
+              f"({label} interior), in turns, 20 launches each ({card})")
+        cur_t, halo = operands(h, w, span, args.seed)
+        tile = cur_t[: h // blk * blk, : w // blk * blk]
+        kw = dict(blk_dim=blk, span=span, metric="mse", frame_height=h,
+                  frame_width=w)
+        times = {fn.__name__: [] for fn in fns}
+        first = fns[0](tile, halo, **kw)  # warm-up: loads the instance
+        for fn in fns[1:]:
+            if not all(torch.equal(a, b)
+                       for a, b in zip(fn(tile, halo, **kw), first)):
+                fail(f"{fn.__name__} differs from {fns[0].__name__} at "
+                     f"{label}")
+        for fn in fns + fns[::-1]:
+            times[fn.__name__].append(cuda_ms(lambda: fn(tile, halo, **kw),
+                                              20))
+        geo = (h, w, blk, span, tuple(tile.shape), (0, 0))
+        pixel_cands, _ = valid_candidates(*geo)
+        for name, ts in times.items():
+            ms = statistics.mean(ts)
+            print(f"  {name} {ms:.4f} ms (runs {[round(t, 4) for t in ts]}), "
+                  f"{pixel_cands / ms / 1e9:.2f} T pixel-candidates/s | "
+                  f"bound {bound(*geo)[0]:.6f} ms | {card}")
 
     label, h, w, blk, span, metric = VOLUME_CONFIGS[0]
     print(f"== the volume at {label} ({card})")
@@ -938,6 +965,24 @@ def main(argv=None) -> int:
           f"emit {emit_ms:.4f} ms (without the volume {search_ms:.4f} ms; "
           f"plain {emit_plain_ms:.2f} ms; bound {emit_bound:.6f} ms, "
           f"{emit_by}, {volume_mb:.1f} MB written) | {card}")
+    label, h, w, blk, span, metric = VOLUME_CONFIGS[2]
+    cur_t, halo = operands(h, w, span, args.seed)
+    tile = cur_t[: h // blk * blk, : w // blk * blk]
+    kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
+              frame_width=w)
+    kc.chunked_search(tile, halo, return_volume=True, **kw)  # warm-up
+    turns = {"search": [], "emit": []}
+    for mode in ("search", "emit", "emit", "search"):
+        turns[mode].append(cuda_ms(lambda: kc.chunked_search(
+            tile, halo, return_volume=mode == "emit", **kw), 20))
+    geo = (h, w, blk, span, tuple(tile.shape), (0, 0))
+    volume_mb = (2 * span + 1) ** 2 * tile.numel() // blk ** 2 * 4 / 1e6
+    print(f"  me_chunked_search at {label} interior {tuple(tile.shape)}: "
+          f"emit {statistics.mean(turns['emit']):.4f} ms, search "
+          f"{statistics.mean(turns['search']):.4f} ms (in turns, 20 launches "
+          f"each: {turns}); emit bound "
+          f"{bound(*geo, volume=True)[0]:.6f} ms ({volume_mb:.1f} MB "
+          f"written) | {card}")
 
     h, w, blk, span = DIAMOND
     print(f"== diamond at {w}x{h} {blk}x{blk} +-{span}, the JAX bench's "

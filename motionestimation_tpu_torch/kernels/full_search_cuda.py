@@ -71,6 +71,7 @@ _SIGNATURES = {
     },
     "chunked": {
         "me_chunked_search": [_PTR] * 5 + [_INT] * 11 + [_PTR],
+        "me_chunked_occupancy": [_INT] * 3 + [_PTR],
         "me_chunked_u8_search": [_PTR] * 4 + [_INT] * 11 + [_PTR],
         "me_wide_search": [_PTR] * 4 + [_INT] * 11 + [_PTR],
     },
@@ -311,9 +312,10 @@ def chunked_search(cur, ref_halo, *, blk_dim: int, span: int,
                    return_volume: bool = False):
     """MSE search of full interior blocks by hoisted box sums
     (`me_chunked_search`, the port of `_kernel_f32`): blk 1..16, span >= 0,
-    operands staged 32 bits per pixel. Returns int32 (cost, idx), and with
-    `return_volume` the int32 [K², nby, nbx] cost volume (INT32_MAX at
-    invalid candidates; the kernel's emit mode)."""
+    operands staged as packed bytes, a warp per macroblock and its lanes
+    over the macroblock's candidates. Returns int32 (cost, idx),
+    and with `return_volume` the int32 [K², nby, nbx] cost volume
+    (INT32_MAX at invalid candidates; the kernel's emit mode)."""
     _check_mse(metric, "me_chunked_search")
     _check_operands(cur, ref_halo, span, metric)
     if not chunked_supported(blk_dim, span):
@@ -332,13 +334,34 @@ def chunked_search(cur, ref_halo, *, blk_dim: int, span: int,
 chunked_search.launches = chunked_search.volume_launches = 0
 
 
+def chunked_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
+    """`me_chunked_search`'s resources on the current card for a grid of
+    `nbx` macroblocks a row: registers and local (spill) bytes per thread,
+    dynamic shared memory and macroblocks per CUDA block, and the CUDA
+    blocks and warps resident per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a card."""
+    if not chunked_supported(blk_dim, span) or nbx < 1:
+        raise ValueError(f"no chunked kernel for blk_dim={blk_dim} "
+                         f"span={span} nbx={nbx}")
+    out = (ctypes.c_int * 5)()
+    err = _lib("chunked").me_chunked_occupancy(blk_dim, span, nbx, out)
+    if err != 0:
+        raise RuntimeError(
+            f"me_chunked_occupancy failed with CUDA error {err}")
+    regs, local, smem, tbx, blocks = out
+    return dict(registers=regs, local_bytes=local, smem_bytes=smem, tbx=tbx,
+                blocks_per_sm=blocks,
+                warps_per_sm=blocks * 4)  # 128 threads per CUDA block
+
+
 def chunked_u8_search(cur, ref_halo, *, blk_dim: int, span: int,
                       frame_height: int, frame_width: int, y_origin: int = 0,
                       x_origin: int = 0, metric: str = "mse"):
-    """`chunked_search` with its operands staged as packed bytes, four to a
-    32-bit word (`me_chunked_u8_search`, the port of `_kernel_f32_bf16`,
-    whose operands are staged at half width). No volume. Returns int32
-    (cost, idx)."""
+    """`chunked_search`'s search with its operands staged as packed bytes,
+    four to a 32-bit word, one candidate per thread and the CUDA block's
+    128 threads over each macroblock's candidates (`me_chunked_u8_search`,
+    the port of `_kernel_f32_bf16`, whose operands are staged at half
+    width). No volume. Returns int32 (cost, idx)."""
     _check_mse(metric, "me_chunked_u8_search")
     _check_operands(cur, ref_halo, span, metric)
     if not chunked_supported(blk_dim, span):

@@ -160,6 +160,13 @@ def test_no_mse_config_raises_not_implemented():
                         assert torch.equal(a, b), (blk, span, metric, phase)
 
 
+def test_chunked_occupancy_rejects_what_the_kernel_does_not_cover():
+    """The resource query checks its config before it reaches the card."""
+    for blk, span, nbx in ((24, 15, 80), (0, 4, 80), (7, -1, 80), (7, 15, 0)):
+        with pytest.raises(ValueError, match="no chunked kernel"):
+            kc.chunked_occupancy(blk, span, nbx)
+
+
 def test_interior_wrappers_reject_what_they_do_not_cover():
     cur, ref = random_pair(7, 48, 48)
     cur_t = torch.from_numpy(cur)
@@ -204,9 +211,20 @@ def _assert_exact(got, want):
     "h,w,blk,span",
     [(64, 96, 1, 3), (66, 99, 3, 4), (64, 96, 4, 5), (70, 98, 7, 15),
      (96, 200, 8, 12), (96, 200, 8, 0), (99, 143, 11, 6), (96, 96, 12, 3),
-     (96, 160, 16, 15), (128, 128, 16, 31)],
+     (96, 160, 16, 15), (128, 128, 16, 31),
+     # spans 0 and 1: fewer candidates than lanes in K5's warp
+     (35, 63, 7, 0), (64, 96, 4, 1), (66, 99, 3, 1),
+     # fewer macroblocks in the tile than warps in a CUDA block
+     (21, 21, 7, 3),
+     # K = 63 at span 31
+     (64, 64, 1, 31), (66, 99, 3, 31), (70, 98, 7, 31), (99, 143, 11, 31)],
 )
 def test_chunked_kernels_match_plain_cuda(cuda, wrapper, h, w, blk, span):
+    """Exact against the plain version, every volume entry too (K5's emit
+    mode: the tile is the whole frame, so candidates past both frame edges
+    hold INT32_MAX wherever span > 0). At K = 2 span + 1 > 32 K5's lanes
+    wrap within a row of candidates, below it across rows; 70x98 at blk 7
+    leaves the last CUDA block of each row short of macroblocks."""
     fn = getattr(kc, wrapper)
     cur_t, halo = _operands(cuda, h, w, span, blk + span)
     kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
@@ -215,6 +233,41 @@ def test_chunked_kernels_match_plain_cuda(cuda, wrapper, h, w, blk, span):
     got = fn(tile, halo, **kw)
     assert fn.launches == before + 1
     _assert_exact(got, kc.search_plain(tile, halo, metric="mse", **kw))
+    if wrapper == "chunked_search":
+        before = fn.volume_launches
+        got = fn(tile, halo, return_volume=True, **kw)
+        assert fn.volume_launches == before + 1
+        _assert_exact(got, kc.search_plain(tile, halo, metric="mse",
+                                           return_volume=True, **kw))
+        assert bool((got[2] == 2**31 - 1).any()) == (span > 0)
+
+
+@pytest.mark.parametrize("blk", [7, 12])
+def test_constant_frames_raster_first_wins_cuda(cuda, blk):
+    """K5 on the card: every cost ties at 0, and the first valid candidate
+    in raster order must win."""
+    span, k = 4, 9
+    h, w = 3 * blk + 4, 3 * blk + 8
+    cur_t = torch.full((h, w), 77, dtype=torch.uint8, device=cuda)
+    halo = F.pad(cur_t, (span, span, span, span))
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
+    tile = cur_t[: 3 * blk, : 3 * blk]
+    before = kc.chunked_search.launches
+    cost, idx = kc.chunked_search(tile, halo, **kw)
+    assert kc.chunked_search.launches == before + 1
+    _assert_exact((cost, idx),
+                  kc.search_plain(tile, halo, metric="mse", **kw))
+    assert not cost.any()
+    assert int(idx[1, 1]) == 0  # (-4, -4)
+    assert int(idx[0, 0]) == span * k + span  # (0, 0): dy, dx < 0 invalid
+
+
+def test_chunked_occupancy_cuda(cuda):
+    """K5 at 3840x2160 7x7 +-15 keeps at least 32 warps resident per SM,
+    with no spills."""
+    occ = kc.chunked_occupancy(7, 15, 3840 // 7)
+    assert occ["local_bytes"] == 0, occ
+    assert occ["warps_per_sm"] >= 32, occ
 
 
 @pytest.mark.parametrize(
