@@ -8,9 +8,11 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 1. Set-up: the card's name and power limit, the torch / CUDA / nvcc
    versions, and the build of every kernel under
    motionestimation_tpu_torch/kernels/csrc (one nvcc per source, all
-   started together); the chunked kernel's registers, spills, shared
-   memory and resident CUDA blocks per SM at 4K 7x7 +-15, 4K 8x8 +-12,
-   4K 16x16 +-15 and 1080p 7x7 +-7.
+   started together); registers, spills, shared memory and resident CUDA
+   blocks per SM of the chunked kernel at 4K 7x7 +-15, 4K 8x8 +-12, 4K
+   16x16 +-15 and 1080p 7x7 +-7, of the phase kernel (MSE and SAD) at 4K
+   8x8 +-12, 16x16 +-15 and 32x32 +-31, and of the wide kernel at 1080p
+   24x24 +-15 and 4K 32x32 +-31.
 2. Byte-exact CLI runs against the C reference's fixtures: MSE (Foreman
    8x8 +-12 both ways, the truncated rand_mse_90x70_32_8) and SSIM
    (`--metric ssim`: Foreman 16x16 +-7 and 4x4 +-15, the truncated
@@ -36,16 +38,22 @@ Run from the root of a checkout. Phases, each of which raises on failure:
 4. Each kernel and emit mode against its plain PyTorch version on the
    card at full size (tolerance: exact equality of every int32 cost, index
    and volume entry, and of every float32 SSIM score and -inf: kernel and
-   plain version round each step alike), and `ssim_volume_cuda` against
-   the golden SSIM volume.
+   plain version round each step alike), the phase kernel at every blk it
+   covers (MSE and SAD, with and without its volume, off the origin, on
+   constant frames), and `ssim_volume_cuda` against the golden SSIM
+   volume.
 5. Timing with CUDA events: `run_pair` (median of --runs runs after
    warm-up) at 4K 8x8 +-12, 1080p 16x16 +-15, 4K 16x16 +-15, 4K 7x7 +-15
    and 1080p 24x24 +-15 (MSE) and 4K 16x16 +-7, 1080p 16x16 +-15 and 4K
    32x32 +-7 (SSIM), and each kernel's own time beside its plain
-   version's; the phase, chunked and packed-byte chunked kernels in turns
-   on the same 4K 8x8 +-12 work, the two chunked kernels on the same 4K
-   7x7 +-15 interior and the phase and chunked kernels on the same 4K
-   16x16 +-15 work, each group giving the same (cost, idx); the volume
+   version's; `tools/kernel_turns.py`'s groups, each kernel in turns with
+   the others on the same work: the phase kernel (MSE and SAD), the
+   chunked and packed-byte chunked kernels at 4K 8x8 +-12, the two chunked
+   kernels on the 4K 7x7 +-15 interior, the phase and chunked kernels at
+   4K 16x16 +-15, the phase kernel with and without its volume at 1080p
+   16x16 +-15, the wide kernel at 1080p 24x24 +-15, and the phase and wide
+   kernels at 4K 32x32 +-31, the kernels of one metric in a group giving
+   the same (cost, idx); the volume
    entries and the emit modes at 1080p 16x16 +-15, and the chunked kernel
    with and without its volume at 1080p 7x7 +-7; `run_pair` diamond
    beside full search on the config3 frames and on the adversarial frames
@@ -152,6 +160,11 @@ CHUNKED_CONFIGS = CONFIGS[3:]
 # The JAX package's own A/B config of its half-width-operand kernel
 # (tools/kern_bench.py): phase=False, operand_bf16=True.
 U8_CONFIG = ("4K 8x8 +-12", 2160, 3840, 8, 12)
+# The JAX bench's config4 row at blk 32 (bench/matrix.py:297-302): K1 and
+# K7 on the same work.
+WIDE_CONFIG = ("4K 32x32 +-31", 2160, 3840, 32, 31)
+# (blk, span): the phase kernel at every blk it covers, checked at 1080p.
+PHASE_CHECKS = [(1, 3), (2, 5), (4, 8), (8, 12), (16, 15), (32, 31)]
 # (label, height, width, blk, span, metric): the diamond cells' config
 # (bench/matrix.py), and the chunked kernel's emit with both edge slabs.
 VOLUME_CONFIGS = [
@@ -229,15 +242,6 @@ def smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
-def synthetic_pair(h, w, seed):
-    """A reference frame and a current frame moved by (3, -5) plus noise."""
-    rng = np.random.default_rng(seed)
-    ref = rng.integers(0, 256, (h, w), dtype=np.uint8)
-    cur = np.roll(ref, (3, -5), (0, 1)).astype(np.int32)
-    cur += rng.integers(-6, 7, (h, w))
-    return np.clip(cur, 0, 255).astype(np.uint8), ref
-
-
 def synth(rng, h, w, texture=4, shift=(1, -2), noise=1):
     """The JAX bench's synthetic content (bench/matrix.py `_synth`):
     blocky texture plus Gaussian noise, the current frame moved by
@@ -260,18 +264,6 @@ def run_cli(cli, argv):
     if rc != 0:
         fail(f"cli.main returned {rc}")
     return buf.getvalue()
-
-
-def cuda_ms(fn, n):
-    """Mean device time of fn() over n calls, bracketed by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def valid_candidates(h, w, blk, span, tile, origin):
@@ -343,7 +335,10 @@ def main(argv=None) -> int:
     from motionestimation_tpu_torch.pipeline import runner
     from motionestimation_tpu_torch.search import diamond
     from motionestimation_tpu_torch.search import full_search as fs
-    from motionestimation_tpu_torch.tools import kern_lab, vpu_peak
+    from motionestimation_tpu_torch.tools import kern_lab, kernel_turns
+    from motionestimation_tpu_torch.tools import vpu_peak
+
+    synthetic_pair, cuda_ms = kernel_turns.synthetic_pair, kernel_turns.cuda_ms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -365,11 +360,22 @@ def main(argv=None) -> int:
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip())
     print(f"build phase {time.perf_counter() - t0:.1f} s")
-    for label, h, w, blk, span in (CHUNKED_CONFIGS[0], U8_CONFIG, CONFIGS[2],
-                                   VOLUME_CONFIGS[2][:5]):
-        occ = kc.chunked_occupancy(blk, span, w // blk)
-        print(f"me_chunked_search at {label}: {occ['registers']} registers "
-              f"and {occ['local_bytes']} bytes of local memory (spills) per "
+    occupancies = [
+        (f"me_chunked_search at {label}", kc.chunked_occupancy(blk, span,
+                                                               w // blk))
+        for label, h, w, blk, span in (CHUNKED_CONFIGS[0], U8_CONFIG,
+                                       CONFIGS[2], VOLUME_CONFIGS[2][:5])]
+    occupancies += [
+        (f"me_phase_search {metric} at {label}",
+         kc.phase_occupancy(blk, span, metric, w // blk))
+        for label, h, w, blk, span in (U8_CONFIG, CONFIGS[2], WIDE_CONFIG)
+        for metric in ("mse", "sad")]
+    occupancies += [
+        (f"me_wide_search at {label}", kc.wide_occupancy(blk, span, w // blk))
+        for label, h, w, blk, span in (CONFIGS[4], WIDE_CONFIG)]
+    for what, occ in occupancies:
+        print(f"{what}: {occ['registers']} registers and "
+              f"{occ['local_bytes']} bytes of local memory (spills) per "
               f"thread, {occ['smem_bytes']} B of shared memory for "
               f"{occ['tbx']} macroblocks per CUDA block, "
               f"{occ['blocks_per_sm']} CUDA blocks ({occ['warps_per_sm']} "
@@ -687,6 +693,36 @@ def main(argv=None) -> int:
         kc.phase_search, kc.search_plain, (cur_t, halo),
         dict(kw, metric="mse"), (h, w, blk, span, (h, w), (0, 0)),
     )
+    # The phase kernel at every blk, MSE and SAD, with and without its
+    # volume, on the whole blocks of a 1080p frame (the volume holds
+    # INT32_MAX past its edges), on a tile off the frame's origin, and on
+    # constant frames (every cost ties at 0: raster-first must win).
+    h, w = 1080, 1920
+    for blk, span in PHASE_CHECKS:
+        cur_t, halo = operands(h, w, span, args.seed + blk)
+        tile = cur_t[: h // blk * blk, : w // blk * blk]
+        y0, x0 = 64, 128
+        sub = (cur_t[y0 : y0 + 512, x0 : x0 + 768], halo[y0:, x0:])
+        flat = torch.full((h, w), 77, dtype=torch.uint8, device=dev)
+        flat_halo = torch.nn.functional.pad(flat, (span, span, span, span))
+        for metric in ("mse", "sad"):
+            kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
+                      frame_width=w)
+            what = f"me_phase_search {w}x{h} {blk}x{blk} +-{span} {metric}"
+            for ops, extra, where in (
+                ((tile, halo), {}, ""),
+                ((tile, halo), dict(return_volume=True), " with its volume"),
+                (sub, dict(y_origin=y0, x_origin=x0, return_volume=True),
+                 f", 512x768 tile at ({y0}, {x0}) with its volume"),
+                ((flat[: h // blk * blk, : w // blk * blk], flat_halo), {},
+                 ", constant frames"),
+            ):
+                got = kc.phase_search(*ops, **kw, **extra)
+                names = ["me_phase_search" + (EMIT if extra else "")]
+                compare(names, got, kc.search_plain(*ops, **kw, **extra),
+                        what + where)
+            if got[0].any():
+                fail(f"{what}: constant frames with a cost above 0")
     label, h, w, blk, span = CONFIGS[1]  # whole frame, with the int slab
     cur, ref = pairs[h, w]
     got = kc.full_search_frame_cuda(cur, ref, blk_dim=blk, span=span,
@@ -906,38 +942,21 @@ def main(argv=None) -> int:
                          f"{sp_ms:.2f} ms)")
             print(line + f" | {card}")
 
-    # The phase, chunked and packed-byte chunked kernels on the same work,
-    # the two chunked kernels on the Jockey config's interior, and the phase
-    # and chunked kernels at blk 16. Each gives the same (cost, idx).
-    for (label, h, w, blk, span), fns in (
-        (U8_CONFIG, (kc.phase_search, kc.chunked_search,
-                     kc.chunked_u8_search)),
-        (CHUNKED_CONFIGS[0], (kc.chunked_search, kc.chunked_u8_search)),
-        (CONFIGS[2], (kc.phase_search, kc.chunked_search)),
-    ):
-        print(f"== {', '.join(fn.__name__ for fn in fns)} on the same work "
-              f"({label} interior), in turns, 20 launches each ({card})")
-        cur_t, halo = operands(h, w, span, args.seed)
-        tile = cur_t[: h // blk * blk, : w // blk * blk]
-        kw = dict(blk_dim=blk, span=span, metric="mse", frame_height=h,
-                  frame_width=w)
-        times = {fn.__name__: [] for fn in fns}
-        first = fns[0](tile, halo, **kw)  # warm-up: loads the instance
-        for fn in fns[1:]:
-            if not all(torch.equal(a, b)
-                       for a, b in zip(fn(tile, halo, **kw), first)):
-                fail(f"{fn.__name__} differs from {fns[0].__name__} at "
-                     f"{label}")
-        for fn in fns + fns[::-1]:
-            times[fn.__name__].append(cuda_ms(lambda: fn(tile, halo, **kw),
-                                              20))
-        geo = (h, w, blk, span, tuple(tile.shape), (0, 0))
+    # Kernels in turns on the same work; time_group fails unless those of
+    # one metric in a group give the same (cost, idx).
+    for label, h, w, blk, span, entries in kernel_turns.GROUPS:
+        print(f"== {', '.join(e[0] for e in entries)} on the same work "
+              f"({label} interior), in turns, {kernel_turns.LAUNCHES} "
+              f"launches each ({card})")
+        times = kernel_turns.time_group(h, w, blk, span, entries, args.seed,
+                                        dev)
+        geo = (h, w, blk, span, (h // blk * blk, w // blk * blk), (0, 0))
         pixel_cands, _ = valid_candidates(*geo)
-        for name, ts in times.items():
+        for (name, *_, volume), ts in zip(entries, times.values()):
             ms = statistics.mean(ts)
             print(f"  {name} {ms:.4f} ms (runs {[round(t, 4) for t in ts]}), "
                   f"{pixel_cands / ms / 1e9:.2f} T pixel-candidates/s | "
-                  f"bound {bound(*geo)[0]:.6f} ms | {card}")
+                  f"bound {bound(*geo, volume=volume)[0]:.6f} ms | {card}")
 
     label, h, w, blk, span, metric = VOLUME_CONFIGS[0]
     print(f"== the volume at {label} ({card})")

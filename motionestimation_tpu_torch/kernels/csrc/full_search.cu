@@ -29,33 +29,37 @@
 //   (dy + span) * K + (dx + span). A block with no valid candidate gets
 //   INT32_MAX and the centre index span * K + span.
 //
-// Design. One CUDA block stages the current pixels of a tile of
-// macroblocks and the reference window they can reach,
-// (tile + 2*span) on each side, in shared memory. The 128 threads split the
-// K*K candidates of each macroblock. Each thread keeps its best candidate
-// as the 64-bit key (cost << 32 | flat); the minimum key over the CUDA
-// block (warp shuffles, then shared memory) is exactly "lowest cost, first
-// in raster order", whatever order the threads ran in.
+// What bounds them. The work is K*K*blk*blk pixel-candidates per block (5.2
+// G at 3840x2160, 8x8, +-12) against 2 bytes of frame per pixel: integer
+// issue and shared-memory reads, not device memory.
 //
-// What bounds it. The work is K*K*blk*blk pixel-candidates per block (5.2 G
-// at 3840x2160, 8x8, +-12) against 8 bytes of frame per pixel: integer
-// arithmetic and shared-memory reads, not device memory. The phase kernel
-// therefore packs four pixels in one 32-bit word: the reference window is
-// stored once for every byte offset (word o holds bytes o..o+3), so every
-// candidate reads aligned words, and one __dp4a (four byte products
-// summed into int32) or __vsadu4 covers four pixels. SSD is
-// sum(c^2) + sum(r^2) - 2*sum(c*r), exact in 32 bits for blk <= 32
-// (sum(r^2) <= 255^2 * 1024 < 2^27). For blk <= 16 the macroblock's current
-// pixels stay in registers. The int kernel handles any extent byte by
-// byte: it runs on thin edge slabs, where its time is small. A volume
-// (separate template instances) adds one 4-byte store per candidate; the
-// threads that split a block's candidates store to different planes, so
-// the stores are not coalesced.
+// The phase kernel is the warp-per-macroblock body of warp_search.cuh (its
+// note gives the design), the one me_chunked_search and me_wide_search
+// run: the reference window staged once per byte offset from its raw
+// bytes, so every candidate reads aligned words and one __dp4a (SSD, as
+// (Qcur - X) + (Qref - X) with the Qref plane from sliding sums) or one
+// VABSDIFF4 with accumulate (SAD) covers four pixels; a warp per
+// macroblock with its lanes over the candidates, no division and no
+// barrier after staging; bank-skewed row strides. The block's words stay
+// in registers up to blk 16 and are read as 128-bit shared broadcasts at
+// blk 32. At 4K 8x8 +-12 the SASS holds 16 __dp4a and 17 shared loads
+// among 66 instructions per candidate: one shared load per __dp4a, and
+// the load pipe (one warp-wide load per SM per clock) is the first limit.
+//
+// The int kernel handles any extent byte by byte: it runs on thin edge
+// slabs, where its time is small. It keeps each thread's best candidate as
+// the 64-bit key (cost << 32 | flat); the minimum key over the CUDA block
+// (warp shuffles, then shared memory) is exactly "lowest cost, first in
+// raster order", whatever order the threads ran in. A volume (separate
+// template instances in both kernels) adds one 4-byte store per
+// candidate; lanes store to different planes, so the stores are not
+// coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "warp_search.cuh"
 
 namespace {
 
@@ -76,138 +80,6 @@ __device__ __forceinline__ void write_best(const unsigned long long* red,
   } else {
     *cost = static_cast<int32_t>(best >> 32);
     *idx = static_cast<int32_t>(best & 0xffffffffu);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Phase kernel: full blocks of side BLK, `tbx` macroblocks per CUDA block
-// along x. grid = (ceil(nbx / tbx), nby).
-template <int BLK, bool SAD, bool EMIT>
-__global__ void __launch_bounds__(kThreads)
-phase_search_kernel(const uint8_t* __restrict__ cur, int cur_ld,
-                    const uint8_t* __restrict__ ref, int ref_ld,
-                    int32_t* __restrict__ out_cost,
-                    int32_t* __restrict__ out_idx, int32_t* __restrict__ vol,
-                    int out_ld, int nby, int nbx, int tbx, int span,
-                    int frame_h, int frame_w, int y_origin, int x_origin) {
-  constexpr int CW = BLK >= 4 ? BLK / 4 : 1;  // words per block row
-  constexpr int PX = BLK >= 4 ? 4 : BLK;      // pixels per word
-  constexpr uint32_t kMask = BLK >= 4 ? 0xffffffffu : (1u << (8 * BLK)) - 1u;
-  constexpr bool kCurInRegs = BLK <= 16;
-
-  extern __shared__ unsigned long long smem[];
-  const int K = 2 * span + 1;
-  const int KK = K * K;
-  const int centre = span * K + span;
-  const int by = blockIdx.y;
-  const int bx0 = blockIdx.x * tbx;
-  const int ntile = min(tbx, nbx - bx0);
-  const int win_h = BLK + 2 * span;
-  const int win_w = tbx * BLK + 2 * span;  // packed words per window row
-  const int halo_w = nbx * BLK + 2 * span;
-  const int cur_words = tbx * CW;          // packed words per tile row
-
-  unsigned long long* red = smem;                                    // [tbx*kWarps]
-  uint32_t* win = reinterpret_cast<uint32_t*>(red + tbx * kWarps);   // [win_h*win_w]
-  uint32_t* cblk = win + win_h * win_w;                              // [BLK*cur_words]
-
-  // Stage the reference window: win[r][o] packs halo bytes (r, o..o+3) of
-  // the window, little-endian; bytes past the halo's used width are zero.
-  const int wy0 = by * BLK, wx0 = bx0 * BLK;
-  for (int i = threadIdx.x; i < win_h * win_w; i += kThreads) {
-    const int r = i / win_w, o = i - r * win_w;
-    const uint8_t* p = ref + static_cast<size_t>(wy0 + r) * ref_ld;
-    const int x = wx0 + o;
-    uint32_t v = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (x + b < halo_w) v |= static_cast<uint32_t>(p[x + b]) << (8 * b);
-    win[i] = v;
-  }
-  // Stage the current tile: CW words per macroblock row, PX pixels each.
-  for (int i = threadIdx.x; i < BLK * cur_words; i += kThreads) {
-    const int r = i / cur_words, w = i - r * cur_words;
-    const int m = w / CW, ww = w - m * CW;
-    uint32_t v = 0;
-    if (m < ntile) {
-      const uint8_t* p = cur + static_cast<size_t>(wy0 + r) * cur_ld +
-                         (bx0 + m) * BLK + 4 * ww;
-#pragma unroll
-      for (int b = 0; b < PX; ++b) v |= static_cast<uint32_t>(p[b]) << (8 * b);
-    }
-    cblk[i] = v;
-  }
-  __syncthreads();
-
-  const int gy = y_origin + by * BLK;
-  // Valid offsets o = d + span: 0 <= g + o - span <= frame - BLK.
-  const int oy_lo = max(0, span - gy);
-  const int oy_hi = min(2 * span, frame_h - BLK - gy + span);
-  for (int m = 0; m < ntile; ++m) {
-    const int gx = x_origin + (bx0 + m) * BLK;
-    const int ox_lo = max(0, span - gx);
-    const int ox_hi = min(2 * span, frame_w - BLK - gx + span);
-    const uint32_t* cb = cblk + m * CW;  // row r at cb[r * cur_words]
-
-    uint32_t creg[kCurInRegs ? BLK * CW : 1];
-    uint32_t sum_c2 = 0;
-#pragma unroll
-    for (int r = 0; r < BLK; ++r) {
-#pragma unroll
-      for (int w = 0; w < CW; ++w) {
-        const uint32_t c = cb[r * cur_words + w];
-        if constexpr (kCurInRegs) creg[r * CW + w] = c;
-        if constexpr (!SAD) sum_c2 = __dp4a(c, c, sum_c2);
-      }
-    }
-
-    // This macroblock's entry of volume plane 0; plane c is `plane` further.
-    int32_t* vrow = EMIT ? vol + static_cast<size_t>(by) * out_ld + bx0 + m
-                         : nullptr;
-    const size_t plane = static_cast<size_t>(nby) * out_ld;
-
-    unsigned long long best = kNoKey;
-    for (int cand = threadIdx.x; cand < KK; cand += kThreads) {
-      const int oy = cand / K, ox = cand - oy * K;
-      if (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi) {
-        if constexpr (EMIT) vrow[cand * plane] = kInt32Max;
-        continue;
-      }
-      const uint32_t* wp = win + oy * win_w + m * BLK + ox;
-      uint32_t acc = 0, cross = 0, sum_r2 = 0;
-#pragma unroll
-      for (int r = 0; r < BLK; ++r) {
-#pragma unroll
-        for (int w = 0; w < CW; ++w) {
-          uint32_t c;
-          if constexpr (kCurInRegs) {
-            c = creg[r * CW + w];
-          } else {
-            c = cb[r * cur_words + w];
-          }
-          const uint32_t x = wp[r * win_w + 4 * w] & kMask;
-          if constexpr (SAD) {
-            acc += __vsadu4(c, x);
-          } else {
-            cross = __dp4a(c, x, cross);
-            sum_r2 = __dp4a(x, x, sum_r2);
-          }
-        }
-      }
-      if constexpr (!SAD) acc = sum_c2 + sum_r2 - 2u * cross;
-      if constexpr (EMIT) vrow[cand * plane] = static_cast<int32_t>(acc);
-      const unsigned long long key =
-          (static_cast<unsigned long long>(acc) << 32) |
-          static_cast<unsigned>(cand);
-      best = key < best ? key : best;
-    }
-    warp_store_min(best, red, m);
-  }
-  __syncthreads();
-  if (threadIdx.x < ntile) {
-    const int m = threadIdx.x;
-    const size_t o = static_cast<size_t>(by) * out_ld + bx0 + m;
-    write_best(red, m, out_cost + o, out_idx + o, centre);
   }
 }
 
@@ -302,59 +174,9 @@ int launch_int(const void* cur, const void* ref, void* out_cost,
   return static_cast<int>(cudaGetLastError());
 }
 
-size_t phase_smem_bytes(int blk, int tbx, int span) {
-  const int cw = blk >= 4 ? blk / 4 : 1;
-  const size_t win = static_cast<size_t>(blk + 2 * span) * (tbx * blk + 2 * span);
-  return sizeof(unsigned long long) * tbx * kWarps +
-         sizeof(uint32_t) * (win + static_cast<size_t>(blk) * tbx * cw);
-}
-
-template <int BLK, bool SAD, bool EMIT>
-int launch_phase(const void* cur, const void* ref, void* out_cost,
-                 void* out_idx, void* vol, int cur_ld, int ref_ld, int out_ld,
-                 int nby, int nbx, int span, int frame_h, int frame_w,
-                 int y_origin, int x_origin, cudaStream_t stream) {
-  auto kernel = phase_search_kernel<BLK, SAD, EMIT>;
-  int tbx = BLK >= 64 ? 1 : 64 / BLK;  // ~64 pixels of macroblocks per tile
-  if (tbx > nbx) tbx = nbx;
-  size_t smem = phase_smem_bytes(BLK, tbx, span);
-  while (!reserve_smem(kernel, smem) && tbx > 1) {
-    tbx /= 2;
-    smem = phase_smem_bytes(BLK, tbx, span);
-  }
-  if (!reserve_smem(kernel, smem)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((nbx + tbx - 1) / tbx, nby);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(cur), cur_ld,
-      static_cast<const uint8_t*>(ref), ref_ld,
-      static_cast<int32_t*>(out_cost), static_cast<int32_t*>(out_idx),
-      static_cast<int32_t*>(vol), out_ld, nby, nbx, tbx, span, frame_h,
-      frame_w, y_origin, x_origin);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The instance for (metric, volume or none): SAD for metric 1, SSD else.
-template <int BLK>
-int dispatch_phase(int metric, const void* cur, const void* ref,
-                   void* out_cost, void* out_idx, void* vol, int cur_ld,
-                   int ref_ld, int out_ld, int nby, int nbx, int span,
-                   int frame_h, int frame_w, int y_origin, int x_origin,
-                   cudaStream_t stream) {
-#define ME_PHASE_LAUNCH(SAD, EMIT)                                           \
-  return launch_phase<BLK, SAD, EMIT>(cur, ref, out_cost, out_idx, vol,      \
-                                      cur_ld, ref_ld, out_ld, nby, nbx, span, \
-                                      frame_h, frame_w, y_origin, x_origin,  \
-                                      stream)
-  if (metric == 1) {
-    if (vol != nullptr) ME_PHASE_LAUNCH(true, true);
-    ME_PHASE_LAUNCH(true, false);
-  }
-  if (vol != nullptr) ME_PHASE_LAUNCH(false, true);
-  ME_PHASE_LAUNCH(false, false);
-#undef ME_PHASE_LAUNCH
-}
-
 }  // namespace
+
+#define ME_PHASE_BLOCKS(CASE) CASE(1) CASE(2) CASE(4) CASE(8) CASE(16) CASE(32)
 
 // metric: 0 = SSD (MSE search), 1 = SAD. vol: null, or int32
 // [K*K][nby][out_ld] to receive every candidate's cost. Returns the
@@ -366,22 +188,44 @@ extern "C" int me_phase_search(const void* cur, const void* ref,
                                int frame_h, int frame_w, int y_origin,
                                int x_origin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ME_PHASE_CASE(B)                                                     \
-  case B:                                                                    \
-    return dispatch_phase<B>(metric, cur, ref, out_cost, out_idx, vol,       \
-                             cur_ld, ref_ld, out_ld, nby, nbx, span, frame_h, \
-                             frame_w, y_origin, x_origin, s);
+  if (span < 0) return static_cast<int>(cudaErrorInvalidValue);
+#define ME_PHASE_CASE(B)                                                    \
+  case B:                                                                   \
+    return metric == 1                                                      \
+               ? me::launch_search<B, true>(cur, ref, out_cost, out_idx,    \
+                                            vol, cur_ld, ref_ld, out_ld,    \
+                                            nby, nbx, span, frame_h,        \
+                                            frame_w, y_origin, x_origin, s) \
+               : me::launch_search<B, false>(cur, ref, out_cost, out_idx,   \
+                                             vol, cur_ld, ref_ld, out_ld,   \
+                                             nby, nbx, span, frame_h,       \
+                                             frame_w, y_origin, x_origin, s);
   switch (blk) {
-    ME_PHASE_CASE(1)
-    ME_PHASE_CASE(2)
-    ME_PHASE_CASE(4)
-    ME_PHASE_CASE(8)
-    ME_PHASE_CASE(16)
-    ME_PHASE_CASE(32)
+    ME_PHASE_BLOCKS(ME_PHASE_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef ME_PHASE_CASE
+}
+
+// me_phase_search's resources (metric as there, no volume) for a grid of
+// nbx macroblocks a row: out[5] = {registers per thread, local (spill)
+// bytes per thread, dynamic shared memory bytes, macroblocks per CUDA
+// block, resident CUDA blocks per SM}. Returns the cudaError_t of the
+// queries.
+extern "C" int me_phase_occupancy(int blk, int span, int metric, int nbx,
+                                  int* out) {
+  if (span < 0 || nbx < 1) return static_cast<int>(cudaErrorInvalidValue);
+#define ME_OCCUPANCY_CASE(B)                                   \
+  case B:                                                      \
+    return metric == 1 ? me::search_occupancy<B, true>(nbx, span, out) \
+                       : me::search_occupancy<B, false>(nbx, span, out);
+  switch (blk) {
+    ME_PHASE_BLOCKS(ME_OCCUPANCY_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ME_OCCUPANCY_CASE
 }
 
 // metric and vol as for me_phase_search.

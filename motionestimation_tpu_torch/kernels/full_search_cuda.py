@@ -67,6 +67,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "full_search": {
         "me_phase_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
+        "me_phase_occupancy": [_INT] * 4 + [_PTR],
         "me_int_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
     },
     "chunked": {
@@ -74,6 +75,7 @@ _SIGNATURES = {
         "me_chunked_occupancy": [_INT] * 3 + [_PTR],
         "me_chunked_u8_search": [_PTR] * 4 + [_INT] * 11 + [_PTR],
         "me_wide_search": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+        "me_wide_occupancy": [_INT] * 3 + [_PTR],
     },
 }
 _EMITTERS = ("me_phase_search", "me_int_search", "me_chunked_search")
@@ -280,7 +282,8 @@ def phase_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
                  frame_height: int, frame_width: int, y_origin: int = 0,
                  x_origin: int = 0, return_volume: bool = False):
     """Exact search of full interior blocks (`me_phase_search`, the port of
-    `_kernel_phase`). Every block of the tile must lie inside the frame;
+    `_kernel_phase`), on the chunked kernel's warp-per-macroblock body with
+    an SSD or SAD cost. Every block of the tile must lie inside the frame;
     returns int32 (cost, idx), [tile_h // blk_dim, tile_w // blk_dim], and
     with `return_volume` the int32 [K², nby, nbx] cost volume (INT32_MAX at
     invalid candidates; the kernel's emit mode)."""
@@ -334,24 +337,49 @@ def chunked_search(cur, ref_halo, *, blk_dim: int, span: int,
 chunked_search.launches = chunked_search.volume_launches = 0
 
 
-def chunked_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
-    """`me_chunked_search`'s resources on the current card for a grid of
-    `nbx` macroblocks a row: registers and local (spill) bytes per thread,
-    dynamic shared memory and macroblocks per CUDA block, and the CUDA
-    blocks and warps resident per SM
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a card."""
-    if not chunked_supported(blk_dim, span) or nbx < 1:
-        raise ValueError(f"no chunked kernel for blk_dim={blk_dim} "
-                         f"span={span} nbx={nbx}")
+def _occupancy(source: str, launcher: str, *args: int) -> dict:
+    """A search instance's resources on the current card, from the
+    launcher `me_<...>_occupancy(*args, out)` of csrc/<source>.cu:
+    registers and local (spill) bytes per thread, dynamic shared memory
+    and macroblocks per CUDA block, and the CUDA blocks and warps resident
+    per SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a
+    card."""
     out = (ctypes.c_int * 5)()
-    err = _lib("chunked").me_chunked_occupancy(blk_dim, span, nbx, out)
+    err = getattr(_lib(source), launcher)(*args, out)
     if err != 0:
-        raise RuntimeError(
-            f"me_chunked_occupancy failed with CUDA error {err}")
+        raise RuntimeError(f"{launcher} failed with CUDA error {err}")
     regs, local, smem, tbx, blocks = out
     return dict(registers=regs, local_bytes=local, smem_bytes=smem, tbx=tbx,
                 blocks_per_sm=blocks,
                 warps_per_sm=blocks * 4)  # 128 threads per CUDA block
+
+
+def chunked_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
+    """`me_chunked_search`'s resources (`_occupancy`) for a grid of `nbx`
+    macroblocks a row."""
+    if not chunked_supported(blk_dim, span) or nbx < 1:
+        raise ValueError(f"no chunked kernel for blk_dim={blk_dim} "
+                         f"span={span} nbx={nbx}")
+    return _occupancy("chunked", "me_chunked_occupancy", blk_dim, span, nbx)
+
+
+def phase_occupancy(blk_dim: int, span: int, metric: str, nbx: int) -> dict:
+    """`me_phase_search`'s resources (`_occupancy`, no volume) for a grid
+    of `nbx` macroblocks a row."""
+    if not phase_supported(blk_dim, span, metric) or nbx < 1:
+        raise ValueError(f"no phase kernel for blk_dim={blk_dim} "
+                         f"span={span} metric={metric!r} nbx={nbx}")
+    return _occupancy("full_search", "me_phase_occupancy", blk_dim, span,
+                      _METRIC_CODE[metric], nbx)
+
+
+def wide_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
+    """`me_wide_search`'s resources (`_occupancy`) for a grid of `nbx`
+    macroblocks a row."""
+    if not wide_supported(blk_dim, span) or nbx < 1:
+        raise ValueError(f"no wide kernel for blk_dim={blk_dim} "
+                         f"span={span} nbx={nbx}")
+    return _occupancy("chunked", "me_wide_occupancy", blk_dim, span, nbx)
 
 
 def chunked_u8_search(cur, ref_halo, *, blk_dim: int, span: int,
@@ -383,8 +411,8 @@ def wide_search(cur, ref_halo, *, blk_dim: int, span: int,
                 frame_height: int, frame_width: int, y_origin: int = 0,
                 x_origin: int = 0, metric: str = "mse"):
     """MSE search of full interior blocks at blk 24 and 32 (`me_wide_search`,
-    the port of `_kernel_f32_wide`): the chunked kernel's decomposition with
-    Qref from 8-row parts. Returns int32 (cost, idx)."""
+    the port of `_kernel_f32_wide`): the chunked kernel's body, with the
+    block's words read from shared memory. Returns int32 (cost, idx)."""
     _check_mse(metric, "me_wide_search")
     _check_operands(cur, ref_halo, span, metric)
     if not wide_supported(blk_dim, span):

@@ -167,6 +167,23 @@ def test_chunked_occupancy_rejects_what_the_kernel_does_not_cover():
             kc.chunked_occupancy(blk, span, nbx)
 
 
+@pytest.mark.parametrize(
+    "occupancy,args",
+    [("phase_occupancy", (12, 4, "mse", 80)),
+     ("phase_occupancy", (8, 0, "sad", 80)),
+     ("phase_occupancy", (8, 4, "ssim", 80)),
+     ("phase_occupancy", (8, 4, "mse", 0)),
+     ("wide_occupancy", (16, 4, 80)), ("wide_occupancy", (28, 4, 80)),
+     ("wide_occupancy", (24, -1, 80)), ("wide_occupancy", (32, 4, 0))],
+)
+def test_phase_and_wide_occupancy_reject_what_the_kernels_do_not_cover(
+        occupancy, args):
+    """The resource queries of K1 and K7 check their config before they
+    reach the card."""
+    with pytest.raises(ValueError, match="no (phase|wide) kernel"):
+        getattr(kc, occupancy)(*args)
+
+
 def test_interior_wrappers_reject_what_they_do_not_cover():
     cur, ref = random_pair(7, 48, 48)
     cur_t = torch.from_numpy(cur)
@@ -242,21 +259,28 @@ def test_chunked_kernels_match_plain_cuda(cuda, wrapper, h, w, blk, span):
         assert bool((got[2] == 2**31 - 1).any()) == (span > 0)
 
 
-@pytest.mark.parametrize("blk", [7, 12])
-def test_constant_frames_raster_first_wins_cuda(cuda, blk):
-    """K5 on the card: every cost ties at 0, and the first valid candidate
-    in raster order must win."""
+@pytest.mark.parametrize(
+    "wrapper,blk,metric",
+    [("chunked_search", 7, "mse"), ("chunked_search", 12, "mse"),
+     ("phase_search", 8, "mse"), ("phase_search", 8, "sad"),
+     ("phase_search", 32, "mse"), ("phase_search", 32, "sad"),
+     ("wide_search", 24, "mse")],
+)
+def test_constant_frames_raster_first_wins_cuda(cuda, wrapper, blk, metric):
+    """K5, K1 and K7 on the card: every cost ties at 0, and the first valid
+    candidate in raster order must win."""
+    fn = getattr(kc, wrapper)
     span, k = 4, 9
     h, w = 3 * blk + 4, 3 * blk + 8
     cur_t = torch.full((h, w), 77, dtype=torch.uint8, device=cuda)
     halo = F.pad(cur_t, (span, span, span, span))
-    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
+    kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
+              frame_width=w)
     tile = cur_t[: 3 * blk, : 3 * blk]
-    before = kc.chunked_search.launches
-    cost, idx = kc.chunked_search(tile, halo, **kw)
-    assert kc.chunked_search.launches == before + 1
-    _assert_exact((cost, idx),
-                  kc.search_plain(tile, halo, metric="mse", **kw))
+    before = fn.launches
+    cost, idx = fn(tile, halo, **kw)
+    assert fn.launches == before + 1
+    _assert_exact((cost, idx), kc.search_plain(tile, halo, **kw))
     assert not cost.any()
     assert int(idx[1, 1]) == 0  # (-4, -4)
     assert int(idx[0, 0]) == span * k + span  # (0, 0): dy, dx < 0 invalid
@@ -271,17 +295,38 @@ def test_chunked_occupancy_cuda(cuda):
 
 
 @pytest.mark.parametrize(
-    "h,w,blk,span", [(96, 120, 24, 7), (128, 256, 32, 15), (96, 96, 32, 31),
-                     (96, 192, 24, 0)],
+    "occupancy,args",
+    [("phase_occupancy", (8, 12, "mse", 3840 // 8)),
+     ("phase_occupancy", (8, 12, "sad", 3840 // 8)),
+     ("phase_occupancy", (16, 15, "mse", 3840 // 16)),
+     ("phase_occupancy", (16, 15, "sad", 3840 // 16)),
+     ("wide_occupancy", (24, 15, 1920 // 24))],
 )
-def test_wide_kernel_matches_plain_cuda(cuda, h, w, blk, span):
+def test_phase_and_wide_occupancy_cuda(cuda, occupancy, args):
+    """K1 at 3840x2160 8x8 +-12 and 16x16 +-15 and K7 at 1920x1080 24x24
+    +-15 keep at least 16 warps resident per SM, with no spills."""
+    occ = getattr(kc, occupancy)(*args)
+    assert occ["local_bytes"] == 0, occ
+    assert occ["warps_per_sm"] >= 16, occ
+
+
+@pytest.mark.parametrize(
+    "h,w,blk,span,y0,x0,nby,nbx",
+    [(96, 120, 24, 7, 0, 0, 4, 5), (128, 256, 32, 15, 0, 0, 4, 8),
+     (96, 96, 32, 31, 0, 0, 3, 3), (96, 192, 24, 0, 0, 0, 4, 8),
+     # a tile of 2 x 3 blocks from global (blk, 2 blk)
+     (120, 200, 24, 9, 24, 48, 2, 3), (140, 230, 32, 5, 32, 64, 2, 3)],
+)
+def test_wide_kernel_matches_plain_cuda(cuda, h, w, blk, span, y0, x0, nby,
+                                        nbx):
     cur_t, halo = _operands(cuda, h, w, span, blk * 3 + span)
-    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
-    tile = cur_t[: h // blk * blk, : w // blk * blk]
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w,
+              y_origin=y0, x_origin=x0)
+    tile = (cur_t[y0 : y0 + nby * blk, x0 : x0 + nbx * blk], halo[y0:, x0:])
     before = kc.wide_search.launches
-    got = kc.wide_search(tile, halo, **kw)
+    got = kc.wide_search(*tile, **kw)
     assert kc.wide_search.launches == before + 1
-    _assert_exact(got, kc.search_plain(tile, halo, metric="mse", **kw))
+    _assert_exact(got, kc.search_plain(*tile, metric="mse", **kw))
 
 
 @pytest.mark.parametrize(

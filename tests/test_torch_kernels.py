@@ -249,23 +249,46 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize(
-    "h,w,blk,span,metric",
-    [(64, 96, 1, 3, "mse"), (64, 96, 4, 5, "sad"), (96, 200, 8, 12, "mse"),
-     (96, 160, 16, 15, "sad"), (128, 256, 32, 31, "mse")],
-)
-def test_phase_kernel_matches_plain_cuda(cuda, h, w, blk, span, metric):
+# (blk, span): span 1 (K = 3: most lanes of a warp idle) and wider
+# windows; at blk 32, +-15 and +-31 make two and four warps share a
+# macroblock.
+PHASE_CUDA = [(1, 1), (1, 3), (1, 31), (2, 1), (2, 5), (4, 1), (4, 5),
+              (8, 1), (8, 12), (16, 1), (16, 15), (32, 1), (32, 4), (32, 15),
+              (32, 31)]
+
+
+@pytest.mark.parametrize("metric", ["mse", "sad"])
+@pytest.mark.parametrize("blk,span", PHASE_CUDA)
+def test_phase_kernel_matches_plain_cuda(cuda, blk, span, metric):
+    """Exact against the plain version: costs and indices, every volume
+    entry (INT32_MAX past the frame edges included), and a tile off the
+    frame's origin."""
+    h, w = 4 * blk + 11, 6 * blk + 13
     cur, ref = random_pair(blk + span, h, w)
     cur_t = torch.from_numpy(cur).to(cuda)
     halo = F.pad(torch.from_numpy(ref).to(cuda), (span, span, span, span))
     kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
               frame_width=w)
-    before = kc.phase_search.launches
-    got = kc.phase_search(cur_t, halo, **kw)
-    assert kc.phase_search.launches == before + 1
-    want = kc.search_plain(cur_t, halo, **kw)
+    tile = cur_t[: h // blk * blk, : w // blk * blk]
+    before = kc.phase_search.launches, kc.phase_search.volume_launches
+    got = kc.phase_search(tile, halo, **kw)
+    assert kc.phase_search.launches == before[0] + 1
+    _assert_exact(got, kc.search_plain(tile, halo, **kw))
+    got = kc.phase_search(tile, halo, return_volume=True, **kw)
+    assert kc.phase_search.volume_launches == before[1] + 1
+    _assert_exact(got, kc.search_plain(tile, halo, return_volume=True, **kw))
+    assert bool((got[2] == 2**31 - 1).any())
+    # Two block rows and three block columns from global (blk, 2 blk).
+    y0, x0 = blk, 2 * blk
+    sub = (cur_t[y0 : y0 + 2 * blk, x0 : x0 + 3 * blk], halo[y0:, x0:])
+    okw = dict(kw, y_origin=y0, x_origin=x0, return_volume=True)
+    _assert_exact(kc.phase_search(*sub, **okw),
+                  kc.search_plain(*sub, **okw))
+
+
+def _assert_exact(got, want):
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.parametrize(
