@@ -11,8 +11,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    started together); registers, spills, shared memory and resident CUDA
    blocks per SM of the chunked kernel at 4K 7x7 +-15, 4K 8x8 +-12, 4K
    16x16 +-15 and 1080p 7x7 +-7, of the phase kernel (MSE and SAD) at 4K
-   8x8 +-12, 16x16 +-15 and 32x32 +-31, and of the wide kernel at 1080p
-   24x24 +-15 and 4K 32x32 +-31.
+   8x8 +-12, 16x16 +-15 and 32x32 +-31, of the wide kernel at 1080p
+   24x24 +-15 and 4K 32x32 +-31, and of the fast SSIM kernel at 4K 16x16
+   +-7, 1080p 16x16 +-15 and 4K 32x32 +-7.
 2. Byte-exact CLI runs against the C reference's fixtures: MSE (Foreman
    8x8 +-12 both ways, the truncated rand_mse_90x70_32_8) and SSIM
    (`--metric ssim`: Foreman 16x16 +-7 and 4x4 +-15, the truncated
@@ -40,8 +41,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    and volume entry, and of every float32 SSIM score and -inf: kernel and
    plain version round each step alike), the phase kernel at every blk it
    covers (MSE and SAD, with and without its volume, off the origin, on
-   constant frames), and `ssim_volume_cuda` against the golden SSIM
-   volume.
+   constant frames), the fast SSIM kernel at every blk 1..32 (spans 0 and
+   5, with and without its volume, on a 400x300 frame's tile off the
+   origin), the packed-byte chunked kernel at 4K 7x7 +-15 and 8x8 +-12,
+   and `ssim_volume_cuda` against the golden SSIM volume.
 5. Timing with CUDA events: `run_pair` (median of --runs runs after
    warm-up) at 4K 8x8 +-12, 1080p 16x16 +-15, 4K 16x16 +-15, 4K 7x7 +-15
    and 1080p 24x24 +-15 (MSE) and 4K 16x16 +-7, 1080p 16x16 +-15 and 4K
@@ -51,9 +54,11 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    chunked and packed-byte chunked kernels at 4K 8x8 +-12, the two chunked
    kernels on the 4K 7x7 +-15 interior, the phase and chunked kernels at
    4K 16x16 +-15, the phase kernel with and without its volume at 1080p
-   16x16 +-15, the wide kernel at 1080p 24x24 +-15, and the phase and wide
-   kernels at 4K 32x32 +-31, the kernels of one metric in a group giving
-   the same (cost, idx); the volume
+   16x16 +-15, the wide kernel at 1080p 24x24 +-15, the phase and wide
+   kernels at 4K 32x32 +-31, and the fast SSIM kernel with and without
+   its volume at 4K 16x16 +-7 and 1080p 16x16 +-15 and without at 4K 32x32
+   +-7, the kernels of one metric in a group giving the same (cost or
+   score, idx); the volume
    entries and the emit modes at 1080p 16x16 +-15, and the chunked kernel
    with and without its volume at 1080p 7x7 +-7; `run_pair` diamond
    beside full search on the config3 frames and on the adversarial frames
@@ -373,6 +378,10 @@ def main(argv=None) -> int:
     occupancies += [
         (f"me_wide_search at {label}", kc.wide_occupancy(blk, span, w // blk))
         for label, h, w, blk, span in (CONFIGS[4], WIDE_CONFIG)]
+    occupancies += [
+        (f"me_ssim_fast_search at {label}",
+         sc.ssim_fast_occupancy(blk, span, w // blk))
+        for label, h, w, blk, span in SSIM_CONFIGS]
     for what, occ in occupancies:
         print(f"{what}: {occ['registers']} registers and "
               f"{occ['local_bytes']} bytes of local memory (spills) per "
@@ -783,6 +792,26 @@ def main(argv=None) -> int:
         fail("span 0, cur = 255 - ref: a block did not keep score 0 and "
              "the centre index")
 
+    # The fast SSIM kernel at every blk, with and without its volume, on a
+    # tile of a 400x300 frame off its origin, at span 0 and span 5.
+    h, w = 300, 400
+    for blk in range(1, sc.FAST_MAX_BLK + 1):
+        y0, x0 = blk, 2 * blk
+        nby, nbx = (h - y0) // blk, (w - x0) // blk
+        for span in (0, 5):
+            cur_t, halo = operands(h, w, span, args.seed + blk)
+            sub = (cur_t[y0 : y0 + nby * blk, x0 : x0 + nbx * blk],
+                   halo[y0:, x0:])
+            kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w,
+                      y_origin=y0, x_origin=x0)
+            for extra in ({}, dict(return_volume=True)):
+                compare(["me_ssim_fast_search" + (EMIT if extra else "")],
+                        sc.ssim_fast_search(*sub, **kw, **extra),
+                        sc.ssim_plain(*sub, **kw, **extra),
+                        f"me_ssim_fast_search {w}x{h} {blk}x{blk} +-{span}, "
+                        f"{nbx * blk}x{nby * blk} tile at ({y0}, {x0})"
+                        f"{' with its volume' if extra else ''}")
+
     label, h, w, blk, span = SSIM_CONFIGS[1]  # 1080p: the bottom slab
     cur, ref = pairs[h, w]
     y0 = h // blk * blk
@@ -952,11 +981,12 @@ def main(argv=None) -> int:
                                         dev)
         geo = (h, w, blk, span, (h // blk * blk, w // blk * blk), (0, 0))
         pixel_cands, _ = valid_candidates(*geo)
-        for (name, *_, volume), ts in zip(entries, times.values()):
+        for (name, _, metric, volume), ts in zip(entries, times.values()):
             ms = statistics.mean(ts)
+            b_ms = bound(*geo, ssim=metric == "ssim", volume=volume)[0]
             print(f"  {name} {ms:.4f} ms (runs {[round(t, 4) for t in ts]}), "
                   f"{pixel_cands / ms / 1e9:.2f} T pixel-candidates/s | "
-                  f"bound {bound(*geo, volume=volume)[0]:.6f} ms | {card}")
+                  f"bound {b_ms:.6f} ms | {card}")
 
     label, h, w, blk, span, metric = VOLUME_CONFIGS[0]
     print(f"== the volume at {label} ({card})")

@@ -189,17 +189,17 @@ extern "C" int me_phase_search(const void* cur, const void* ref,
                                int x_origin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (span < 0) return static_cast<int>(cudaErrorInvalidValue);
-#define ME_PHASE_CASE(B)                                                    \
-  case B:                                                                   \
-    return metric == 1                                                      \
-               ? me::launch_search<B, true>(cur, ref, out_cost, out_idx,    \
-                                            vol, cur_ld, ref_ld, out_ld,    \
-                                            nby, nbx, span, frame_h,        \
-                                            frame_w, y_origin, x_origin, s) \
-               : me::launch_search<B, false>(cur, ref, out_cost, out_idx,   \
-                                             vol, cur_ld, ref_ld, out_ld,   \
-                                             nby, nbx, span, frame_h,       \
-                                             frame_w, y_origin, x_origin, s);
+#define ME_PHASE_CASE(B)                                                   \
+  case B:                                                                  \
+    return metric == 1                                                     \
+               ? me::launch_search<B, me::Form::kSad>(                     \
+                     cur, ref, out_cost, out_idx, vol, cur_ld, ref_ld,     \
+                     out_ld, nby, nbx, span, frame_h, frame_w, y_origin,   \
+                     x_origin, s)                                          \
+               : me::launch_search<B, me::Form::kSsd>(                     \
+                     cur, ref, out_cost, out_idx, vol, cur_ld, ref_ld,     \
+                     out_ld, nby, nbx, span, frame_h, frame_w, y_origin,   \
+                     x_origin, s);
   switch (blk) {
     ME_PHASE_BLOCKS(ME_PHASE_CASE)
     default:
@@ -216,10 +216,11 @@ extern "C" int me_phase_search(const void* cur, const void* ref,
 extern "C" int me_phase_occupancy(int blk, int span, int metric, int nbx,
                                   int* out) {
   if (span < 0 || nbx < 1) return static_cast<int>(cudaErrorInvalidValue);
-#define ME_OCCUPANCY_CASE(B)                                   \
-  case B:                                                      \
-    return metric == 1 ? me::search_occupancy<B, true>(nbx, span, out) \
-                       : me::search_occupancy<B, false>(nbx, span, out);
+#define ME_OCCUPANCY_CASE(B)                                         \
+  case B:                                                            \
+    return metric == 1                                               \
+               ? me::search_occupancy<B, me::Form::kSad>(nbx, span, out) \
+               : me::search_occupancy<B, me::Form::kSsd>(nbx, span, out);
   switch (blk) {
     ME_PHASE_BLOCKS(ME_OCCUPANCY_CASE)
     default:

@@ -15,7 +15,9 @@ The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`:
   (:131): MSE of full interior blocks, blk 1..16, span >= 0, by hoisted
   box sums; optionally with the cost volume.
 * `chunked_u8_search` launches `me_chunked_u8_search`, the port of
-  `_kernel_f32_bf16` (:348): the same on operands staged as packed bytes.
+  `_kernel_f32_bf16` (:348), the TPU's A/B of bf16-staged operands: here
+  every kernel reads packed bytes already, so it runs `chunked_search`'s
+  own instance, without a volume.
 * `wide_search` launches `me_wide_search`, the port of `_kernel_f32_wide`
   (:471): MSE of full interior blocks at blk 24 and 32.
 * `full_search_frame_cuda` (the port of `full_search_frame_pallas`, :1415)
@@ -337,17 +339,16 @@ def chunked_search(cur, ref_halo, *, blk_dim: int, span: int,
 chunked_search.launches = chunked_search.volume_launches = 0
 
 
-def _occupancy(source: str, launcher: str, *args: int) -> dict:
-    """A search instance's resources on the current card, from the
-    launcher `me_<...>_occupancy(*args, out)` of csrc/<source>.cu:
-    registers and local (spill) bytes per thread, dynamic shared memory
-    and macroblocks per CUDA block, and the CUDA blocks and warps resident
-    per SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a
-    card."""
+def occupancy(launcher, *args: int) -> dict:
+    """A search instance's resources on the current card, from its ctypes
+    launcher `me_<...>_occupancy(*args, out)`: registers and local (spill)
+    bytes per thread, dynamic shared memory and macroblocks per CUDA block,
+    and the CUDA blocks and warps resident per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a card."""
     out = (ctypes.c_int * 5)()
-    err = getattr(_lib(source), launcher)(*args, out)
+    err = launcher(*args, out)
     if err != 0:
-        raise RuntimeError(f"{launcher} failed with CUDA error {err}")
+        raise RuntimeError(f"{launcher.__name__} failed with CUDA error {err}")
     regs, local, smem, tbx, blocks = out
     return dict(registers=regs, local_bytes=local, smem_bytes=smem, tbx=tbx,
                 blocks_per_sm=blocks,
@@ -355,41 +356,41 @@ def _occupancy(source: str, launcher: str, *args: int) -> dict:
 
 
 def chunked_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
-    """`me_chunked_search`'s resources (`_occupancy`) for a grid of `nbx`
+    """`me_chunked_search`'s resources (`occupancy`) for a grid of `nbx`
     macroblocks a row."""
     if not chunked_supported(blk_dim, span) or nbx < 1:
         raise ValueError(f"no chunked kernel for blk_dim={blk_dim} "
                          f"span={span} nbx={nbx}")
-    return _occupancy("chunked", "me_chunked_occupancy", blk_dim, span, nbx)
+    return occupancy(_lib("chunked").me_chunked_occupancy, blk_dim, span,
+                     nbx)
 
 
 def phase_occupancy(blk_dim: int, span: int, metric: str, nbx: int) -> dict:
-    """`me_phase_search`'s resources (`_occupancy`, no volume) for a grid
+    """`me_phase_search`'s resources (`occupancy`, no volume) for a grid
     of `nbx` macroblocks a row."""
     if not phase_supported(blk_dim, span, metric) or nbx < 1:
         raise ValueError(f"no phase kernel for blk_dim={blk_dim} "
                          f"span={span} metric={metric!r} nbx={nbx}")
-    return _occupancy("full_search", "me_phase_occupancy", blk_dim, span,
-                      _METRIC_CODE[metric], nbx)
+    return occupancy(_lib("full_search").me_phase_occupancy, blk_dim, span,
+                     _METRIC_CODE[metric], nbx)
 
 
 def wide_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
-    """`me_wide_search`'s resources (`_occupancy`) for a grid of `nbx`
+    """`me_wide_search`'s resources (`occupancy`) for a grid of `nbx`
     macroblocks a row."""
     if not wide_supported(blk_dim, span) or nbx < 1:
         raise ValueError(f"no wide kernel for blk_dim={blk_dim} "
                          f"span={span} nbx={nbx}")
-    return _occupancy("chunked", "me_wide_occupancy", blk_dim, span, nbx)
+    return occupancy(_lib("chunked").me_wide_occupancy, blk_dim, span, nbx)
 
 
 def chunked_u8_search(cur, ref_halo, *, blk_dim: int, span: int,
                       frame_height: int, frame_width: int, y_origin: int = 0,
                       x_origin: int = 0, metric: str = "mse"):
-    """`chunked_search`'s search with its operands staged as packed bytes,
-    four to a 32-bit word, one candidate per thread and the CUDA block's
-    128 threads over each macroblock's candidates (`me_chunked_u8_search`,
-    the port of `_kernel_f32_bf16`, whose operands are staged at half
-    width). No volume. Returns int32 (cost, idx)."""
+    """`chunked_search`'s search without a volume (`me_chunked_u8_search`,
+    the port of `_kernel_f32_bf16`, whose operands are staged at half width
+    on the TPU): every kernel here reads packed bytes, four to a 32-bit
+    word, so it launches K5's own instance. Returns int32 (cost, idx)."""
     _check_mse(metric, "me_chunked_u8_search")
     _check_operands(cur, ref_halo, span, metric)
     if not chunked_supported(blk_dim, span):

@@ -6,7 +6,9 @@ the SSIM path:
 * `ssim_fast_search` launches `me_ssim_fast_search`, the port of the
   Pallas kernel `_kernel_ssim_fast` (ssim_pallas.py:214): all full
   interior blocks, blk <= 32, span >= 0; optionally with the score volume
-  (its `emit_volume` mode).
+  (its `emit_volume` mode). It is the SSIM instance of the
+  warp-per-macroblock body (csrc/warp_search.cuh) that K1, K5, K6 and K7
+  run; `ssim_fast_occupancy` reports its resources.
 * `ssim_search` launches `me_ssim_search`, the port of `_kernel_ssim`
   (:48): blocks with truncated extents, any blk; optionally with the score
   volume.
@@ -58,6 +60,9 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.me_ssim_fast_search, lib.me_ssim_search):
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
+    occupancy = lib.me_ssim_fast_occupancy
+    occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -66,6 +71,15 @@ def ssim_supported(blk_dim: int, span: int) -> bool:
     `ssim_supported`, ssim_pallas.py:682): blk <= 32 and span >= 1. The
     whole-frame search also runs span 0 through it."""
     return blk_dim <= FAST_MAX_BLK and span >= 1
+
+
+def ssim_fast_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
+    """`me_ssim_fast_search`'s resources (no volume) for a grid of `nbx`
+    macroblocks a row, as `full_search_cuda.occupancy` reports them."""
+    if not 1 <= blk_dim <= FAST_MAX_BLK or span < 0 or nbx < 1:
+        raise ValueError(f"no fast SSIM kernel for blk_dim={blk_dim} "
+                         f"span={span} nbx={nbx}")
+    return fsc.occupancy(_lib().me_ssim_fast_occupancy, blk_dim, span, nbx)
 
 
 def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, frame_height,

@@ -1,15 +1,16 @@
-"""The full-search interior kernels timed in turns on the same work.
+"""The search kernels timed in turns on the same work.
 
     python -m motionestimation_tpu_torch.tools.kernel_turns [--seed N]
 
 For each cell of GROUPS, the interior of a synthetic frame pair (a random
 reference, the current frame moved by (3, -5) plus noise, from --seed) goes
 through each listed kernel: first once, to load it and to check that the
-kernels of one metric give equal (cost, idx); then LAUNCHES launches each
-between CUDA events, in turns (A B ... B A). Prints each kernel's mean ms
-per launch and its two runs, with the card's name. `chip_smoke.py` times
-its in-turns groups with `time_group`; the tool uses only the wrappers of
-`kernels/full_search_cuda.py`, so it times any checkout's kernels.
+kernels of one metric give equal (cost or score, idx); then LAUNCHES
+launches each between CUDA events, in turns (A B ... B A). Prints each
+kernel's mean ms per launch and its two runs, with the card's name.
+`chip_smoke.py` times its in-turns groups with `time_group`; the tool uses
+only the public wrappers of `kernels/full_search_cuda.py` (MSE, SAD) and
+`kernels/ssim_cuda.py` (SSIM), so it times any checkout's kernels.
 """
 from __future__ import annotations
 
@@ -23,10 +24,12 @@ import torch.nn.functional as F
 
 from motionestimation_tpu_torch.core.device import resolve_device
 from motionestimation_tpu_torch.kernels import full_search_cuda as kc
+from motionestimation_tpu_torch.kernels import ssim_cuda as sc
 
 LAUNCHES = 20
 # (label, height, width, blk, span, entries); an entry is (name, wrapper,
-# metric, return_volume).
+# metric, return_volume): the wrapper of `kernels/ssim_cuda.py` for SSIM,
+# of `kernels/full_search_cuda.py` for MSE and SAD.
 GROUPS = [
     ("4K 8x8 +-12", 2160, 3840, 8, 12, [
         ("K1 me_phase_search", "phase_search", "mse", False),
@@ -48,6 +51,17 @@ GROUPS = [
     ("4K 32x32 +-31", 2160, 3840, 32, 31, [
         ("K1 me_phase_search", "phase_search", "mse", False),
         ("K7 me_wide_search", "wide_search", "mse", False)]),
+    # The JAX bench's SSIM cells (bench/matrix.py:223-247, 354-379).
+    ("4K 16x16 +-7 ssim", 2160, 3840, 16, 7, [
+        ("K3 me_ssim_fast_search", "ssim_fast_search", "ssim", False),
+        ("K3e me_ssim_fast_search (emit)", "ssim_fast_search", "ssim",
+         True)]),
+    ("1080p 16x16 +-15 ssim", 1080, 1920, 16, 15, [
+        ("K3 me_ssim_fast_search", "ssim_fast_search", "ssim", False),
+        ("K3e me_ssim_fast_search (emit)", "ssim_fast_search", "ssim",
+         True)]),
+    ("4K 32x32 +-7 ssim", 2160, 3840, 32, 7, [
+        ("K3 me_ssim_fast_search", "ssim_fast_search", "ssim", False)]),
 ]
 
 
@@ -81,18 +95,27 @@ def interior(h, w, blk, span, seed, device):
     return cur_t[: h // blk * blk, : w // blk * blk], halo
 
 
+def entry_call(entry, h, w, blk, span):
+    """(wrapper, keyword arguments) that time an entry of GROUPS on the
+    interior of an (h, w) frame pair."""
+    _, wrapper, metric, volume = entry
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
+    if metric != "ssim":
+        kw["metric"] = metric
+    if volume:
+        kw["return_volume"] = True
+    return getattr(sc if metric == "ssim" else kc, wrapper), kw
+
+
 def time_group(h, w, blk, span, entries, seed=0, device=None):
     """{name: [ms, ms]}: each entry's mean ms per launch over LAUNCHES
     launches, in turns. Raises if two entries of one metric disagree on
-    (cost, idx)."""
+    (cost or score, idx)."""
     tile, halo = interior(h, w, blk, span, seed, resolve_device(device))
     fns, first = {}, {}
-    for name, wrapper, metric, volume in entries:
-        kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
-                  frame_width=w)
-        if volume:
-            kw["return_volume"] = True
-        fn = getattr(kc, wrapper)
+    for entry in entries:
+        name, metric = entry[0], entry[2]
+        fn, kw = entry_call(entry, h, w, blk, span)
         fns[name] = lambda fn=fn, kw=kw: fn(tile, halo, **kw)
         out = fns[name]()[:2]
         want = first.setdefault(metric, out)

@@ -7,12 +7,15 @@
 the truncated edge slabs: equal MVs, int32 costs and float32 scores, dtypes
 included. On the CPU the wrappers run their plain versions and count no
 launch. The interior tiles of the new wrappers are held against the JAX
-interior as well.
+interior as well. Every in-turns group of `tools/kernel_turns.py` names
+wrappers that take the keywords the tool passes.
 
 Tests whose names end in `_cuda` compare each CUDA kernel with its plain
 version on the card, exactly, and skip where there is none:
 `python -m pytest --noconftest tests/test_torch_chunked.py -k cuda`.
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 from motionestimation_tpu.kernels import full_search_pallas as kp
 from motionestimation_tpu_torch.kernels import full_search_cuda as kc
 from motionestimation_tpu_torch.search import full_search as tfs
+from motionestimation_tpu_torch.tools import kernel_turns, sass_loops
 
 # The tests run in several worker processes on shared cores; one torch
 # thread per worker keeps them from oversubscribing the machine.
@@ -201,6 +205,45 @@ def test_interior_wrappers_reject_what_they_do_not_cover():
         kc.chunked_search(cur_t[:44], halo, blk_dim=8, **kw)
 
 
+@pytest.mark.parametrize("group", kernel_turns.GROUPS, ids=lambda g: g[0])
+def test_kernel_turns_groups_name_wrappers_that_take_their_keywords(group):
+    """Each entry's wrapper exists in its module, counts its launches and
+    binds (tile, halo) and the keywords `time_group` passes, so the tool
+    cannot fail on the card with an AttributeError or a TypeError. Nothing
+    is launched."""
+    label, h, w, blk, span, entries = group
+    for entry in entries:
+        fn, kw = kernel_turns.entry_call(entry, h, w, blk, span)
+        inspect.signature(fn).bind(None, None, **kw)
+        assert isinstance(fn.launches, int), entry
+        if kw.get("return_volume"):
+            assert isinstance(fn.volume_launches, int), entry
+
+
+def test_sass_loops_counts_the_instructions_of_each_loop():
+    """The SASS reader finds each kernel and each backward branch, and
+    counts the loop's instructions by opcode, predicates and modifiers
+    dropped."""
+    sass = "\n".join([
+        "\t\tFunction : _Z3addPi",
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x1 */",
+        "                                                            /* 0x2 */",
+        "        /*0010*/                   IDP.4A.U8.U8 R2, R3, R4, R2 ;",
+        "        /*0020*/                   LDS R3, [R5+0x10] ;",
+        "        /*0030*/               @!P0 BRA 0x10 ;",
+        "        /*0040*/                   EXIT ;",
+        "\t\tFunction : _Z4nonev",
+        "        /*0000*/                   EXIT ;",
+    ])
+    found = sass_loops.functions(sass)
+    assert list(found) == ["_Z3addPi", "_Z4nonev"]
+    assert len(found["_Z3addPi"]) == 5
+    (start, end, count, ops), = sass_loops.loops(found["_Z3addPi"])
+    assert (start, end, count) == (0x10, 0x30, 3)
+    assert ops == {"IDP": 1, "LDS": 1, "BRA": 1}
+    assert sass_loops.loops(found["_Z4nonev"]) == []
+
+
 # --- on the card -----------------------------------------------------------
 
 
@@ -257,6 +300,20 @@ def test_chunked_kernels_match_plain_cuda(cuda, wrapper, h, w, blk, span):
         _assert_exact(got, kc.search_plain(tile, halo, metric="mse",
                                            return_volume=True, **kw))
         assert bool((got[2] == 2**31 - 1).any()) == (span > 0)
+
+
+@pytest.mark.parametrize("span", [0, 3, 15])
+@pytest.mark.parametrize("blk", range(1, 17))
+def test_u8_kernel_equals_chunked_kernel_cuda(cuda, blk, span):
+    """K6 runs K5's search instance: equal (cost, idx) at every blk."""
+    h, w = 4 * blk + 3, 9 * blk + 2
+    cur_t, halo = _operands(cuda, h, w, span, 3 * blk + span)
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
+    tile = cur_t[: h // blk * blk, : w // blk * blk]
+    before = kc.chunked_u8_search.launches
+    got = kc.chunked_u8_search(tile, halo, **kw)
+    assert kc.chunked_u8_search.launches == before + 1
+    _assert_exact(got, kc.chunked_search(tile, halo, **kw))
 
 
 @pytest.mark.parametrize(

@@ -10,6 +10,9 @@
   jitted): equal MVs and flat indices, scores within 1e-6. Where an MV
   differs, JAX's own cost volume must show the two candidates within 1e-6
   of each other, a tie at float32 resolution.
+* Where the pixel count is a power of two, the fast kernel divides by it
+  as a multiplication by its reciprocal: every such step of
+  `ssim_from_sums` gives the same bits either way.
 * Tests whose names end in `_cuda` hold each CUDA kernel against its plain
   version on the card, exactly (both sides are IEEE step by step), and
   skip where there is none:
@@ -81,6 +84,63 @@ def test_ssim_from_sums_matches_jax(blk):
     np.testing.assert_allclose(got, jitted, rtol=0, atol=SCORE_ATOL)
 
 
+def _division_steps(sum_ref, sum_sq_ref, sum_cur, sum_sq_cur, sum_cross,
+                    count, div):
+    """The steps of `ssim_from_sums` that divide by the pixel count, with
+    `div(x, n)` for x / n, and the score they lead to."""
+    f32 = torch.float32
+    n_i = torch.clamp(count, min=1)
+    n = n_i.to(f32)
+    steps = {"mean_ref": div(sum_ref.to(f32), n),
+             "mean_cur": div(sum_cur.to(f32), n)}
+    imean = {k: steps[f"mean_{k}"].to(torch.int32) for k in ("ref", "cur")}
+    for k, sx, sq in (("ref", sum_ref, sum_sq_ref), ("cur", sum_cur,
+                                                     sum_sq_cur)):
+        csq = sq - 2 * imean[k] * sx + n_i * imean[k] * imean[k]
+        cs = sx - n_i * imean[k]
+        frac = steps[f"mean_{k}"] - imean[k].to(f32)
+        num = csq.to(f32) - 2.0 * frac * cs.to(f32) + n * frac * frac
+        steps[f"var_{k}"] = div(num, n)
+    cross = (sum_cross - imean["cur"] * sum_ref - imean["ref"] * sum_cur
+             + count * imean["ref"] * imean["cur"])
+    steps["cross_var"] = div(cross.to(f32), n)
+    std = {k: tcost._sqrt_rn(torch.clamp(steps[f"var_{k}"], min=0.0))
+           for k in ("ref", "cur")}
+    c1, c2, c3 = (torch.tensor(c, dtype=f32) for c in (
+        tcost.SSIM_C1, tcost.SSIM_C2, tcost.SSIM_C3))
+    mr, mc, sr, scur = steps["mean_ref"], steps["mean_cur"], std["ref"], std[
+        "cur"]
+    steps["score"] = (
+        (2.0 * mr * mc + c1) / (mr * mr + mc * mc + c1)
+        * ((2.0 * sr * scur + c2) / (sr * sr + scur * scur + c2))
+        * ((steps["cross_var"] + c3) / (sr * scur + c3)))
+    return steps
+
+
+@pytest.mark.parametrize("count", [1, 4, 16, 64, 256, 1024])
+def test_power_of_two_count_divides_by_multiplying(count):
+    """x * (1 / n) equals x / n bit for bit at every step of
+    `ssim_from_sums` where n is a power of two, on consistent block sums
+    and on arbitrary int32 sums; the division form is `ssim_from_sums`
+    itself."""
+    blk = int(round(count ** 0.5))
+    full = [a[:1500] for a in random_sums(count, blk)]  # whole blocks
+    assert (full[5] == count).all()
+    rng = np.random.default_rng(count)
+    arbitrary = [rng.integers(-2**31, 2**31, 3000).astype(np.int32)
+                 for _ in range(5)] + [np.full(3000, count, np.int32)]
+    for sums in (full, arbitrary):
+        t = list(map(torch.from_numpy, sums))
+        divide = _division_steps(*t, div=lambda x, n: x / n)
+        multiply = _division_steps(*t, div=lambda x, n: x * (1.0 / n))
+        want = tcost.ssim_from_sums(t[0], t[1], t[2], t[3], t[4], t[5])
+        assert torch.equal(divide["score"].view(torch.int32),
+                           want.view(torch.int32))
+        for name, got in multiply.items():
+            assert torch.equal(got.view(torch.int32),
+                               divide[name].view(torch.int32)), name
+
+
 def assert_ssim_fields_match(jax_field, torch_field, cur, ref, blk, span):
     """Equal MVs and flat indices, scores within SCORE_ATOL; an index may
     differ only where JAX's cost volume ties the two candidates."""
@@ -148,6 +208,24 @@ def test_plain_kernels_match_pallas(h, w, blk, span, tile):
     assert (sc.ssim_fast_search.launches, sc.ssim_search.launches) == launches
 
 
+@pytest.mark.parametrize("h,w,blk,span", [
+    (13, 17, 1, 2), (23, 29, 3, 4), (39, 53, 17, 3), (45, 62, 20, 4),
+    (59, 83, 27, 2), (67, 95, 31, 3),
+])
+def test_fast_instances_match_pallas(h, w, blk, span):
+    """The plain versions against `ssim_search_frame_pallas(interpret=True)`
+    at block sizes that the fast kernel serves with compile-time instances
+    of their own, interior and both truncated edges. On the CPU no kernel
+    instance runs: `test_fast_kernel_matches_plain_cuda` holds them on the
+    card."""
+    cur, ref = random_pair(blk * 10 + span, h, w)
+    want = jsp.ssim_search_frame_pallas(cur, ref, blk_dim=blk, span=span,
+                                        interpret=True)
+    got = sc.ssim_search_frame_cuda(cur, ref, blk_dim=blk, span=span,
+                                    device="cpu")
+    assert_ssim_fields_match(want, got, cur, ref, blk, span)
+
+
 @pytest.mark.parametrize("h,w,blk,span", [(36, 52, 8, 5), (33, 45, 4, 3),
                                           (72, 100, 32, 4)])
 def test_edge_slabs_match_pallas(h, w, blk, span):
@@ -204,6 +282,15 @@ def test_ssim_supported_matches_jax():
             assert sc.ssim_supported(blk, span) == jsp.ssim_supported(blk, span)
 
 
+@pytest.mark.parametrize("blk,span,nbx", [(0, 3, 80), (33, 3, 80),
+                                          (16, -1, 80), (16, 7, 0)])
+def test_fast_occupancy_rejects_what_the_kernel_does_not_cover(blk, span,
+                                                               nbx):
+    """The resource query checks its config before it reaches the card."""
+    with pytest.raises(ValueError, match="no fast SSIM kernel"):
+        sc.ssim_fast_occupancy(blk, span, nbx)
+
+
 def test_fast_kernel_rejects_what_it_does_not_cover():
     cur, ref = random_pair(5, 40, 40)
     cur_t = torch.from_numpy(cur)
@@ -254,20 +341,54 @@ def _assert_exact(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-@pytest.mark.parametrize(
-    "h,w,blk,span",
-    [(64, 96, 4, 5), (63, 98, 7, 3), (96, 200, 8, 12), (96, 96, 12, 3),
-     (96, 160, 16, 15), (96, 96, 24, 3), (128, 256, 32, 7), (64, 64, 8, 0)],
-)
-def test_fast_kernel_matches_plain_cuda(cuda, h, w, blk, span):
+# (h, w, blk, span, y0, x0): every blk at span 0 and at one span >= 3 (7 at
+# blk % 4 == 0, as at the 4K cells; 15 at blk % 4 == 3, where blk 27 and
+# 31 have warps share a macroblock), on a frame with ragged edges (64 / blk
+# + 1 blocks a row, at least five, so tiles end short of their
+# macroblocks), at odd blk on a tile off the frame's origin; then the
+# earlier fixed cases, on the origin.
+FAST_CASES = [
+    (3 * blk + 5, max(5, 64 // blk + 1) * blk + 3, blk, span,
+     *((blk, 2 * blk) if blk % 2 else (0, 0)))
+    for blk in range(1, 33) for span in (0, (7, 3, 5, 15)[blk % 4])
+] + [
+    (h, w, blk, span, 0, 0)
+    for h, w, blk, span in ((64, 96, 4, 5), (63, 98, 7, 3), (96, 200, 8, 12),
+                            (96, 96, 12, 3), (96, 160, 16, 15),
+                            (96, 96, 24, 3), (128, 256, 32, 7),
+                            (64, 64, 8, 0))
+]
+
+
+@pytest.mark.parametrize("volume", [False, True])
+@pytest.mark.parametrize("h,w,blk,span,y0,x0", FAST_CASES)
+def test_fast_kernel_matches_plain_cuda(cuda, h, w, blk, span, y0, x0,
+                                        volume):
+    """Every blk the fast kernel serves, each its own compile-time
+    instance, with and without its volume, on the whole blocks of the
+    frame from (y0, x0)."""
     cur_t, halo = _operands(cuda, h, w, span, blk + span)
-    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
-    nyf, nxf = h // blk, w // blk
-    tile = cur_t[: nyf * blk, : nxf * blk]
-    before = sc.ssim_fast_search.launches
-    got = sc.ssim_fast_search(tile, halo, **kw)
-    assert sc.ssim_fast_search.launches == before + 1
-    _assert_exact(got, sc.ssim_plain(tile, halo, **kw))
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w,
+              y_origin=y0, x_origin=x0)
+    nby, nbx = (h - y0) // blk, (w - x0) // blk
+    tile = (cur_t[y0 : y0 + nby * blk, x0 : x0 + nbx * blk], halo[y0:, x0:])
+    before = (sc.ssim_fast_search.launches,
+              sc.ssim_fast_search.volume_launches)
+    got = sc.ssim_fast_search(*tile, return_volume=volume, **kw)
+    assert (sc.ssim_fast_search.launches,
+            sc.ssim_fast_search.volume_launches) == (before[0] + 1,
+                                                     before[1] + volume)
+    _assert_exact(got, sc.ssim_plain(*tile, return_volume=volume, **kw))
+
+
+def test_fast_occupancy_cuda(cuda):
+    """K3 at the three SSIM cells: no spills, at least 16 warps resident
+    per SM."""
+    for h, w, blk, span in ((2160, 3840, 16, 7), (1080, 1920, 16, 15),
+                            (2160, 3840, 32, 7)):
+        occ = sc.ssim_fast_occupancy(blk, span, w // blk)
+        assert occ["local_bytes"] == 0, occ
+        assert occ["warps_per_sm"] >= 16, occ
 
 
 @pytest.mark.parametrize(
