@@ -12,30 +12,36 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    blocks per SM of the chunked kernel at 4K 7x7 +-15, 4K 8x8 +-12, 4K
    16x16 +-15 and 1080p 7x7 +-7, of the phase kernel (MSE and SAD) at 4K
    8x8 +-12, 16x16 +-15 and 32x32 +-31, of the wide kernel at 1080p
-   24x24 +-15 and 4K 32x32 +-31, and of the fast SSIM kernel at 4K 16x16
-   +-7, 1080p 16x16 +-15 and 4K 32x32 +-7.
+   24x24 +-15 and 4K 32x32 +-31, of the fast SSIM kernel at 4K 16x16
+   +-7, 1080p 16x16 +-15 and 4K 32x32 +-7, and of the truncated-extent
+   kernels over the 4K 7x7 +-15 (SAD) and 64x64 +-15 (SSIM) frames and on
+   the slabs of the 4K 7x7 +-15, 1080p 16x16 +-15 and 4K 32x32 +-7 cells.
 2. Byte-exact CLI runs against the C reference's fixtures: MSE (Foreman
    8x8 +-12 both ways, the truncated rand_mse_90x70_32_8) and SSIM
    (`--metric ssim`: Foreman 16x16 +-7 and 4x4 +-15, the truncated
    rand_ssim_45x33_4_5 and rand_ssim_52x36_8_7).
-3. The main paths at full size, each with every launch count set to 0
-   just before it and read just after: `cli.main --device cuda` at
-   3840x2160 8x8 +-12 and 1920x1080 16x16 +-15 (MSE), then with
-   `--metric ssim` at 3840x2160 16x16 +-7 and 1920x1080 16x16 +-15, then
-   (MSE) at 3840x2160 7x7 +-15 (the chunked kernel, the int kernel on both
-   slabs) and 1920x1080 24x24 +-15 (the wide kernel), on frames made from
-   --seed. Each stacked output is checked against one built from the plain
-   golden search on the card. Then `full_search_frame_cuda(phase=False,
+3. The main paths at full size, each with every launch count set to 0 just
+   before it and read just after: `cli.main --device cuda` at 3840x2160 8x8
+   +-12 and 1920x1080 16x16 +-15 (MSE), then with `--metric ssim` at
+   3840x2160 16x16 +-7 and 1920x1080 16x16 +-15, then (MSE) at 3840x2160
+   7x7 +-15 (the chunked kernel, the int kernel on both slabs) and
+   1920x1080 24x24 +-15 (the wide kernel), and the whole-frame routes:
+   `--metric sad` at 3840x2160 7x7 +-15 (one launch of the int kernel, none
+   of the phase kernel) and `--metric ssim` at 3840x2160 64x64 +-15 (one
+   launch of the truncated-extent SSIM kernel), on frames made from --seed.
+   Each stacked output is checked against one built from the plain golden
+   search on the card. Then `full_search_frame_cuda(phase=False,
    operand_bf16=True)` at 3840x2160 8x8 +-12 (the packed-byte chunked
    kernel), every field equal to the golden search's, and the volume path:
    `full_search_volume_cuda` at 1920x1080 16x16 +-15 (MSE and SAD) and 7x7
-   +-7 (MSE), entry for entry equal to the golden volume, from the emit
-   modes alone. Then the diamond main path: `cli.main --device cuda
-   --algorithm diamond` at 1920x1080 16x16 +-15 on the JAX bench's config3
-   content (MSE, SAD, SSIM, MSE `--early-term 2.0`) and its adversarial
-   content (MSE, canonical escalation and `--escape-policy crossover`),
-   each run's MVs, costs and trajectories equal to a replay over the
-   golden volume on the card, and its stack to one built from those MVs.
+   +-7 (MSE, and SAD: the int kernel's emit over the whole frame), entry
+   for entry equal to the golden volume, from the emit modes alone. Then
+   the diamond main path: `cli.main --device cuda --algorithm diamond` at
+   1920x1080 16x16 +-15 on the JAX bench's config3 content (MSE, SAD, SSIM,
+   MSE `--early-term 2.0`) and its adversarial content (MSE, canonical
+   escalation and `--escape-policy crossover`), each run's MVs, costs and
+   trajectories equal to a replay over the golden volume on the card, and
+   its stack to one built from those MVs.
 4. Each kernel and emit mode against its plain PyTorch version on the
    card at full size (tolerance: exact equality of every int32 cost, index
    and volume entry, and of every float32 SSIM score and -inf: kernel and
@@ -44,12 +50,18 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    constant frames), the fast SSIM kernel at every blk 1..32 (spans 0 and
    5, with and without its volume, on a 400x300 frame's tile off the
    origin), the packed-byte chunked kernel at 4K 7x7 +-15 and 8x8 +-12,
-   and `ssim_volume_cuda` against the golden SSIM volume.
+   `ssim_volume_cuda` against the golden SSIM volume, and the
+   truncated-extent kernels (int: SSD and SAD; SSIM), with and without
+   their volumes, over the two whole 4K frames and at every blk 1..33,
+   40, 48 and 64, spans 0, 1 and 7, on small whole frames, their bottom
+   and right slabs, tiles off the origin and constant frames.
 5. Timing with CUDA events: `run_pair` (median of --runs runs after
    warm-up) at 4K 8x8 +-12, 1080p 16x16 +-15, 4K 16x16 +-15, 4K 7x7 +-15
    and 1080p 24x24 +-15 (MSE) and 4K 16x16 +-7, 1080p 16x16 +-15 and 4K
    32x32 +-7 (SSIM), and each kernel's own time beside its plain
-   version's; `tools/kernel_turns.py`'s groups, each kernel in turns with
+   version's; `run_pair` at the two whole-frame cells, with the
+   truncated-extent kernel's search and emit beside their plain versions;
+   `tools/kernel_turns.py`'s groups, each kernel in turns with
    the others on the same work: the phase kernel (MSE and SAD), the
    chunked and packed-byte chunked kernels at 4K 8x8 +-12, the two chunked
    kernels on the 4K 7x7 +-15 interior, the phase and chunked kernels at
@@ -57,8 +69,11 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    16x16 +-15, the wide kernel at 1080p 24x24 +-15, the phase and wide
    kernels at 4K 32x32 +-31, and the fast SSIM kernel with and without
    its volume at 4K 16x16 +-7 and 1080p 16x16 +-15 and without at 4K 32x32
-   +-7, the kernels of one metric in a group giving the same (cost or
-   score, idx); the volume
+   +-7, the int kernel (SAD with and without its volume, SSD) beside the
+   chunked kernel on the 4K 7x7 +-15 interior, the truncated-extent SSIM
+   kernel at 4K 64x64 +-15, and both with their emit modes on the bottom
+   slabs of 1080p 16x16 +-15, 4K 7x7 +-15 and 4K 32x32 +-7, the kernels of
+   one metric in a group giving the same (cost or score, idx); the volume
    entries and the emit modes at 1080p 16x16 +-15, and the chunked kernel
    with and without its volume at 1080p 7x7 +-7; `run_pair` diamond
    beside full search on the config3 frames and on the adversarial frames
@@ -103,9 +118,9 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 CSRC = "motionestimation_tpu_torch/kernels/csrc/"
 SOURCE = {
     "me_phase_search": CSRC + "full_search.cu",
-    "me_int_search": CSRC + "full_search.cu",
+    "me_int_search": CSRC + "int_search.cu",
     "me_ssim_fast_search": CSRC + "ssim.cu",
-    "me_ssim_search": CSRC + "ssim.cu",
+    "me_ssim_search": CSRC + "ssim_search.cu",
     "me_chunked_search": CSRC + "chunked.cu",
     "me_chunked_u8_search": CSRC + "chunked.cu",
     "me_wide_search": CSRC + "chunked.cu",
@@ -176,6 +191,8 @@ VOLUME_CONFIGS = [
     ("1080p 16x16 +-15 mse", 1080, 1920, 16, 15, "mse"),
     ("1080p 16x16 +-15 sad", 1080, 1920, 16, 15, "sad"),
     ("1080p 7x7 +-7 mse", 1080, 1920, 7, 7, "mse"),
+    # SAD outside the phase kernel: the int kernel's emit on the whole frame.
+    ("1080p 7x7 +-7 sad", 1080, 1920, 7, 7, "sad"),
 ]
 SSIM_CONFIGS = [
     ("4K 16x16 +-7 ssim", 2160, 3840, 16, 7),
@@ -185,6 +202,25 @@ SSIM_CONFIGS = [
 # (height, width, blk, span): the int kernel alone on a frame whose bottom
 # and right block rows are both truncated.
 EDGE_CASE = (700, 1000, 32, 8)
+# The whole-frame routes of the truncated-extent kernels, (label, height,
+# width, blk, span, metric): SAD at the reference's Jockey blk and span
+# (BASELINE.md; the phase kernel does not take blk 7, so the int kernel
+# takes the frame), and SSIM above blk 32.
+WHOLE_CONFIGS = [
+    ("4K 7x7 +-15 sad", 2160, 3840, 7, 15, "sad"),
+    ("4K 64x64 +-15 ssim", 2160, 3840, 64, 15, "ssim"),
+]
+# The truncated-extent kernels' checks: every blk 1..33 and three above 32,
+# each at span 0, 1 and 7.
+EDGE_BLKS = list(range(1, 34)) + [40, 48, 64]
+EDGE_SPANS = (0, 1, 7)
+
+
+def edge_frame(blk):
+    """(h, w) of the truncated-extent checks: two whole block rows and five
+    whole block columns, then a truncated one of each (blk >= 2)."""
+    return (3 * blk - 1 - (blk % 3 if blk > 2 else 0),
+            5 * blk + (blk + 1) // 2)
 # The JAX bench's diamond cells (bench/matrix.py:186-263): 1080p 16x16
 # +-15 on config3 content (texture 4, shift (1, -2), noise +-1) and on
 # adversarial content (shift (14, -14), noise +-2) that escalates.
@@ -382,6 +418,25 @@ def main(argv=None) -> int:
         (f"me_ssim_fast_search at {label}",
          sc.ssim_fast_occupancy(blk, span, w // blk))
         for label, h, w, blk, span in SSIM_CONFIGS]
+    # The truncated-extent kernels: the whole-frame cells, and the slabs
+    # of the 4K 7x7 +-15, 1080p 16x16 +-15 and 4K 32x32 +-7 cells.
+    for metric, where, h, w, blk, span in (
+        ("sad", "whole frame", 2160, 3840, 7, 15),
+        ("mse", "bottom slab", 2160, 3840, 7, 15),
+        ("mse", "right slab", 2160, 3840, 7, 15),
+        ("mse", "bottom slab", 1080, 1920, 16, 15),
+        ("ssim", "whole frame", 2160, 3840, 64, 15),
+        ("ssim", "bottom slab", 1080, 1920, 16, 15),
+        ("ssim", "bottom slab", 2160, 3840, 32, 7),
+    ):
+        nby, nbx = -(-h // blk), -(-w // blk)
+        grid = {"whole frame": (nby, nbx), "bottom slab": (1, nbx),
+                "right slab": (nby, 1)}[where]
+        occ = (sc.ssim_occupancy(blk, span, *grid) if metric == "ssim"
+               else kc.int_occupancy(blk, span, metric, *grid))
+        name = "me_ssim_search" if metric == "ssim" else "me_int_search"
+        occupancies.append((f"{name} {metric} at {w}x{h} {blk}x{blk} "
+                            f"+-{span} {where} ({grid[0]}x{grid[1]})", occ))
     for what, occ in occupancies:
         print(f"{what}: {occ['registers']} registers and "
               f"{occ['local_bytes']} bytes of local memory (spills) per "
@@ -448,16 +503,18 @@ def main(argv=None) -> int:
 
     max_err = dict.fromkeys(counters, 0.0)
 
-    def compare(kernel_names, got, want, what):
+    def compare(kernel_names, got, want, what, quiet=False):
         """Exact equality of every entry (equal infinities count as equal),
-        dtype and shape; records the largest difference."""
+        dtype and shape; records the largest difference. `quiet` prints
+        nothing unless they differ."""
         err = max(float(torch.where(a == b, 0.0, (a.double() - b.double())
                                     .abs()).max())
                   if a.shape == b.shape and a.numel() else 0.0
                   for a, b in zip(got, want))
         for name in kernel_names:
             max_err[name] = max(max_err[name], err)
-        print(f"{what}: max |kernel - plain| = {err}")
+        if err or not quiet:
+            print(f"{what}: max |kernel - plain| = {err}")
         if err or not all(a.dtype == b.dtype and torch.equal(a, b)
                           for a, b in zip(got, want)):
             fail(f"{what}: kernel disagrees with its plain version")
@@ -523,12 +580,19 @@ def main(argv=None) -> int:
                 pairs[h, w][1].tofile(os.path.join(work, f"ref_{h}.yuv"))
         # Each kernel's launches from the first main path that runs it.
         main_launches = {}
+        # The whole-frame paths: each frame is one launch of the
+        # truncated-extent kernel, and no interior kernel runs.
+        whole = {"sad": {"me_int_search": 1, "me_phase_search": 0},
+                 "ssim": {"me_ssim_search": 1, "me_ssim_fast_search": 0}}
         for path, metric, configs, names in (
             ("mse", "mse", CONFIGS[:2], mse_kernels),
             ("ssim", "ssim", SSIM_CONFIGS[:2], ssim_kernels),
             ("chunked mse", "mse", CHUNKED_CONFIGS[:1],
              ("me_chunked_search", "me_int_search")),
             ("wide mse", "mse", CHUNKED_CONFIGS[1:], ("me_wide_search",)),
+            *((f"whole-frame {metric}", metric, [(label, h, w, blk, span)],
+               tuple(n for n, c in whole[metric].items() if c))
+              for label, h, w, blk, span, metric in WHOLE_CONFIGS),
         ):
             print(f"== main path ({path}): cli.main --device cuda at full "
                   f"size")
@@ -543,6 +607,11 @@ def main(argv=None) -> int:
                 ])
             for name, n in read_counts(names, f"main path ({path})").items():
                 main_launches.setdefault(name, n)
+            if path.startswith("whole-frame"):
+                counts = {n: launches(n) for n in whole[metric]}
+                if counts != whole[metric]:
+                    fail(f"main path ({path}): launches {counts}, expected "
+                         f"{whole[metric]}")
             for label, h, w, blk, span in configs:
                 cur, ref = pairs[h, w]
                 gold = golden_search(cur, ref, blk_dim=blk, span=span,
@@ -585,11 +654,11 @@ def main(argv=None) -> int:
                                                       volumes):
         _, want = golden_search(*pairs[h, w], blk_dim=blk, span=span,
                                 metric=metric, return_cost_volume=True)
-        interior = ("me_phase_search"
-                    if kc.phase_supported(blk, span, metric)
-                    else "me_chunked_search")
+        interior = ("me_phase_search" if kc.phase_supported(blk, span, metric)
+                    else "me_chunked_search" if metric == "mse" else None)
         invalid = int((want == 2**31 - 1).sum())
-        compare([interior + EMIT, "me_int_search" + EMIT], [got], [want],
+        compare([n + EMIT for n in (interior, "me_int_search") if n], [got],
+                [want],
                 f"full_search_volume_cuda {label} {tuple(got.shape)} "
                 f"({got.numel() * 4 / 1e6:.1f} MB, {invalid} INT32_MAX "
                 f"entries)")
@@ -753,10 +822,6 @@ def main(argv=None) -> int:
             kc.search_plain(*slab, **slab_kw),
             f"me_int_search {w}x{h} {blk}x{blk} +-{span} bottom slab "
             f"({h - y0} rows)")
-    shapes["me_int_search"] = (
-        kc.int_search, kc.search_plain, slab, slab_kw,
-        (h, w, blk, span, (h - y0, w), (y0, 0)),
-    )
     h, w, blk, span = EDGE_CASE  # the int kernels alone, both edges cut
     cur_t, halo = operands(h, w, span, args.seed + 1)
     kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
@@ -768,6 +833,74 @@ def main(argv=None) -> int:
             sc.ssim_plain(cur_t, halo, **kw),
             f"me_ssim_search {w}x{h} {blk}x{blk} +-{span} (both edges "
             f"truncated)")
+
+    def edge_kernel(metric):
+        """(wrapper, plain version, launcher name, metric keyword) of the
+        truncated-extent kernel of `metric`."""
+        if metric == "ssim":
+            return sc.ssim_search, sc.ssim_plain, "me_ssim_search", {}
+        return (kc.int_search, kc.search_plain, "me_int_search",
+                dict(metric=metric))
+
+    # The truncated-extent kernels over the whole frame at full size, with
+    # and without their volumes (the kernels line times the search here).
+    for label, h, w, blk, span, metric in WHOLE_CONFIGS:
+        fn, plain, name, mkw = edge_kernel(metric)
+        cur_t, halo = operands(h, w, span, args.seed)
+        kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w,
+                  **mkw)
+        want = plain(cur_t, halo, return_volume=True, **kw)
+        compare([name], fn(cur_t, halo, **kw), want[:2],
+                f"{name} {label}, whole frame")
+        got = fn(cur_t, halo, return_volume=True, **kw)
+        compare([name + EMIT], got, want,
+                f"{name} {label}, whole frame, with its volume "
+                f"{tuple(got[2].shape)}")
+        shapes[name] = (fn, plain, (cur_t, halo), kw,
+                        (h, w, blk, span, (h, w), (0, 0)))
+        del got, want
+    # Every blk 1..33 and three above 32, at each span of EDGE_SPANS, each
+    # form with and without its volume: a whole frame with both edges
+    # truncated, its bottom and right slabs, a tile off the frame's origin,
+    # and constant frames (every valid candidate ties: raster-first wins).
+    t_edge, n_edge = time.perf_counter(), 0
+    for blk in EDGE_BLKS:
+        h, w = edge_frame(blk)
+        y0, x0 = h // blk * blk, w // blk * blk
+        flat = torch.full((h, w), 77, dtype=torch.uint8, device=dev)
+        for span in EDGE_SPANS:
+            cur_t, halo = operands(h, w, span, args.seed + blk + span)
+            tiles = (
+                ("whole frame", (cur_t, halo), {}),
+                ("bottom slab", (cur_t[y0:], halo[y0:]), dict(y_origin=y0)),
+                ("right slab", (cur_t[:, x0:], halo[:, x0:]),
+                 dict(x_origin=x0)),
+                (f"tile at ({blk}, {blk})", (cur_t[blk:, blk:],
+                                             halo[blk:, blk:]),
+                 dict(y_origin=blk, x_origin=blk)),
+                ("constant frames", (flat, torch.nn.functional.pad(
+                    flat, (span, span, span, span))), {}),
+            )
+            for metric in ("mse", "sad", "ssim"):
+                fn, plain, name, mkw = edge_kernel(metric)
+                for where, ops, extra in tiles:
+                    if not ops[0].numel():  # blk 1: no slab
+                        continue
+                    kw = dict(blk_dim=blk, span=span, frame_height=h,
+                              frame_width=w, **mkw, **extra)
+                    want = plain(*ops, return_volume=True, **kw)
+                    what = (f"{name} {metric} {w}x{h} {blk}x{blk} +-{span} "
+                            f"{where}")
+                    compare([name], fn(*ops, **kw), want[:2], what,
+                            quiet=True)
+                    compare([name + EMIT], fn(*ops, return_volume=True, **kw),
+                            want, what + " with its volume", quiet=True)
+                    n_edge += 2
+    print(f"me_int_search (mse, sad) and me_ssim_search at blk {EDGE_BLKS}, "
+          f"spans {EDGE_SPANS}, whole frames, bottom and right slabs, tiles "
+          f"off the origin and constant frames, with and without volumes: "
+          f"{n_edge} checks, every one exact, "
+          f"{time.perf_counter() - t_edge:.1f} s")
 
     _, h, w, blk, span = SSIM_CONFIGS[0]  # the fast SSIM kernel alone
     cur_t, halo = operands(h, w, span, args.seed)
@@ -824,10 +957,6 @@ def main(argv=None) -> int:
             sc.ssim_plain(*slab, **slab_kw),
             f"me_ssim_search {w}x{h} {blk}x{blk} +-{span} bottom slab "
             f"({h - y0} rows)")
-    shapes["me_ssim_search"] = (
-        sc.ssim_search, sc.ssim_plain, slab, slab_kw,
-        (h, w, blk, span, (h - y0, w), (y0, 0)),
-    )
     label, h, w, blk, span = SSIM_CONFIGS[2]  # whole frame, 2160 % 32 = 16
     cur, ref = synthetic_pair(h, w, args.seed + 2)
     got = sc.ssim_search_frame_cuda(cur, ref, blk_dim=blk, span=span,
@@ -971,6 +1100,31 @@ def main(argv=None) -> int:
                          f"{sp_ms:.2f} ms)")
             print(line + f" | {card}")
 
+    # The whole-frame routes: run_pair, then the truncated-extent kernel
+    # over the frame, search and emit, beside the plain version.
+    for label, h, w, blk, span, metric in WHOLE_CONFIGS:
+        cur, ref = pairs[h, w]
+        time_run_pair(label, cur, ref, SearchConfig(
+            blk_dim=blk, span=span, metric=metric, frame_width=w,
+            frame_height=h))
+        fn, plain, name, mkw = edge_kernel(metric)
+        cur_t = torch.from_numpy(cur).to(dev)
+        halo = torch.nn.functional.pad(torch.from_numpy(ref).to(dev),
+                                       (span, span, span, span))
+        kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w,
+                  **mkw)
+        geo = (h, w, blk, span, (h, w), (0, 0))
+        line = f"  {name} {metric} whole frame"
+        for mode, volume in (("search", False), ("emit", True)):
+            k_ms = cuda_ms(lambda: fn(cur_t, halo, return_volume=volume,
+                                      **kw), 20)
+            p_ms = cuda_ms(lambda: plain(cur_t, halo, return_volume=volume,
+                                         **kw), 1)
+            b_ms = bound(*geo, ssim=metric == "ssim", volume=volume)[0]
+            line += (f" | {mode} {k_ms:.4f} ms (plain {p_ms:.2f} ms, bound "
+                     f"{b_ms:.6f} ms)")
+        print(line + f" | {card}")
+
     # Kernels in turns on the same work; time_group fails unless those of
     # one metric in a group give the same (cost, idx).
     for label, h, w, blk, span, entries in kernel_turns.GROUPS:
@@ -987,6 +1141,19 @@ def main(argv=None) -> int:
             print(f"  {name} {ms:.4f} ms (runs {[round(t, 4) for t in ts]}), "
                   f"{pixel_cands / ms / 1e9:.2f} T pixel-candidates/s | "
                   f"bound {b_ms:.6f} ms | {card}")
+    for label, h, w, blk, span, entries in kernel_turns.SLAB_GROUPS:
+        print(f"== {', '.join(e[0] for e in entries)} on the same work "
+              f"({label}), in turns, {kernel_turns.LAUNCHES} launches each "
+              f"({card})")
+        times = kernel_turns.time_group(h, w, blk, span, entries, args.seed,
+                                        dev, slab=True)
+        y0 = h // blk * blk
+        geo = (h, w, blk, span, (h - y0, w), (y0, 0))
+        for (name, _, metric, volume), ts in zip(entries, times.values()):
+            b_ms = bound(*geo, ssim=metric == "ssim", volume=volume)[0]
+            print(f"  {name} {statistics.mean(ts):.4f} ms (runs "
+                  f"{[round(t, 4) for t in ts]}) | bound {b_ms:.6f} ms | "
+                  f"{card}")
 
     label, h, w, blk, span, metric = VOLUME_CONFIGS[0]
     print(f"== the volume at {label} ({card})")

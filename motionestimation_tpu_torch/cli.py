@@ -29,11 +29,12 @@ from motionestimation_tpu_torch.core.device import resolve_device, to_tensor
 from motionestimation_tpu_torch.pipeline import runner
 from motionestimation_tpu_torch.search import full_search as fs
 
+# Named by their ROADMAP.md Queue 1 titles, which outlive renumbering.
 _LATER = {
-    "gop": "--gop arrives with ROADMAP.md Queue 1 item 8 (GOP pipeline)",
+    "gop": "--gop arrives with the ROADMAP.md Queue 1 item \"GOP pipeline\"",
     "profile": (
-        "--profile arrives with ROADMAP.md Queue 1 item 10 (main-path bench "
-        "and tracing)"
+        "--profile arrives with the ROADMAP.md Queue 1 item \"Main-path "
+        "bench and tracing\""
     ),
 }
 

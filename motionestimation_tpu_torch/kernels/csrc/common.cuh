@@ -1,4 +1,4 @@
-// Pieces shared by the search kernels of full_search.cu and ssim.cu.
+// Pieces shared by the search kernels (warp_search.cuh, edge_search.cuh).
 //
 // Every search kernel keeps its best candidate per thread as one 64-bit
 // key (score in the high word, flat raster index in the low word) and takes

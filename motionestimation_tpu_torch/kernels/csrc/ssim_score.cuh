@@ -1,6 +1,6 @@
 // The SSIM score from exact int32 block sums, one IEEE float32 operation
 // at a time, for the SSIM kernels (the warp-per-macroblock body of
-// warp_search.cuh and the truncated-extent kernel of ssim.cu).
+// warp_search.cuh and the truncated-extent body of edge_search.cuh).
 //
 // `ssim_score` evaluates the formula in the order of the plain version
 // (metrics/cost.py `ssim_from_sums`), using only the _rn intrinsics,

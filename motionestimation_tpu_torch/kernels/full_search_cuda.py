@@ -1,5 +1,5 @@
 """Fused full search (MSE/SAD) and cost volumes on the CUDA kernels of
-csrc/full_search.cu and csrc/chunked.cu.
+csrc/full_search.cu, csrc/int_search.cu and csrc/chunked.cu.
 
 The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`:
 
@@ -11,6 +11,7 @@ The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`:
   (:1076): blocks with truncated extents, any blk; optionally with the cost
   volume (the JAX package computes the volume's edge slabs with its golden
   tile search; here that search is the emit mode's plain version).
+  `int_occupancy` reports its resources.
 * `chunked_search` launches `me_chunked_search`, the port of `_kernel_f32`
   (:131): MSE of full interior blocks, blk 1..16, span >= 0, by hoisted
   box sums; optionally with the cost volume.
@@ -70,7 +71,10 @@ _SIGNATURES = {
     "full_search": {
         "me_phase_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
         "me_phase_occupancy": [_INT] * 4 + [_PTR],
+    },
+    "int_search": {
         "me_int_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
+        "me_int_occupancy": [_INT] * 5 + [_PTR],
     },
     "chunked": {
         "me_chunked_search": [_PTR] * 5 + [_INT] * 11 + [_PTR],
@@ -375,6 +379,17 @@ def phase_occupancy(blk_dim: int, span: int, metric: str, nbx: int) -> dict:
                      _METRIC_CODE[metric], nbx)
 
 
+def int_occupancy(blk_dim: int, span: int, metric: str, nby: int,
+                  nbx: int) -> dict:
+    """`me_int_search`'s resources (`occupancy`, no volume) for an [nby,
+    nbx] grid."""
+    if metric not in _METRIC_CODE or min(blk_dim, nby, nbx) < 1 or span < 0:
+        raise ValueError(f"no int kernel for blk_dim={blk_dim} span={span} "
+                         f"metric={metric!r} grid={nby}x{nbx}")
+    return occupancy(_lib("int_search").me_int_occupancy, blk_dim, span,
+                     _METRIC_CODE[metric], nby, nbx)
+
+
 def wide_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
     """`me_wide_search`'s resources (`occupancy`) for a grid of `nbx`
     macroblocks a row."""
@@ -435,10 +450,12 @@ def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
                frame_height: int, frame_width: int, y_origin: int = 0,
                x_origin: int = 0, return_volume: bool = False):
     """Exact search with truncated block extents (`me_int_search`, the
-    port of `_kernel_int`). The tile must hold every in-frame pixel of its
-    blocks; returns int32 (cost, idx), [cdiv(tile_h, blk), cdiv(tile_w,
-    blk)], and with `return_volume` the int32 [K², nby, nbx] cost volume
-    (INT32_MAX at invalid candidates; the kernel's emit mode)."""
+    port of `_kernel_int`): packed bytes, a warp per macroblock over its
+    valid candidates, warps sharing a macroblock on thin slabs. The tile
+    must hold every in-frame pixel of its blocks; returns int32 (cost,
+    idx), [cdiv(tile_h, blk), cdiv(tile_w, blk)], and with `return_volume`
+    the int32 [K², nby, nbx] cost volume (INT32_MAX at invalid candidates;
+    the kernel's emit mode)."""
     _check_operands(cur, ref_halo, span, metric)
     check_edge_tile(cur.shape, blk_dim, frame_height, frame_width, y_origin,
                     x_origin)
@@ -456,7 +473,7 @@ def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
         out = tuple(torch.empty((nby, nbx), dtype=torch.int32,
                                 device=cur.device) for _ in range(2))
     else:
-        out = _launch(_lib("full_search").me_int_search, cur, ref_halo, nby,
+        out = _launch(_lib("int_search").me_int_search, cur, ref_halo, nby,
                       nbx, volume=volume, **kw)
         count_launch(int_search, volume)
     return (*out, volume) if return_volume else out

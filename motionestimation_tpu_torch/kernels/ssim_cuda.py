@@ -1,4 +1,5 @@
-"""Fused SSIM full search on the CUDA kernels of csrc/ssim.cu.
+"""Fused SSIM full search on the CUDA kernels of csrc/ssim.cu and
+csrc/ssim_search.cu.
 
 The PyTorch counterpart of `motionestimation_tpu.kernels.ssim_pallas` on
 the SSIM path:
@@ -11,7 +12,7 @@ the SSIM path:
   run; `ssim_fast_occupancy` reports its resources.
 * `ssim_search` launches `me_ssim_search`, the port of `_kernel_ssim`
   (:48): blocks with truncated extents, any blk; optionally with the score
-  volume.
+  volume. `ssim_occupancy` reports its resources.
 * `ssim_search_frame_cuda` (the port of `ssim_search_frame_pallas`, :560)
   runs the interior, then the bottom and right edge slabs, merges them in
   the same order and decodes MVs.
@@ -51,18 +52,31 @@ from motionestimation_tpu_torch.kernels import full_search_cuda as fsc
 from motionestimation_tpu_torch.search import full_search as fs
 
 FAST_MAX_BLK = 32
-_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# Launcher argument types per source: pointers (cur, ref, score, idx, vol),
+# ints (strides, grid, blk, span, frame, origin), the stream; occupancy
+# queries take ints and the output pointer.
+_SIGNATURES = {
+    "ssim": {
+        "me_ssim_fast_search": [_PTR] * 5 + [_INT] * 11 + [_PTR],
+        "me_ssim_fast_occupancy": [_INT] * 3 + [_PTR],
+    },
+    "ssim_search": {
+        "me_ssim_search": [_PTR] * 5 + [_INT] * 11 + [_PTR],
+        "me_ssim_occupancy": [_INT] * 4 + [_PTR],
+    },
+}
+# The source of each wrapper's launcher.
+_SOURCE = {"ssim_fast_search": "ssim", "ssim_search": "ssim_search"}
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssim")
-    for fn in (lib.me_ssim_fast_search, lib.me_ssim_search):
-        fn.argtypes = _SIGNATURE
+def _lib(source: str) -> ctypes.CDLL:
+    lib = _build.load(source)
+    for name, argtypes in _SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    occupancy = lib.me_ssim_fast_occupancy
-    occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -79,7 +93,18 @@ def ssim_fast_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
     if not 1 <= blk_dim <= FAST_MAX_BLK or span < 0 or nbx < 1:
         raise ValueError(f"no fast SSIM kernel for blk_dim={blk_dim} "
                          f"span={span} nbx={nbx}")
-    return fsc.occupancy(_lib().me_ssim_fast_occupancy, blk_dim, span, nbx)
+    return fsc.occupancy(_lib("ssim").me_ssim_fast_occupancy, blk_dim, span,
+                         nbx)
+
+
+def ssim_occupancy(blk_dim: int, span: int, nby: int, nbx: int) -> dict:
+    """`me_ssim_search`'s resources (no volume) for an [nby, nbx] grid, as
+    `full_search_cuda.occupancy` reports them."""
+    if min(blk_dim, nby, nbx) < 1 or span < 0:
+        raise ValueError(f"no truncated-extent SSIM kernel for blk_dim="
+                         f"{blk_dim} span={span} grid={nby}x{nbx}")
+    return fsc.occupancy(_lib("ssim_search").me_ssim_occupancy, blk_dim,
+                         span, nby, nbx)
 
 
 def _launch(fn, cur, ref_halo, nby, nbx, *, blk_dim, span, frame_height,
@@ -168,10 +193,11 @@ def ssim_search(cur, ref_halo, *, blk_dim: int, span: int, frame_height: int,
                 frame_width: int, y_origin: int = 0, x_origin: int = 0,
                 return_volume: bool = False):
     """SSIM search with truncated block extents (`me_ssim_search`, the port
-    of `_kernel_ssim`). The tile must hold every in-frame pixel of its
-    blocks; returns (float32 score, int32 idx), [cdiv(tile_h, blk),
-    cdiv(tile_w, blk)], and with `return_volume` the float32 [K², nby, nbx]
-    score volume (the kernel's emit mode)."""
+    of `_kernel_ssim`): packed bytes, a warp per macroblock over its valid
+    candidates, warps sharing a macroblock on thin slabs. The tile must
+    hold every in-frame pixel of its blocks; returns (float32 score, int32
+    idx), [cdiv(tile_h, blk), cdiv(tile_w, blk)], and with `return_volume`
+    the float32 [K², nby, nbx] score volume (the kernel's emit mode)."""
     fsc.check_operand_shapes(cur, ref_halo, span)
     fsc.check_edge_tile(cur.shape, blk_dim, frame_height, frame_width,
                         y_origin, x_origin)
@@ -198,8 +224,9 @@ def _run(wrapper, cur, ref_halo, grid, return_volume, **kw):
         out = (torch.empty((nby, nbx), dtype=torch.float32, device=cur.device),
                torch.empty((nby, nbx), dtype=torch.int32, device=cur.device))
     else:
-        out = _launch(getattr(_lib(), f"me_{wrapper.__name__}"), cur,
-                      ref_halo, nby, nbx, volume=volume, **kw)
+        lib = _lib(_SOURCE[wrapper.__name__])
+        out = _launch(getattr(lib, f"me_{wrapper.__name__}"), cur, ref_halo,
+                      nby, nbx, volume=volume, **kw)
         fsc.count_launch(wrapper, volume)
     return (*out, volume) if return_volume else out
 

@@ -1,6 +1,7 @@
 """Instructions per loop of the built kernels, from their SASS.
 
     python -m motionestimation_tpu_torch.tools.sass_loops SOURCE [--match S]
+        [--against LIBRARY]
 
 Builds csrc/SOURCE.cu if needed, disassembles the library with the CUDA
 toolkit's `cuobjdump -sass` and prints, for each kernel whose mangled name
@@ -8,8 +9,11 @@ contains one of the --match strings (every kernel without --match), each
 loop (a branch back to a lower address) with its instruction count and its
 most frequent opcodes. In a search kernel the loop that holds the `IDP`
 (`__dp4a`) and `LDS` (shared load) instructions is the candidate loop: its
-count is the instructions each lane issues per candidate. Needs the toolkit
-(the card's machine), not a card.
+count is the instructions each lane issues per candidate. With --against,
+a library built from another checkout (its kernels/build/lib<SOURCE>-*.so),
+it prints instead, for each kernel the two share, whether their instruction
+lists are identical, and the kernels only one of them has; it exits 1 if a
+shared kernel differs. Needs the toolkit (the card's machine), not a card.
 """
 from __future__ import annotations
 
@@ -67,6 +71,25 @@ def loops(instructions: list[tuple[int, str]]):
     return found
 
 
+def same_code(ours: dict, theirs: dict) -> dict[str, bool | None]:
+    """{kernel: True if its instructions equal the other build's, False if
+    not, None if only one build has it} over two `functions` dumps."""
+    out = {}
+    for name in sorted(set(ours) | set(theirs)):
+        if name in ours and name in theirs:
+            out[name] = ([t for _, t in ours[name]]
+                         == [t for _, t in theirs[name]])
+        else:
+            out[name] = None
+    return out
+
+
+def disassemble(library) -> str:
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("source", choices=_build.sources())
@@ -74,14 +97,23 @@ def main(argv=None) -> int:
                    help="substrings of the mangled kernel names to show")
     p.add_argument("--top", type=int, default=12,
                    help="opcodes to list per loop")
+    p.add_argument("--against", metavar="LIBRARY",
+                   help="another build of SOURCE to compare instructions with")
     args = p.parse_args(argv)
     _build.build([args.source])
-    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_build.library_path(args.source))],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    for name, instructions in functions(sass).items():
+    found = functions(disassemble(_build.library_path(args.source)))
+    if args.against:
+        result = same_code(found, functions(disassemble(args.against)))
+        for name, same in result.items():
+            print(f"{name}: " + {True: "identical", False: "DIFFERS",
+                                 None: "in one build only"}[same] +
+                  (f" ({len(found[name])} instructions)" if same else ""))
+        n_same = sum(v is True for v in result.values())
+        print(f"{args.source}: {n_same} of "
+              f"{sum(v is not None for v in result.values())} shared kernels "
+              f"identical to {args.against}")
+        return 1 if False in result.values() else 0
+    for name, instructions in found.items():
         if args.match and not any(s in name for s in args.match):
             continue
         print(f"{name}: {len(instructions)} instructions")

@@ -205,7 +205,8 @@ def test_interior_wrappers_reject_what_they_do_not_cover():
         kc.chunked_search(cur_t[:44], halo, blk_dim=8, **kw)
 
 
-@pytest.mark.parametrize("group", kernel_turns.GROUPS, ids=lambda g: g[0])
+@pytest.mark.parametrize("group", kernel_turns.GROUPS
+                         + kernel_turns.SLAB_GROUPS, ids=lambda g: g[0])
 def test_kernel_turns_groups_name_wrappers_that_take_their_keywords(group):
     """Each entry's wrapper exists in its module, counts its launches and
     binds (tile, halo) and the keywords `time_group` passes, so the tool
@@ -218,6 +219,25 @@ def test_kernel_turns_groups_name_wrappers_that_take_their_keywords(group):
         assert isinstance(fn.launches, int), entry
         if kw.get("return_volume"):
             assert isinstance(fn.volume_launches, int), entry
+
+
+def test_kernel_turns_selects_groups_by_label():
+    """--group keeps GROUPS' order and refuses a label it does not have,
+    before anything needs a card."""
+    assert kernel_turns.select() == (
+        [(g, False) for g in kernel_turns.GROUPS]
+        + [(g, True) for g in kernel_turns.SLAB_GROUPS])
+    got = kernel_turns.select(["1080p 16x16 +-15 bottom slab",
+                               "4K 64x64 +-15 ssim", "4K 7x7 +-15 sad"])
+    assert [(g[0], slab) for g, slab in got] == [
+        ("4K 7x7 +-15 sad", False), ("4K 64x64 +-15 ssim", False),
+        ("1080p 16x16 +-15 bottom slab", True)]
+    assert [e[1] for e in got[0][0][5]] == ["int_search", "int_search",
+                                            "int_search", "chunked_search"]
+    with pytest.raises(ValueError, match="unknown groups"):
+        kernel_turns.select(["4K 7x7 +-15 mse"])
+    with pytest.raises(ValueError, match="unknown groups"):
+        kernel_turns.main(["--group", "no such cell"])
 
 
 def test_sass_loops_counts_the_instructions_of_each_loop():
@@ -242,6 +262,17 @@ def test_sass_loops_counts_the_instructions_of_each_loop():
     assert (start, end, count) == (0x10, 0x30, 3)
     assert ops == {"IDP": 1, "LDS": 1, "BRA": 1}
     assert sass_loops.loops(found["_Z4nonev"]) == []
+
+
+def test_sass_loops_compares_two_builds_kernel_by_kernel():
+    """--against: a kernel is identical when its instruction texts are,
+    whatever their addresses; one that only one build has is named so."""
+    ours = {"a": [(0, "MOV R1, R2"), (16, "EXIT")],
+            "b": [(0, "IADD3 R1, R2, R3, RZ")], "c": [(0, "EXIT")]}
+    theirs = {"a": [(0x40, "MOV R1, R2"), (0x50, "EXIT")],
+              "b": [(0, "IADD3 R1, R2, R4, RZ")], "d": [(0, "EXIT")]}
+    assert sass_loops.same_code(ours, theirs) == {
+        "a": True, "b": False, "c": None, "d": None}
 
 
 # --- on the card -----------------------------------------------------------

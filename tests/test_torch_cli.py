@@ -92,13 +92,20 @@ def test_cli_cpu_ssim_byte_exact(name, tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,match",
     [
-        pytest.param(["--gop", "a.yuv", "b.yuv"], "GOP", id="extra2-GOP"),
-        pytest.param(["--profile", "trace"], "bench", id="extra4-bench"),
+        pytest.param(["--gop", "a.yuv", "b.yuv"], '"GOP pipeline"',
+                     id="extra2-GOP"),
+        pytest.param(["--profile", "trace"], '"Main-path bench and tracing"',
+                     id="extra4-bench"),
     ],
 )
 def test_cli_later_slices_raise(extra, match, tmp_path):
+    """The message names a ROADMAP.md Queue 1 item by its title, and that
+    title is there."""
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["c.yuv", "r.yuv", str(tmp_path), "--device", "cpu", *extra])
+    roadmap = os.path.join(os.path.dirname(__file__), os.pardir, "ROADMAP.md")
+    with open(roadmap, encoding="utf-8") as f:
+        assert "**" + match.strip('"') in f.read()
 
 
 def _debug_lines(stdout: str):

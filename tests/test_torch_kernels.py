@@ -133,6 +133,32 @@ def test_whole_frame_int_route_matches_pallas(blk, metric):
     assert_fields_equal(want, got)
 
 
+# (blk, metric, h, w): configs whose whole frame runs the int kernel (SAD
+# outside the phase kernel's blk, MSE above K7's), on frames with a
+# truncated bottom block row and right block column.
+WHOLE_FRAME_INT = [(3, "sad", 17, 23), (7, "sad", 30, 44),
+                   (20, "mse", 45, 50), (40, "mse", 50, 90),
+                   (40, "sad", 50, 90)]
+
+
+@pytest.mark.parametrize("span", range(6))
+@pytest.mark.parametrize("blk,metric,h,w", WHOLE_FRAME_INT)
+def test_whole_frame_int_routes_match_pallas_at_every_span(blk, metric, h, w,
+                                                           span):
+    """The whole-frame int route, span 0 included (SAD at any blk there),
+    against `full_search_frame_pallas(interpret=True)`: MVs and integer
+    costs equal."""
+    assert kc.interior_search(blk, span, metric) is None
+    cur, ref = random_pair(blk * 10 + span, h, w)
+    want = kp.full_search_frame_pallas(
+        cur, ref, blk_dim=blk, span=span, metric=metric, interpret=True
+    )
+    got = kc.full_search_frame_cuda(
+        cur, ref, blk_dim=blk, span=span, metric=metric, device="cpu"
+    )
+    assert_fields_equal(want, got)
+
+
 @pytest.mark.parametrize(
     "blk,span,kernel",
     [(12, 4, "K5"), (8, 0, "K5"), (16, 0, "K5"), (24, 4, "K7")],
@@ -306,6 +332,67 @@ def test_int_kernel_matches_plain_cuda(cuda, h, w, blk, span, metric):
     want = kc.search_plain(cur_t, halo, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# (blk, span): every blk 1-33 at span 0 and one span that grows with blk
+# (warps share a macroblock where the grid is short; K = 3 leaves most
+# lanes idle), and blk 40, 48 and 64 (runtime words per row).
+INT_CUDA = [(blk, span) for blk in list(range(1, 34)) + [40, 48, 64]
+            for span in (0, (1, 3, 5, 7)[blk % 4])]
+
+
+def edge_frame(blk):
+    """(h, w): two whole block rows and five whole block columns, then a
+    truncated one of each (blk >= 2; blk 1 leaves no slab)."""
+    return (3 * blk - 1 - (blk % 3 if blk > 2 else 0),
+            5 * blk + (blk + 1) // 2)
+
+
+@pytest.mark.parametrize("metric", ["mse", "sad"])
+@pytest.mark.parametrize("blk,span", INT_CUDA)
+def test_int_kernel_whole_frames_and_slabs_cuda(cuda, blk, span, metric):
+    """`int_search` exactly against its plain version, with and without
+    its volume, on a whole frame with both edges truncated, its bottom and
+    right slabs, a tile off the frame's origin, and constant frames (every
+    cost ties at 0: raster-first must win)."""
+    h, w = edge_frame(blk)
+    cur, ref = random_pair(blk * 7 + span, h, w)
+    cur_t = torch.from_numpy(cur).to(cuda)
+    halo = F.pad(torch.from_numpy(ref).to(cuda), (span, span, span, span))
+    flat = torch.full((h, w), 77, dtype=torch.uint8, device=cuda)
+    flat_halo = F.pad(flat, (span, span, span, span))
+    kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
+              frame_width=w)
+    y0, x0 = h // blk * blk, w // blk * blk
+    tiles = [
+        ((cur_t, halo), {}),
+        ((cur_t[y0:], halo[y0:]), dict(y_origin=y0)),
+        ((cur_t[:, x0:], halo[:, x0:]), dict(x_origin=x0)),
+        ((cur_t[blk:, blk:], halo[blk:, blk:]),
+         dict(y_origin=blk, x_origin=blk)),
+        ((flat, flat_halo), {}),
+    ]
+    for ops, extra in tiles:
+        if not ops[0].numel():  # blk 1: no slab
+            continue
+        for volume in (False, True):
+            before = kc.int_search.launches, kc.int_search.volume_launches
+            got = kc.int_search(*ops, return_volume=volume, **kw, **extra)
+            assert (kc.int_search.launches,
+                    kc.int_search.volume_launches) == (before[0] + 1,
+                                                       before[1] + volume)
+            _assert_exact(got, kc.search_plain(*ops, return_volume=volume,
+                                               **kw, **extra))
+    assert not got[0].any()  # constant frames
+
+
+def test_int_occupancy_cuda(cuda):
+    """K2 at its whole-frame and slab cells: no spills."""
+    for blk, span, metric, nby, nbx in ((7, 15, "sad", 309, 549),
+                                        (16, 15, "mse", 1, 120),
+                                        (64, 15, "sad", 34, 60)):
+        occ = kc.int_occupancy(blk, span, metric, nby, nbx)
+        assert occ["local_bytes"] == 0, occ
 
 
 @pytest.mark.parametrize("h,w,blk,span,metric", CASES)

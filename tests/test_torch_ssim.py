@@ -226,6 +226,19 @@ def test_fast_instances_match_pallas(h, w, blk, span):
     assert_ssim_fields_match(want, got, cur, ref, blk, span)
 
 
+@pytest.mark.parametrize("span", range(6))
+def test_whole_frame_truncated_route_matches_pallas(span):
+    """blk > 32 runs the truncated-extent kernel over the whole frame, span
+    0 included; against `ssim_search_frame_pallas(interpret=True)` on a
+    frame with both edges truncated."""
+    cur, ref = random_pair(400 + span, 50, 90)
+    want = jsp.ssim_search_frame_pallas(cur, ref, blk_dim=40, span=span,
+                                        interpret=True)
+    got = sc.ssim_search_frame_cuda(cur, ref, blk_dim=40, span=span,
+                                    device="cpu")
+    assert_ssim_fields_match(want, got, cur, ref, 40, span)
+
+
 @pytest.mark.parametrize("h,w,blk,span", [(36, 52, 8, 5), (33, 45, 4, 3),
                                           (72, 100, 32, 4)])
 def test_edge_slabs_match_pallas(h, w, blk, span):
@@ -403,6 +416,62 @@ def test_truncated_kernel_matches_plain_cuda(cuda, h, w, blk, span):
     got = sc.ssim_search(cur_t, halo, **kw)
     assert sc.ssim_search.launches == before + 1
     _assert_exact(got, sc.ssim_plain(cur_t, halo, **kw))
+
+
+# (blk, span) as tests/test_torch_kernels.py's INT_CUDA: every blk 1-33
+# and 40, 48, 64, at span 0 and one that grows with blk.
+TRUNCATED_CUDA = [(blk, span) for blk in list(range(1, 34)) + [40, 48, 64]
+                  for span in (0, (1, 3, 5, 7)[blk % 4])]
+
+
+def edge_frame(blk):
+    """(h, w): two whole block rows and five whole block columns, then a
+    truncated one of each (blk >= 2; blk 1 leaves no slab)."""
+    return (3 * blk - 1 - (blk % 3 if blk > 2 else 0),
+            5 * blk + (blk + 1) // 2)
+
+
+@pytest.mark.parametrize("blk,span", TRUNCATED_CUDA)
+def test_truncated_kernel_whole_frames_and_slabs_cuda(cuda, blk, span):
+    """`ssim_search` exactly against its plain version, with and without
+    its volume, on a whole frame with both edges truncated, its bottom and
+    right slabs, a tile off the frame's origin, and constant frames (every
+    valid candidate scores 1: raster-first must win)."""
+    h, w = edge_frame(blk)
+    cur_t, halo = _operands(cuda, h, w, span, blk * 7 + span)
+    flat = torch.full((h, w), 77, dtype=torch.uint8, device=cuda)
+    kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
+    y0, x0 = h // blk * blk, w // blk * blk
+    for ops, extra in (
+        ((cur_t, halo), {}),
+        ((cur_t[y0:], halo[y0:]), dict(y_origin=y0)),
+        ((cur_t[:, x0:], halo[:, x0:]), dict(x_origin=x0)),
+        ((cur_t[blk:, blk:], halo[blk:, blk:]),
+         dict(y_origin=blk, x_origin=blk)),
+        ((flat, F.pad(flat, (span, span, span, span))), {}),
+    ):
+        if not ops[0].numel():  # blk 1: no slab
+            continue
+        for volume in (False, True):
+            before = sc.ssim_search.launches, sc.ssim_search.volume_launches
+            got = sc.ssim_search(*ops, return_volume=volume, **kw, **extra)
+            assert (sc.ssim_search.launches,
+                    sc.ssim_search.volume_launches) == (before[0] + 1,
+                                                        before[1] + volume)
+            _assert_exact(got, sc.ssim_plain(*ops, return_volume=volume,
+                                             **kw, **extra))
+    assert (got[0] == 1).all()  # constant frames
+
+
+def test_truncated_occupancy_cuda(cuda):
+    """K4 at its whole-frame and slab cells: at least 16 warps resident per
+    SM, and at most the 16 bytes of stack that the IEEE division's slow
+    path, a call, may save registers in."""
+    for blk, span, nby, nbx in ((64, 15, 34, 60), (16, 15, 1, 120),
+                                (32, 7, 1, 120)):
+        occ = sc.ssim_occupancy(blk, span, nby, nbx)
+        assert occ["local_bytes"] <= 16, occ
+        assert occ["warps_per_sm"] >= 16, occ
 
 
 @pytest.mark.parametrize("h,w,blk,span", [

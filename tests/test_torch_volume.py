@@ -107,6 +107,8 @@ def test_golden_ssim_volume_matches_jax(h, w, blk, span):
 VOLUME_CASES = [
     (64, 64, 8, 4, "mse"), (61, 75, 8, 5, "mse"), (36, 52, 12, 3, "mse"),
     (40, 56, 32, 3, "mse"), (36, 52, 8, 5, "sad"), (36, 52, 12, 3, "sad"),
+    # SAD at blk 7: the int kernel's emit mode over the whole frame.
+    (30, 44, 7, 1, "sad"), (37, 51, 7, 3, "sad"), (29, 45, 7, 5, "sad"),
 ]
 
 
