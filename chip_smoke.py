@@ -41,7 +41,24 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    MSE `--early-term 2.0`) and its adversarial content (MSE, canonical
    escalation and `--escape-policy crossover`), each run's MVs, costs and
    trajectories equal to a replay over the golden volume on the card, and
-   its stack to one built from those MVs.
+   its stack to one built from those MVs. Then the GOP main path:
+   `cli.main --device cuda --gop` over 33 frames at 3840x2160 8x8 +-12
+   (the JAX bench's headline GOP, bench.py's content from --seed; the
+   packed readback): exactly 32 launches of the phase kernel and none of
+   another, every dump equal to `run_pair`'s on its pair (MVs, best_cost,
+   score, psnr), a second call rewriting no dump, and a deleted dump
+   recomputed alone and equal; `run_gop` at 1920x1080 16x16 +-15 and
+   32x32 +-7 (MSE, the phase kernel and the int kernel on the bottom slab),
+   16x16 +-15 SSIM (the fast and truncated-extent SSIM kernels), 9 frames
+   each, and 16x16 +-15 diamond MSE `early_term=2.0` over 5 frames of
+   config3 content, each launching its kernels once a pair and every dump
+   equal to `run_pair`'s. The full-search and SSIM GOPs run under
+   `torch.cuda.set_sync_debug_mode("error")`. Timed: the 4K GOP's pairs/s
+   (best of 3 runs after a warm-up) with its `stats_out` split, over the
+   33 files and over them thrice (97 frames), which splits the wall into
+   a cost per call and one per pair; `run_pair` at that cell, and the two
+   rates that bracket the pipeline on the same 33 files: disk reads into
+   one recycled buffer and pinned h2d on a copy stream alone.
 4. Each kernel and emit mode against its plain PyTorch version on the
    card at full size (tolerance: exact equality of every int32 cost, index
    and volume entry, and of every float32 SSIM score and -inf: kernel and
@@ -235,6 +252,25 @@ DIAMOND_RUNS = [
     ("mse adversarial crossover", "adversarial",
      ["--escape-policy", "crossover"], "mse"),
 ]
+# The GOP main path. The JAX package's headline (bench.py:15-24, 73): a
+# 33-frame 4K 8x8 +-12 MSE GOP, through the CLI (the packed readback); then
+# run_gop at 1080p, (label, frames, config keywords, content, launches per
+# pair): MSE with K2 on the 8-row slab, 32x32 +-7 (K2 on the 24-row slab),
+# SSIM, and diamond MSE with early termination on config3 content. The
+# first three are unpacked (cost * K^2 does not fit 32 bits there).
+GOP_4K = ("4K 8x8 +-12 mse", 33, 2160, 3840, 8, 12)
+GOP_RUNS = [
+    ("1080p 16x16 +-15 mse", 9, dict(blk_dim=16, span=15), "bench",
+     {"me_phase_search": 1, "me_int_search": 1}),
+    ("1080p 32x32 +-7 mse", 9, dict(blk_dim=32, span=7), "bench",
+     {"me_phase_search": 1, "me_int_search": 1}),
+    ("1080p 16x16 +-15 ssim", 9, dict(blk_dim=16, span=15, metric="ssim"),
+     "bench", {"me_ssim_fast_search": 1, "me_ssim_search": 1}),
+    ("1080p 16x16 +-15 diamond mse early-term 2.0", 5,
+     dict(blk_dim=16, span=15, algorithm="diamond", early_term=2.0),
+     "config3", {"me_phase_search": 1, "me_phase_search (emit)": 1,
+                 "me_int_search": 1, "me_int_search (emit)": 1}),
+]
 # The speed-of-light tools: the lab's variants at 2048x2048 8x8 +-12 and
 # tile_h 64 and 128 (L2 "P0"/"P1", L4 "P4"/"P4S"), and the card-filling
 # sizes of the peak kernels: 8x the rows of P1, 32x the width of P2.
@@ -342,6 +378,199 @@ def bound(h, w, blk, span, tile, origin, ssim=False, volume=False):
     t_ops = max(2 * pixel_cands / INT8_OPS_S * 1e3,
                 SSIM_FLOPS * block_cands / FP32_OPS_S * 1e3 if ssim else 0.0)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gop_frames(rng, n, h, w, content):
+    """n frames from `rng`: "bench" as the JAX bench makes its GOP
+    (bench.py:415-430), a random frame and then each frame the previous one
+    moved by (1, -2) plus noise in [-3, 3]; "config3" from synth's
+    reference, each next frame moved by (1, -2) plus noise in [-1, 1]."""
+    if content == "bench":
+        prev, noise = rng.integers(0, 256, (h, w), dtype=np.uint8), 3
+    else:
+        prev, noise = synth(rng, h, w)[1], 1
+    out = [] if content == "bench" else [prev]
+    while len(out) < n:
+        prev = np.clip(np.roll(prev, (1, -2), (0, 1)).astype(np.int32)
+                       + rng.integers(-noise, noise + 1, (h, w)),
+                       0, 255).astype(np.uint8)
+        out.append(prev)
+    return out
+
+
+def check_gop_dump(path, pair, metric, what):
+    """A GOP dump against `run_pair` on the same pair: MVs, best_cost (the
+    SSIM score for SSIM), score and psnr, with their dtypes."""
+    d = np.load(path)
+    f = pair.field
+    want = {"mv_y": f.mv_y, "mv_x": f.mv_x, "score": f.score,
+            "best_cost": f.score if metric == "ssim" else f.best_cost_i32}
+    for key, value in want.items():
+        if d[key].dtype != value.dtype or not np.array_equal(d[key], value):
+            fail(f"{what}: {key} differs from run_pair's")
+    if float(d["psnr"]) != pair.psnr:
+        fail(f"{what}: psnr {float(d['psnr'])} != run_pair's {pair.psnr}")
+
+
+def gop_phase(work, seed, dev, card, counted, sync_errors, time_run_pair):
+    """The GOP main path (checks) and its timing; see the module docstring.
+    `counted(expected, what)` zeroes every launch count and checks them
+    after the block; `sync_errors()` makes a synchronising call raise."""
+    from motionestimation_tpu_torch import cli
+    from motionestimation_tpu_torch.core import frames as frames_lib
+    from motionestimation_tpu_torch.core.config import SearchConfig
+    from motionestimation_tpu_torch.pipeline import runner
+
+    rng = np.random.default_rng(seed)
+    label, n, h, w, blk, span = GOP_4K
+    print(f"== main path (GOP {label}): cli.main --device cuda --gop with "
+          f"{n} frames at {w}x{h}")
+    paths = []
+    for i, frame in enumerate(gop_frames(rng, n, h, w, "bench")):
+        paths.append(os.path.join(work, f"gop_{i:03d}.yuv"))
+        frame.tofile(paths[-1])
+    config = SearchConfig(blk_dim=blk, span=span, frame_width=w,
+                          frame_height=h)
+    out_dir = os.path.join(work, "gop_4k")
+    argv = [paths[0], paths[0], out_dir, str(blk), str(span), str(w), str(h),
+            "--device", "cuda", "--gop", *paths]
+    if runner._gop_pack_kk(config) is None:
+        fail(f"GOP {label}: expected the packed readback")
+    with counted({"me_phase_search": n - 1}, f"GOP {label}"), sync_errors():
+        stdout = run_cli(cli, argv)
+    if stdout.splitlines()[-1] != f"GOP: {n - 1} frame pairs -> {out_dir}":
+        fail(f"GOP {label}: no 'GOP:' line")
+    dumps = sorted(os.path.join(out_dir, p) for p in os.listdir(out_dir))
+    if [os.path.basename(p) for p in dumps] != [
+            f"mv_{i:05d}.npz" for i in range(n - 1)]:
+        fail(f"GOP {label}: dumps {dumps}")
+    frames = [frames_lib.load_yuv(p, h, w) for p in paths]
+    for i, path in enumerate(dumps):
+        check_gop_dump(path, runner.run_pair(frames[i + 1], frames[i], config,
+                                             device=dev), "mse",
+                       f"GOP {label} pair {i}")
+    print(f"GOP {label}: {n - 1} dumps equal run_pair's (MVs, best_cost, "
+          f"score, psnr)")
+    mtimes = {p: os.stat(p).st_mtime_ns for p in dumps}
+    with counted({}, f"GOP {label}, resumed"), sync_errors():
+        run_cli(cli, argv)
+    if {p: os.stat(p).st_mtime_ns for p in dumps} != mtimes:
+        fail(f"GOP {label}: a second call rewrote a dump")
+    hole = dumps[(n - 1) // 2]
+    golden = dict(np.load(hole))
+    os.remove(hole)
+    del mtimes[hole]
+    with counted({"me_phase_search": 1}, f"GOP {label}, one hole"), \
+            sync_errors():
+        run_cli(cli, argv)
+    if any(os.stat(p).st_mtime_ns != t for p, t in mtimes.items()):
+        fail(f"GOP {label}: filling the hole rewrote another dump")
+    got = np.load(hole)
+    if sorted(got.files) != sorted(golden) or not all(
+            got[k].dtype == v.dtype and np.array_equal(got[k], v)
+            for k, v in golden.items()):
+        fail(f"GOP {label}: the recomputed hole differs")
+    print(f"GOP {label}: a second call rewrote nothing; the hole "
+          f"{os.path.basename(hole)} was recomputed alone and equal")
+
+    for run_label, m, kw, content, per_pair in GOP_RUNS:
+        rh, rw = 1080, 1920
+        run_config = SearchConfig(**kw, frame_width=rw, frame_height=rh)
+        print(f"== main path (GOP {run_label}): run_gop with {m} frames, "
+              f"{content} content, "
+              f"{'packed' if runner._gop_pack_kk(run_config) else 'unpacked'}"
+              f" readback")
+        run_frames = gop_frames(rng, m, rh, rw, content)
+        run_paths = []
+        for i, frame in enumerate(run_frames):
+            run_paths.append(os.path.join(work, f"run_{i:03d}.yuv"))
+            frame.tofile(run_paths[-1])
+        expected = {k: v * (m - 1) for k, v in per_pair.items()}
+        diamond = kw.get("algorithm") == "diamond"
+        with counted(expected, f"GOP {run_label}"), (
+                contextlib.nullcontext() if diamond else sync_errors()):
+            out = runner.run_gop(
+                run_paths, run_config, device=dev, chunk_pairs=3,
+                output_dir=os.path.join(work, "gop_" + run_label.replace(
+                    " ", "_")))
+        for i, path in enumerate(out):
+            check_gop_dump(path, runner.run_pair(
+                run_frames[i + 1], run_frames[i], run_config, device=dev),
+                run_config.metric, f"GOP {run_label} pair {i}")
+        print(f"GOP {run_label}: {m - 1} dumps equal run_pair's")
+
+    # -- timing: the 4K GOP, run_pair at its cell, and the two rates that
+    # bracket the pipeline (disk reads, pinned h2d on a copy stream).
+    print(f"== GOP timing at {label}, {n - 1} pairs ({card})")
+    timed_dir = os.path.join(work, "gop_timed")
+    runner.run_gop(paths, config, output_dir=timed_dir, device=dev,
+                   resume=False)  # warm-up
+    # The same files thrice over (97 frames, 96 pairs) split the wall into
+    # a cost per call (pool, threads, fill and drain) and one per pair.
+    walls = {}
+    for gop in (paths, paths + paths[1:] + paths[1:]):
+        results = []
+        for _ in range(3):
+            stats = {}
+            t0 = time.perf_counter()
+            runner.run_gop(gop, config, output_dir=timed_dir, device=dev,
+                           resume=False, stats_out=stats)
+            results.append((time.perf_counter() - t0, stats))
+        wall, stats = min(results, key=lambda r: r[0])
+        walls[len(gop) - 1] = wall
+        split = {k: round(v, 6) if isinstance(v, float) else v
+                 for k, v in stats.items()}
+        print(f"GOP {label}, {len(gop)} frames: best of 3 "
+              f"{(len(gop) - 1) / wall:.2f} pairs/s (runs "
+              f"{[round((len(gop) - 1) / r[0], 2) for r in results]}, "
+              f"resume=False, after one warm-up); stats_out of the best "
+              f"{split} | {card}")
+    (short, t_short), (long_, t_long) = sorted(walls.items())
+    per_pair = (t_long - t_short) / (long_ - short)
+    per_call = t_short - short * per_pair
+    print(f"GOP {label}: {per_pair * 1e3:.4f} ms a pair beyond the first "
+          f"{short} ({1 / per_pair:.2f} pairs/s), {per_call * 1e3:.4f} ms "
+          f"a call besides | {card}")
+    time_run_pair(f"run_pair at the GOP cell {label}", frames[1], frames[0],
+                  config)
+    frame_mb = h * w / 1e6
+    buf = np.empty((h, w), np.uint8)
+    disk = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for p in paths:
+            frames_lib.load_yuv_into(p, buf)
+        disk.append(n * frame_mb / (time.perf_counter() - t0))
+    pinned = [torch.empty((h, w), dtype=torch.uint8, pin_memory=True)
+              for _ in paths]
+    for p, b in zip(paths, pinned):
+        frames_lib.load_yuv_into(p, b.numpy())
+    staged = [torch.empty((h, w), dtype=torch.uint8, device=dev)
+              for _ in paths]
+    copy = torch.cuda.Stream(dev)
+    h2d = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(copy):
+            start.record(copy)
+            for b, d in zip(pinned, staged):
+                d.copy_(b, non_blocking=True)
+            end.record(copy)
+        end.synchronize()
+        h2d.append(n * frame_mb / (start.elapsed_time(end) / 1e3))
+    for i, (b, d) in enumerate(zip(pinned, staged)):
+        if not torch.equal(d.cpu(), b):
+            fail(f"pinned h2d: frame {i} arrived changed")
+    print(f"GOP {label} bracket: disk read (load_yuv_into, one recycled "
+          f"buffer) best {max(disk):.1f} MB/s = {max(disk) / frame_mb:.1f} "
+          f"frames/s (passes {[round(r, 1) for r in disk]}); pinned h2d on a "
+          f"copy stream alone best {max(h2d):.1f} MB/s = "
+          f"{max(h2d) / frame_mb:.1f} frames/s (passes "
+          f"{[round(r, 1) for r in h2d]}); {n} frames of {frame_mb:.3f} MB | "
+          f"{card}")
+    del pinned, staged
 
 
 def check_stack(out_dir, cur, ref, field, blk, span, label, frames_lib):
@@ -522,6 +751,47 @@ def main(argv=None) -> int:
     def golden_search(cur, ref, **kw):
         return fs.full_search_frame(torch.from_numpy(cur).to(dev),
                                     torch.from_numpy(ref).to(dev), **kw)
+
+    def time_run_pair(label, cur, ref, config):
+        """run_pair's medians over --runs calls after 3 of warm-up, with the
+        launches of one call."""
+        for _ in range(3):
+            runner.run_pair(cur, ref, config)
+        reset_counts()
+        runner.run_pair(cur, ref, config)
+        per_frame = {n: launches(n) for n in counters if launches(n)}
+        results = [runner.run_pair(cur, ref, config)
+                   for _ in range(args.runs)]
+        kernel_ms = statistics.median(r.kernel_ms for r in results)
+        total_ms = statistics.median(r.total_ms for r in results)
+        row = min(results, key=lambda r: abs(r.kernel_ms - kernel_ms))
+        h, w, blk = config.frame_height, config.frame_width, config.blk_dim
+        nblocks = -(-h // blk) * -(-w // blk)
+        print(f"{label}: timing_row {row.timing_row} | search "
+              f"{kernel_ms:.4f} ms, {nblocks / kernel_ms / 1e3:.3f} M "
+              f"blocks/s, {1e3 / kernel_ms:.1f} fps (search), "
+              f"{1e3 / total_ms:.1f} fps (total {total_ms:.4f} ms) | "
+              f"launches/frame {per_frame} | {card}")
+
+    @contextlib.contextmanager
+    def counted(expected, what):
+        """Every launch count set to 0 before the block; after it, each
+        count named in `expected` equals its value and every other is 0."""
+        reset_counts()
+        yield
+        counts = {n: launches(n) for n in counters if launches(n)}
+        print(f"{what} launches: {counts}")
+        if counts != {n: c for n, c in expected.items() if c}:
+            fail(f"{what}: launches {counts}, expected {expected}")
+
+    @contextlib.contextmanager
+    def sync_errors():
+        """A call that synchronises the host with the card raises inside."""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
         # -- 2. byte-exact CLI runs against the C reference's outputs ------
@@ -747,6 +1017,13 @@ def main(argv=None) -> int:
                   f"the replay over the golden volume; {moved} of "
                   f"{want.mv_y.numel()} blocks moved; PSNR "
                   f"{frames_lib.image_psnr(comp, cur):.6f}")
+
+    # -- the GOP main path ----------------------------------------------------
+    t_gop = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        gop_phase(work, args.seed, dev, card, counted, sync_errors,
+                  time_run_pair)
+    print(f"GOP phase: {time.perf_counter() - t_gop:.1f} s")
 
     # -- 4. each kernel against its plain version on the card -------------
     print("== kernels vs their plain versions on the card (exact)")
@@ -1047,27 +1324,6 @@ def main(argv=None) -> int:
 
     # -- 5. timing -------------------------------------------------------
     print(f"== timing ({card}), median of {args.runs} runs after warm-up")
-
-    def time_run_pair(label, cur, ref, config):
-        """run_pair's medians over --runs calls after 3 of warm-up, with the
-        launches of one call."""
-        for _ in range(3):
-            runner.run_pair(cur, ref, config)
-        reset_counts()
-        runner.run_pair(cur, ref, config)
-        per_frame = {n: launches(n) for n in counters if launches(n)}
-        results = [runner.run_pair(cur, ref, config)
-                   for _ in range(args.runs)]
-        kernel_ms = statistics.median(r.kernel_ms for r in results)
-        total_ms = statistics.median(r.total_ms for r in results)
-        row = min(results, key=lambda r: abs(r.kernel_ms - kernel_ms))
-        h, w, blk = config.frame_height, config.frame_width, config.blk_dim
-        nblocks = -(-h // blk) * -(-w // blk)
-        print(f"{label}: timing_row {row.timing_row} | search "
-              f"{kernel_ms:.4f} ms, {nblocks / kernel_ms / 1e3:.3f} M "
-              f"blocks/s, {1e3 / kernel_ms:.1f} fps (search), "
-              f"{1e3 / total_ms:.1f} fps (total {total_ms:.4f} ms) | "
-              f"launches/frame {per_frame} | {card}")
 
     for metric, configs in (("mse", CONFIGS), ("ssim", SSIM_CONFIGS)):
         for label, h, w, blk, span in configs:

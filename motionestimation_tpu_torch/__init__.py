@@ -2,8 +2,8 @@
 
 The PyTorch port of `motionestimation_tpu`: the same full-search MSE, SAD
 and SSIM paths (search, compensation, PSNR or residual scores, the 5-frame
-stacked output) with the Pallas kernels of those paths rewritten as CUDA
-C++ kernels for sm_90a.
+stacked output, the GOP pipeline) with the Pallas kernels of those paths
+rewritten as CUDA C++ kernels for sm_90a.
 The JAX package stays the reference; this package imports neither it nor
 JAX.
 
@@ -15,7 +15,8 @@ Layering (bottom to top), mirroring the JAX package:
     metrics.cost     SSD/SAD cost helpers, the SSIM score
     search           plain-torch golden full search
     kernels          CUDA kernels (csrc/) with their plain versions beside them
-    pipeline         end-to-end frame-pair runner with CUDA-event timing
+    pipeline         the frame-pair runner with CUDA-event timing, and the
+                     GOP pipeline (pinned buffers, a copy stream, threads)
     cli              argv-compatible command-line driver
 """
 

@@ -3,7 +3,8 @@
     python -m motionestimation_tpu_torch.cli <current> <reference> <outdir> \
         [blkDim] [extraSpan] [frameWidth] [frameHeight] [--device cuda|cpu] \
         [--metric mse|sad|ssim] [--algorithm full|diamond] \
-        [--early-term THRESH] [--escape-policy canonical|crossover]
+        [--early-term THRESH] [--escape-policy canonical|crossover] \
+        [--gop F1 F2 ...] [--profile DIR]
 
 Stdout mirrors the reference binaries: the config echo block, then for
 MSE/SAD `PSNR: %.6f`, the output dimensions, `Computation time: %.0f ms`
@@ -12,31 +13,28 @@ Score: %.4f` and the output dimensions. `--timing-row` adds
 `total h2d kernel d2h psnr`. `--debug-block BY BX` prints one block's
 cost surface and winner as `[debug]` lines, from the golden search's cost
 volume. `--algorithm diamond` runs diamond search with `--early-term` and
-`--escape-policy`, as the JAX command line does. The run uses the CUDA
-card unless `--device cpu` is given; without CUDA the default raises.
-Options of the JAX command line that later slices of the port bring
-(`--gop`, `--profile`) raise NotImplementedError naming their ROADMAP.md
-item.
+`--escape-policy`, as the JAX command line does. `--gop F1 F2 ...`
+processes the frames pairwise with `runner.run_gop` (one `mv_%05d.npz`
+per pair in the output directory, existing dumps skipped) and prints
+`GOP: N frame pairs -> DIR`. `--profile DIR` records the pair run with
+`torch.profiler` (CUDA activity on the card) and writes a Chrome trace
+into DIR. The run uses the CUDA card unless `--device cpu` is given;
+without CUDA the default raises.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
+
+import torch
 
 from motionestimation_tpu_torch.core import frames as frames_lib
 from motionestimation_tpu_torch.core.config import SearchConfig
 from motionestimation_tpu_torch.core.device import resolve_device, to_tensor
 from motionestimation_tpu_torch.pipeline import runner
 from motionestimation_tpu_torch.search import full_search as fs
-
-# Named by their ROADMAP.md Queue 1 titles, which outlive renumbering.
-_LATER = {
-    "gop": "--gop arrives with the ROADMAP.md Queue 1 item \"GOP pipeline\"",
-    "profile": (
-        "--profile arrives with the ROADMAP.md Queue 1 item \"Main-path "
-        "bench and tracing\""
-    ),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,10 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
         "once its mean cost beats THRESH (MSE/SAD <=, SSIM >=)",
     )
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--gop", nargs="+", metavar="FRAME", default=None)
+    p.add_argument("--gop", nargs="+", metavar="FRAME", default=None,
+                   help="process a frame sequence pairwise")
     p.add_argument("--no-output", action="store_true")
     p.add_argument("--timing-row", action="store_true")
-    p.add_argument("--profile", metavar="DIR", default=None)
+    p.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="record the pair run with torch.profiler and write a Chrome "
+        "trace into DIR",
+    )
     p.add_argument(
         "--debug-block", nargs=2, type=int, metavar=("BY", "BX"), default=None
     )
@@ -101,11 +104,24 @@ def _print_debug_block(cur, ref, config: SearchConfig, by: int, bx: int,
     )
 
 
+@contextlib.contextmanager
+def _profiled(trace_dir, device):
+    """Record the block with `torch.profiler` (CPU, and CUDA on the card)
+    and write its Chrome trace into `trace_dir`; nothing when None."""
+    if trace_dir is None:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "run_pair.trace.json"))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for opt, message in _LATER.items():
-        if getattr(args, opt) is not None:
-            raise NotImplementedError(message)
     device = resolve_device(args.device)
     config = SearchConfig(
         blk_dim=args.blk_dim,
@@ -128,13 +144,21 @@ def main(argv=None) -> int:
     print(f"  FrameHeight: {config.frame_height}")
     print("]")
 
+    if args.gop:
+        dumps = runner.run_gop(
+            args.gop, config, output_dir=args.output_dir, device=device,
+        )
+        print(f"GOP: {len(dumps)} frame pairs -> {args.output_dir}")
+        return 0
+
     cur = frames_lib.load_yuv(
         args.current, config.frame_height, config.frame_width
     )
     ref = frames_lib.load_yuv(
         args.reference, config.frame_height, config.frame_width
     )
-    res = runner.run_pair(cur, ref, config, device=device)
+    with _profiled(args.profile, device):
+        res = runner.run_pair(cur, ref, config, device=device)
     if args.debug_block:
         _print_debug_block(cur, ref, config, *args.debug_block, device)
 

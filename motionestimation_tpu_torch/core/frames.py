@@ -2,7 +2,8 @@
 
 Reference semantics reproduced:
 
-* ``yuvReadFrame`` reads exactly H*W bytes from the start of the file.
+* ``yuvReadFrame`` reads exactly H*W bytes from the start of the file
+  (`load_yuv`, or `load_yuv_into` a caller's buffer).
 * ``yuvWriteFrame`` narrows int -> u8 with a plain C cast (modulo 256).
 * ``frameDiff`` is |a - b|.
 * ``imagePSNR`` uses the *observed* max pixel of either frame (not 255),
@@ -23,13 +24,24 @@ import numpy as np
 def load_yuv(path: str | os.PathLike, height: int, width: int) -> np.ndarray:
     """Read the first H*W bytes of a raw YUV file as a [H, W] uint8 plane
     (a writable array, so `torch.from_numpy` takes it without a copy)."""
-    out = np.empty((height, width), np.uint8)
+    return load_yuv_into(path, np.empty((height, width), np.uint8))
+
+
+def load_yuv_into(path: str | os.PathLike, out: np.ndarray) -> np.ndarray:
+    """`load_yuv` into a caller-owned [H, W] uint8 buffer (no allocation).
+
+    Same bytes as `load_yuv`; the GOP reader recycles a fixed pool of
+    (pinned) buffers through it, so no 4K frame pays for a fresh
+    allocation's page faults."""
+    if out.dtype != np.uint8 or out.ndim != 2 or not out.flags.c_contiguous:
+        raise ValueError("out must be a C-contiguous [H, W] uint8 array")
     with open(path, "rb") as f:
         got = f.readinto(out.reshape(-1))
     if got < out.size:
+        h, w = out.shape
         raise IOError(
-            f"{path}: expected at least {out.size} bytes for {width}x{height} "
-            f"luma, got {got}"
+            f"{path}: expected at least {out.size} bytes for {w}x{h} luma, "
+            f"got {got}"
         )
     return out
 

@@ -9,7 +9,9 @@ routes through the chunked and wide kernels (7x7, 24x24) its stack.
 `--algorithm diamond --early-term 40` on Foreman 16x16 +-7 must write the
 stack and `PSNR:` line of a host rebuild from JAX `diamond_search_np`, and
 diamond with `--escape-policy crossover` or `--metric ssim` the JAX CLI's
-stack and score lines.
+stack and score lines. `--gop` must write the JAX CLI's npz dumps, skip
+them on a second call and print the `GOP:` line; `--profile DIR` must
+write a trace there and leave stdout as it is.
 """
 import os
 
@@ -89,23 +91,88 @@ def test_cli_cpu_ssim_byte_exact(name, tmp_path, capsys):
     assert got.tobytes() == case.golden_stack.tobytes()
 
 
-@pytest.mark.parametrize(
-    "extra,match",
-    [
-        pytest.param(["--gop", "a.yuv", "b.yuv"], '"GOP pipeline"',
-                     id="extra2-GOP"),
-        pytest.param(["--profile", "trace"], '"Main-path bench and tracing"',
-                     id="extra4-bench"),
-    ],
-)
-def test_cli_later_slices_raise(extra, match, tmp_path):
-    """The message names a ROADMAP.md Queue 1 item by its title, and that
-    title is there."""
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["c.yuv", "r.yuv", str(tmp_path), "--device", "cpu", *extra])
-    roadmap = os.path.join(os.path.dirname(__file__), os.pardir, "ROADMAP.md")
-    with open(roadmap, encoding="utf-8") as f:
-        assert "**" + match.strip('"') in f.read()
+def _gop_frames(tmp_path):
+    """Foreman F1, F4, F1 as three files (planes 0 and 1 of a fixture)."""
+    stack = FixtureCase("foreman_mse_16_7").golden_stack
+    paths = []
+    for i, plane in enumerate((stack[0], stack[1], stack[0])):
+        plane.tofile(tmp_path / f"gop{i}.yuv")
+        paths.append(str(tmp_path / f"gop{i}.yuv"))
+    return paths
+
+
+def _gop_argv(paths, out, *extra):
+    return [paths[0], paths[0], str(out), "16", "7", "352", "288", *extra,
+            "--gop", *paths]
+
+
+def test_cli_gop_matches_jax(tmp_path):
+    """`--gop F1 F4 F1` at 16x16 +-7: the same npz dumps as the JAX CLI's
+    `--backend xla --gop`, key for key."""
+    paths = _gop_frames(tmp_path)
+    assert jax_cli.main(_gop_argv(paths, tmp_path / "jax", "--backend",
+                                  "xla")) == 0
+    assert cli.main(_gop_argv(paths, tmp_path / "port", "--device",
+                              "cpu")) == 0
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) == [
+        "mv_00000.npz", "mv_00001.npz"]
+    for name in names:
+        got = np.load(tmp_path / "port" / name)
+        want = np.load(tmp_path / "jax" / name)
+        assert sorted(got.files) == sorted(want.files)
+        for key in want.files:
+            assert got[key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_cli_gop_prints_the_gop_line(tmp_path, capsys):
+    """After the config echo, one `GOP: N frame pairs -> DIR` line and no
+    pair output."""
+    paths = _gop_frames(tmp_path)
+    out = tmp_path / "out"
+    assert cli.main(_gop_argv(paths, out, "--device", "cpu")) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1] == f"GOP: 2 frame pairs -> {out}"
+    assert lines[-2] == "]"
+    assert not any(line.startswith("PSNR") for line in lines)
+    assert sorted(os.listdir(out)) == ["mv_00000.npz", "mv_00001.npz"]
+
+
+def test_cli_gop_second_call_rewrites_nothing(tmp_path, capsys):
+    """Resume: a second identical call finds every dump and rewrites none,
+    and still reports every pair."""
+    paths = _gop_frames(tmp_path)
+    argv = _gop_argv(paths, tmp_path / "out", "--device", "cpu")
+    assert cli.main(argv) == 0
+    dumps = sorted((tmp_path / "out").iterdir())
+    mtimes = [p.stat().st_mtime_ns for p in dumps]
+    capsys.readouterr()
+    assert cli.main(argv) == 0
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "GOP: 2 frame pairs -> ")
+    assert [p.stat().st_mtime_ns for p in dumps] == mtimes
+
+
+def test_cli_profile_writes_a_trace(tmp_path, capsys):
+    """`--profile DIR` records the pair run with torch.profiler and writes
+    a non-empty Chrome trace into DIR; stdout is unchanged (SSIM prints no
+    timing line)."""
+    rng = np.random.default_rng(2)
+    ref = rng.integers(0, 256, (48, 64), dtype=np.uint8)
+    cur = np.roll(ref, (1, -2), (0, 1))
+    ref.tofile(tmp_path / "ref.yuv")
+    cur.tofile(tmp_path / "cur.yuv")
+    argv = [str(tmp_path / "cur.yuv"), str(tmp_path / "ref.yuv"),
+            str(tmp_path / "out"), "8", "2", "64", "48", "--metric", "ssim",
+            "--device", "cpu"]
+    assert cli.main(argv) == 0
+    plain = capsys.readouterr().out
+    assert cli.main(argv + ["--profile", str(tmp_path / "trace")]) == 0
+    assert capsys.readouterr().out == plain
+    traces = os.listdir(tmp_path / "trace")
+    assert traces
+    assert all(os.path.getsize(tmp_path / "trace" / t) > 0 for t in traces)
 
 
 def _debug_lines(stdout: str):
