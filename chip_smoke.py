@@ -95,7 +95,22 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    with and without its volume at 1080p 7x7 +-7; `run_pair` diamond
    beside full search on the config3 frames and on the adversarial frames
    (canonical and crossover), and the diamond replay alone.
-6. The speed-of-light tools' main path, counted: `vpu_peak.main()` (the
+6. The bench main path, counted: `python -m motionestimation_tpu_torch.bench`
+   -v 1, then -v 2, into a temp dir, with Foreman F4/F1 written from
+   planes 1 and 0 of the foreman_mse_8_12 fixture (Jockey and Beauty
+   synthetic): Foreman's PSNR 31.816000 and v2's PSNR column equal to v1's
+   (a timing flag between the two runs is a measurement, not a failure);
+   then the matrix (`bench/matrix.run_matrix`, every row printed with its
+   per-frame ms and its profiler pass: the search kernels' device ms and
+   names, launches, the row minus the kernels, the card's idle share and
+   the top host ops), config1 left out for want of ForemanYF2.yuv, each
+   row's first call held against the plain golden path on the card: the
+   full-search and SSIM rows' fields equal to the golden search's, the
+   diamond rows' fields (and, but for crossover, trajectories) equal to
+   the replay over the golden volume; then `bench_torch.main()`, whose
+   JSON line is printed, every number finite and `pct_of_roofline` in
+   (0, 100].
+7. The speed-of-light tools' main path, counted: `vpu_peak.main()` (the
    fma, mix and roll mixes of P1 and the P2 chain at the JAX tool's
    shapes) and `kern_lab.main()` on the lab's L2 ("P0", "P1") and L4
    ("P4", "P4S") variants at tile_h 64 and 128 (2048x2048 8x8 +-12, frames
@@ -107,7 +122,7 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    the same frames; T elem-ops/s at the tool's shapes and at card-filling
    sizes beside the FP32-lane floor (a rate above it fails: the compiler
    dropped work), and L2/L4 timed in turns beside K1.
-7. One JSON line listing the kernels and emit modes, the nvidia-smi
+8. One JSON line listing the kernels and emit modes, the nvidia-smi
    name/power-limit line, and as the last line {"ok": true, "device":
    {...}}.
 
@@ -121,6 +136,7 @@ import functools
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -171,18 +187,6 @@ REPLACES = {
     "me_lab_p6": "tools/kern_lab.py:898",
     "me_lab_p7": "tools/kern_lab.py:1044",
 }
-# An emit mode is listed apart from its kernel's search: "<launcher> (emit)".
-EMIT = " (emit)"
-# NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 ops/s, and
-# float32 outside the tensor cores.
-HBM_BYTES_S = 3.35e12
-INT8_OPS_S = 1979e12
-FP32_OPS_S = 67e12
-# Float operations of one SSIM score with the current block's terms
-# hoisted (metrics/cost.py ssim_from_sums): the reference mean (1), its
-# centred variance (8), the clamp and root (2), the cross-variance (1),
-# luminance (8), contrast (8), structure (4) and the product (2).
-SSIM_FLOPS = 34
 # (label, height, width, blk, span)
 CONFIGS = [
     ("4K 8x8 +-12", 2160, 3840, 8, 12),
@@ -311,14 +315,6 @@ def fail(message: str):
     raise RuntimeError(f"chip_smoke: {message}")
 
 
-def smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
-
-
 def synth(rng, h, w, texture=4, shift=(1, -2), noise=1):
     """The JAX bench's synthetic content (bench/matrix.py `_synth`):
     blocky texture plus Gaussian noise, the current frame moved by
@@ -341,43 +337,6 @@ def run_cli(cli, argv):
     if rc != 0:
         fail(f"cli.main returned {rc}")
     return buf.getvalue()
-
-
-def valid_candidates(h, w, blk, span, tile, origin):
-    """(pixel-candidates, block-candidates) a search of the tile's blocks
-    needs: for each block, (valid dy) x (valid dx), times its in-frame
-    pixels for the first."""
-    (th, tw), (y0, x0) = tile, origin
-
-    def axis(n, start, frame):
-        tl = start + np.arange(-(-n // blk)) * blk
-        ext = np.clip(frame - tl, 0, blk)
-        lo = np.maximum(-span, -tl)
-        hi = np.minimum(span, frame - ext - tl)
-        return np.maximum(hi - lo + 1, 0), ext
-
-    ny, ey = axis(th, y0, h)
-    nx, ex = axis(tw, x0, w)
-    return (int((ny * ey).sum()) * int((nx * ex).sum()),
-            int(ny.sum()) * int(nx.sum()))
-
-
-def bound(h, w, blk, span, tile, origin, ssim=False, volume=False):
-    """(bound_ms, bound_by): the largest of bytes read once / written once
-    (with `volume`, the 4-byte [K², nby, nbx] volume too) over the HBM rate,
-    2 integer ops (subtract or product, accumulate) per pixel-candidate
-    over the int8 peak and, for SSIM, SSIM_FLOPS per block-candidate over
-    the float32 rate."""
-    th, tw = tile
-    nby, nbx = -(-th // blk), -(-tw // blk)
-    nbytes = th * tw + (th + 2 * span) * (tw + 2 * span) + 2 * 4 * nby * nbx
-    if volume:
-        nbytes += 4 * (2 * span + 1) ** 2 * nby * nbx
-    pixel_cands, block_cands = valid_candidates(h, w, blk, span, tile, origin)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = max(2 * pixel_cands / INT8_OPS_S * 1e3,
-                SSIM_FLOPS * block_cands / FP32_OPS_S * 1e3 if ssim else 0.0)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def gop_frames(rng, n, h, w, content):
@@ -417,6 +376,7 @@ def gop_phase(work, seed, dev, card, counted, sync_errors, time_run_pair):
     `counted(expected, what)` zeroes every launch count and checks them
     after the block; `sync_errors()` makes a synchronising call raise."""
     from motionestimation_tpu_torch import cli
+    from motionestimation_tpu_torch.bench import measure
     from motionestimation_tpu_torch.core import frames as frames_lib
     from motionestimation_tpu_torch.core.config import SearchConfig
     from motionestimation_tpu_torch.pipeline import runner
@@ -534,35 +494,11 @@ def gop_phase(work, seed, dev, card, counted, sync_errors, time_run_pair):
     time_run_pair(f"run_pair at the GOP cell {label}", frames[1], frames[0],
                   config)
     frame_mb = h * w / 1e6
-    buf = np.empty((h, w), np.uint8)
-    disk = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for p in paths:
-            frames_lib.load_yuv_into(p, buf)
-        disk.append(n * frame_mb / (time.perf_counter() - t0))
-    pinned = [torch.empty((h, w), dtype=torch.uint8, pin_memory=True)
-              for _ in paths]
-    for p, b in zip(paths, pinned):
-        frames_lib.load_yuv_into(p, b.numpy())
-    staged = [torch.empty((h, w), dtype=torch.uint8, device=dev)
-              for _ in paths]
-    copy = torch.cuda.Stream(dev)
-    h2d = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(copy):
-            start.record(copy)
-            for b, d in zip(pinned, staged):
-                d.copy_(b, non_blocking=True)
-            end.record(copy)
-        end.synchronize()
-        h2d.append(n * frame_mb / (start.elapsed_time(end) / 1e3))
-    for i, (b, d) in enumerate(zip(pinned, staged)):
-        if not torch.equal(d.cpu(), b):
-            fail(f"pinned h2d: frame {i} arrived changed")
+    disk = [measure.disk_rate(paths, h, w) for _ in range(3)]
+    try:
+        h2d = [measure.h2d_rate(frames, dev, check=True) for _ in range(3)]
+    except ValueError as e:
+        fail(str(e))
     print(f"GOP {label} bracket: disk read (load_yuv_into, one recycled "
           f"buffer) best {max(disk):.1f} MB/s = {max(disk) / frame_mb:.1f} "
           f"frames/s (passes {[round(r, 1) for r in disk]}); pinned h2d on a "
@@ -570,7 +506,146 @@ def gop_phase(work, seed, dev, card, counted, sync_errors, time_run_pair):
           f"{max(h2d) / frame_mb:.1f} frames/s (passes "
           f"{[round(r, 1) for r in h2d]}); {n} frames of {frame_mb:.3f} MB | "
           f"{card}")
-    del pinned, staged
+
+
+def diamond_reference(best, volume, *, span, crossover, **kw):
+    """(field, trajectory or None, escaped or None): the canonical replay
+    over the golden volume, as `diamond_search_frame` must give it; with
+    `crossover`, the replay over the first staged level, the golden full
+    search's field (`best`) on the blocks that escape it."""
+    from motionestimation_tpu_torch.search import diamond
+
+    if not crossover:
+        want, want_traj, _ = diamond._replay(volume, span=span,
+                                             record_trajectory=True, **kw)
+        return want, want_traj, None
+    r, k = diamond._staged_levels(span)[0], 2 * span + 1
+    level = volume.view(k, k, *volume.shape[1:])[
+        span - r : span + r + 1, span - r : span + r + 1]
+    want, _, esc = diamond._replay(
+        level.reshape(-1, *volume.shape[1:]).contiguous(), span=r,
+        record_trajectory=False, track_escape=True, **kw)
+    return diamond._merge(esc, best, want), None, esc
+
+
+def equal_fields(got, want, what):
+    """Every field of two MotionFields equal, dtypes included."""
+    for name, a, b in zip(want._fields, got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"{what}: {name} differs from the plain golden path")
+
+
+def bench_phase(work, dev, card):
+    """The bench main path; see the module docstring."""
+    import bench_torch
+    from motionestimation_tpu_torch.bench import __main__ as bench_main
+    from motionestimation_tpu_torch.bench import matrix, regression
+    from motionestimation_tpu_torch.search import diamond
+    from motionestimation_tpu_torch.search import full_search as fs
+
+    frames_dir = os.path.join(work, "frames")
+    os.makedirs(frames_dir)
+    planes = np.fromfile(os.path.join(FIXTURES, "foreman_mse_8_12",
+                                      "output.yuv"), np.uint8)
+    planes = planes.reshape(5, 288, 352)
+    planes[1].tofile(os.path.join(frames_dir, "ForemanYF4.yuv"))
+    planes[0].tofile(os.path.join(frames_dir, "ForemanYF1.yuv"))
+    results = os.path.join(work, "results")
+    t0 = time.perf_counter()
+    for version in (1, 2):
+        print(f"== main path (bench -v {version}): python -m "
+              f"motionestimation_tpu_torch.bench -v {version} --frames-dir "
+              f"(Foreman F4/F1 from the fixture's planes; Jockey and Beauty "
+              f"synthetic)")
+        rc = bench_main.main(["-v", str(version), "--results-dir", results,
+                              "--frames-dir", frames_dir])
+        print(f"bench -v {version}: exit {rc}"
+              + (" (a timing flag between two back-to-back runs is a "
+                 "measurement)" if rc else ""))
+    v1, v2 = (regression.read_rows(results, v, 3) for v in (1, 2))
+    if f"{v1[0][4]:.6f}" != "31.816000":
+        fail(f"bench -v 1: Foreman PSNR {v1[0][4]:.6f}, expected 31.816000")
+    if [r[4] for r in v2] != [r[4] for r in v1]:
+        fail(f"bench: v2's PSNR column {[r[4] for r in v2]} differs from "
+             f"v1's {[r[4] for r in v1]}")
+    print(f"bench: Foreman PSNR 31.816000; v2's PSNR column equals v1's "
+          f"{[r[4] for r in v1]}; {time.perf_counter() - t0:.1f} s")
+
+    print("== main path (bench --matrix): run_matrix into a temp dir, each "
+          "row's first call held against the plain golden path on the card")
+    golden = {}  # the last (frames, metric, blk, span) -> (field, volume)
+
+    def check_row(row, cur, ref, field):
+        what = f"matrix {row.tag.split(':')[0]}"
+        if row.entry in ("full", "ssim"):
+            equal_fields(field, fs.full_search_frame(
+                cur, ref, blk_dim=row.blk, span=row.span, metric=row.metric),
+                what)
+            print(f"{what}: MVs, costs and scores equal the golden search's")
+            return
+        key = (row.frames, row.metric, row.blk, row.span)
+        if key not in golden:
+            golden.clear()
+            golden[key] = fs.full_search_frame(
+                cur, ref, blk_dim=row.blk, span=row.span, metric=row.metric,
+                return_cost_volume=True)
+        best, volume = golden[key]
+        h, w = cur.shape
+        kw = dict(blk_dim=row.blk, metric=row.metric,
+                  early_term=row.early_term,
+                  max_steps=diamond.default_max_steps(row.span),
+                  frame_height=h, frame_width=w)
+        crossover = row.escape_policy == "crossover"
+        want, want_traj, esc = diamond_reference(
+            best, volume, span=row.span, crossover=crossover, **kw)
+        equal_fields(field, want, what)
+        if crossover:
+            if not esc.any():
+                fail(f"{what}: no block escaped the first level")
+            print(f"{what}: MVs and costs equal the replay over the golden "
+                  f"volume, the golden search's on the {int(esc.sum())} "
+                  f"escaped blocks")
+            return
+        _, traj = diamond.diamond_search_frame(
+            cur, ref, blk_dim=row.blk, span=row.span, metric=row.metric,
+            early_term=row.early_term, record_trajectory=True,
+            volume_mode={"staged": "staged", "lazy": "lazy",
+                         "volume": "full"}[row.entry], device=dev)
+        if not torch.equal(traj, want_traj):
+            fail(f"{what}: trajectory differs from the replay over the golden "
+                 f"volume")
+        print(f"{what}: MVs, costs or scores and trajectories equal the "
+              f"replay over the golden volume")
+
+    out_dir = os.path.join(work, "matrix")
+    t0 = time.perf_counter()
+    matrix.run_matrix(1, out_dir, frames_dir=frames_dir, device=dev,
+                      on_first=check_row)
+    with open(os.path.join(out_dir, "v1.txt")) as f:
+        text = f.read()
+    rows = dict(re.findall(r"\[ (.+?) \]\nkernel ([\d.]+) ms", text))
+    want_tags = [t for t in matrix.TAGS if not t.startswith("config1:")]
+    if list(rows) != want_tags:
+        fail(f"matrix: rows {list(rows)}, expected {want_tags}")
+    if not all(0 < float(v) < float("inf") for v in rows.values()):
+        fail(f"matrix: a row is not a positive time: {rows}")
+    print(f"matrix: {len(rows)} rows of {len(matrix.TAGS)} (config1 left out: "
+          f"no ForemanYF2.yuv), {time.perf_counter() - t0:.1f} s | {card}")
+
+    print("== main path (bench_torch.main())")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_torch.main([])
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(line)
+    result = json.loads(line)
+    numbers = [v for v in result.values() if isinstance(v, (int, float))]
+    if rc or not all(np.isfinite(numbers)):
+        fail(f"bench_torch: exit {rc} or a number that is not finite")
+    if not 0 < result["pct_of_roofline"] <= 100:
+        fail(f"bench_torch: pct_of_roofline {result['pct_of_roofline']}")
+    print(f"bench_torch: {time.perf_counter() - t0:.1f} s")
 
 
 def check_stack(out_dir, cur, ref, field, blk, span, label, frames_lib):
@@ -596,6 +671,9 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from motionestimation_tpu_torch import cli
+    from motionestimation_tpu_torch.bench import measure
+    from motionestimation_tpu_torch.bench.roofline import bound
+    from motionestimation_tpu_torch.bench.roofline import valid_candidates
     from motionestimation_tpu_torch.core import frames as frames_lib
     from motionestimation_tpu_torch.core.config import SearchConfig
     from motionestimation_tpu_torch.kernels import _build
@@ -612,9 +690,9 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    card = smi("name,power.limit")
+    card = measure.card()
     props = torch.cuda.get_device_properties(0)
-    max_clock_mhz = float(smi("clocks.max.sm").split()[0])
+    max_clock_mhz = float(measure.smi("clocks.max.sm").split()[0])
     nvcc_version = subprocess.run(
         [_build.nvcc(), "--version"], capture_output=True, text=True,
         check=True,
@@ -674,27 +752,14 @@ def main(argv=None) -> int:
               f"{occ['blocks_per_sm']} CUDA blocks ({occ['warps_per_sm']} "
               f"warps) resident per SM")
     # name -> (wrapper, counter): a kernel's launches, and its emit mode's
-    # launches (the launches with a volume) apart.
-    counters = {"me_phase_search": kc.phase_search,
-                "me_int_search": kc.int_search,
-                "me_ssim_fast_search": sc.ssim_fast_search,
-                "me_ssim_search": sc.ssim_search,
-                "me_chunked_search": kc.chunked_search,
-                "me_chunked_u8_search": kc.chunked_u8_search,
-                "me_wide_search": kc.wide_search,
-                "me_lab_peak": lab.lab_peak,
-                "me_lab_chain": lab.lab_chain,
-                "me_lab_phase": lab.lab_phase,
-                "me_lab_diff": lab.lab_diff,
-                "me_lab_padded": lab.lab_padded,
-                "me_lab_p3": lab.lab_p3,
-                "me_lab_p5": lab.lab_p5,
-                "me_lab_p6": lab.lab_p6,
-                "me_lab_p7": lab.lab_p7}
-    counters = {name: (fn, "launches") for name, fn in counters.items()}
-    for name in ("me_phase_search", "me_int_search", "me_chunked_search",
-                 "me_ssim_fast_search", "me_ssim_search"):
-        counters[name + EMIT] = (counters[name][0], "volume_launches")
+    # launches (the launches with a volume) apart as "<launcher> (emit)".
+    EMIT = measure.EMIT
+    counters = measure.counters({
+        **measure.WRAPPERS, "me_lab_peak": lab.lab_peak,
+        "me_lab_chain": lab.lab_chain, "me_lab_phase": lab.lab_phase,
+        "me_lab_diff": lab.lab_diff, "me_lab_padded": lab.lab_padded,
+        "me_lab_p3": lab.lab_p3, "me_lab_p5": lab.lab_p5,
+        "me_lab_p6": lab.lab_p6, "me_lab_p7": lab.lab_p7})
     mse_kernels = ("me_phase_search", "me_int_search")
     ssim_kernels = ("me_ssim_fast_search", "me_ssim_search")
 
@@ -940,7 +1005,6 @@ def main(argv=None) -> int:
     contents = {"config3": synth(rng, h, w),
                 "adversarial": synth(rng, h, w, shift=(14, -14), noise=2)}
     levels = diamond._staged_levels(span)
-    k = 2 * span + 1
     golden = {}  # (content, metric) -> (golden field, golden volume)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
         for name, (cur, ref) in contents.items():
@@ -981,20 +1045,13 @@ def main(argv=None) -> int:
                 float(extra[1]) if "--early-term" in extra else None),
                 max_steps=diamond.default_max_steps(span),
                 frame_height=h, frame_width=w)
-            want, want_traj, _ = diamond._replay(
-                volume, span=span, record_trajectory=not crossover, **kw)
+            want, want_traj, esc = diamond_reference(
+                best, volume, span=span, crossover=crossover, **kw)
             if crossover:
-                r = levels[0]
-                level = volume.view(k, k, *volume.shape[1:])[
-                    span - r : span + r + 1, span - r : span + r + 1]
-                want, _, esc = diamond._replay(
-                    level.reshape(-1, *volume.shape[1:]).contiguous(),
-                    span=r, record_trajectory=False, track_escape=True, **kw)
                 print(f"  crossover: {int(esc.sum())} of {esc.numel()} "
-                      f"blocks escape level {r}")
+                      f"blocks escape level {levels[0]}")
                 if not esc.any():
                     fail("diamond crossover: no block escaped level 1")
-                want = diamond._merge(esc, best, want)
             got = diamond.diamond_search_frame(
                 cur, ref, blk_dim=blk, span=span, metric=metric,
                 early_term=kw["early_term"],
@@ -1534,7 +1591,17 @@ def main(argv=None) -> int:
               f"{bound(*geo, ssim=fn is not kc.int_search, volume=True)[0]:.6f}"
               f" ms | {card}")
 
-    # -- 6. the speed-of-light tools ----------------------------------------
+    # -- 6. the bench main path ---------------------------------------------
+    t_bench = time.perf_counter()
+    bench_kernels = [n + e for n in mse_kernels + ssim_kernels
+                     for e in ("", EMIT)]
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        bench_phase(work, dev, card)
+    read_counts(bench_kernels, "main path (bench)")
+    print(f"bench phase: {time.perf_counter() - t_bench:.1f} s")
+
+    # -- 7. the speed-of-light tools ----------------------------------------
     print(f"== main path (speed-of-light tools): vpu_peak.main() and "
           f"kern_lab.main({' '.join(LAB_SPECS + NEW_SPECS)}) ({card}; "
           f"{time.perf_counter() - t_start:.1f} s in)")
@@ -1776,7 +1843,7 @@ def main(argv=None) -> int:
     print(f"speed-of-light tools phase: "
           f"{time.perf_counter() - t_tools:.1f} s")
 
-    # -- 7. the kernels line ----------------------------------------------
+    # -- 8. the kernels line ----------------------------------------------
     kernels = []
     for name, (fn, plain, fargs, fkw, geo) in shapes.items():
         base = name.removesuffix(EMIT)
