@@ -58,7 +58,29 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    33 files and over them thrice (97 frames), which splits the wall into
    a cost per call and one per pair; `run_pair` at that cell, and the two
    rates that bracket the pipeline on the same 33 files: disk reads into
-   one recycled buffer and pinned h2d on a copy stream alone.
+   one recycled buffer and pinned h2d on a copy stream alone. Then the
+   sharded main path on meshes whose slots are all this one card (the
+   halo exchange then copies on the card; no process crosses a card):
+   `sharded_full_search` on a (1, 2, 2) mesh at 3840x2160 8x8 +-12 MSE
+   (the phase kernel once a tile), 1920x1080 16x16 +-15 MSE (and the int
+   kernel on the two tiles that hold the truncated block row) and SSIM
+   (the fast and truncated-extent SSIM kernels), on a (1, 1, 4) mesh at
+   3840x2160 7x7 +-15 SAD (the int kernel once a tile), and on a (1, 2, 4)
+   mesh at 130x100 8x8 +-60 (halos of two hops on both axes), each with
+   exactly those launches, no plain search (no call of
+   `make_displacement_cost`) and MVs, costs and compensated frame equal to
+   the unsharded frame entry's; `sharded_motion_step(algorithm="diamond")`
+   on the config3 frames, MSE and MSE `early_term=2.0`, on the phase and
+   int kernels' emit modes alone, equal to `diamond_search_frame`'s; and
+   `run_gop_sharded` over the 4K GOP on (1, 2, 2) meshes, pipelined and
+   per pair, a (2, 1, 1) mesh ("dp" batching) and, after
+   `distributed_init` of a NCCL process group of one, pipelined again:
+   one phase-kernel launch a tile and pair, every dump equal to
+   `run_gop`'s on every key, and a second call rewriting nothing. Timed
+   (tiling overhead on one card, not scaling): `sharded_full_search` at 4K
+   8x8 +-12 on (1, 1, 1) and (1, 2, 2) meshes beside
+   `full_search_frame_cuda`, frames on the card, and the pairs/s of
+   `run_gop_sharded` beside `run_gop`'s over the 4K GOP.
 4. Each kernel and emit mode against its plain PyTorch version on the
    card at full size (tolerance: exact equality of every int32 cost, index
    and volume entry, and of every float32 SSIM score and -inf: kernel and
@@ -374,7 +396,8 @@ def check_gop_dump(path, pair, metric, what):
 def gop_phase(work, seed, dev, card, counted, sync_errors, time_run_pair):
     """The GOP main path (checks) and its timing; see the module docstring.
     `counted(expected, what)` zeroes every launch count and checks them
-    after the block; `sync_errors()` makes a synchronising call raise."""
+    after the block; `sync_errors()` makes a synchronising call raise.
+    Returns the 4K GOP's frame paths, its dump directory and its config."""
     from motionestimation_tpu_torch import cli
     from motionestimation_tpu_torch.bench import measure
     from motionestimation_tpu_torch.core import frames as frames_lib
@@ -506,6 +529,264 @@ def gop_phase(work, seed, dev, card, counted, sync_errors, time_run_pair):
           f"{max(h2d) / frame_mb:.1f} frames/s (passes "
           f"{[round(r, 1) for r in h2d]}); {n} frames of {frame_mb:.3f} MB | "
           f"{card}")
+    return paths, out_dir, config
+
+
+# The sharded main path on slot meshes of the one card, (label, mesh (dp,
+# ty, tx), height, width, blk, span, metric, launches a frame: once a tile,
+# and the truncated-edge kernel on the tiles that hold the frame's last
+# block row or column).
+SHARDED_RUNS = [
+    ("4K 8x8 +-12 mse", (1, 2, 2), 2160, 3840, 8, 12, "mse",
+     {"me_phase_search": 4}),
+    ("1080p 16x16 +-15 mse", (1, 2, 2), 1080, 1920, 16, 15, "mse",
+     {"me_phase_search": 4, "me_int_search": 2}),
+    ("1080p 16x16 +-15 ssim", (1, 2, 2), 1080, 1920, 16, 15, "ssim",
+     {"me_ssim_fast_search": 4, "me_ssim_search": 2}),
+    ("4K 7x7 +-15 sad", (1, 1, 4), 2160, 3840, 7, 15, "sad",
+     {"me_int_search": 4}),
+    # span 60 > the 40-column and 56-row tiles: two hops on each axis; the
+    # bottom row of tiles holds the truncated block row, the right column
+    # of tiles the truncated block column.
+    ("multi-hop 130x100 8x8 +-60 mse", (1, 2, 4), 100, 130, 8, 60, "mse",
+     {"me_phase_search": 8, "me_int_search": 6}),
+]
+# run_gop_sharded over the GOP phase's 4K GOP: (label, mesh, pipelined,
+# launches a pair).
+SHARDED_GOPS = [
+    ("(1, 2, 2) pipelined", (1, 2, 2), True, 4),
+    ("(1, 2, 2) per pair", (1, 2, 2), False, 4),
+    ("(2, 1, 1) dp batching", (2, 1, 1), "auto", 1),
+]
+
+
+@contextlib.contextmanager
+def no_plain_path(what):
+    """Fails if the block runs a plain search: every plain version (the
+    kernels', the golden tile search and volume) evaluates its costs through
+    `search.full_search.make_displacement_cost`."""
+    from motionestimation_tpu_torch.search import full_search as fs
+
+    calls = [0]
+    real = fs.make_displacement_cost
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    fs.make_displacement_cost = counting
+    try:
+        yield
+    finally:
+        fs.make_displacement_cost = real
+    if calls[0]:
+        fail(f"{what}: the plain path ran {calls[0]} times")
+
+
+def check_dumps(got, want, what):
+    """Every key of every dump equal to the other set's, dtypes included."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} dumps, expected {len(want)}")
+    for a, b in zip(got, want):
+        za, zb = np.load(a), np.load(b)
+        if sorted(za.files) != sorted(zb.files) or not all(
+                za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k])
+                for k in zb.files):
+            fail(f"{what}: {os.path.basename(a)} differs from run_gop's")
+
+
+def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
+                  reset_counts, counts):
+    """The sharded main path on slot meshes of the card (checks) and the
+    overhead of tiling on one card; see the module docstring. `gop` is the
+    GOP phase's (frame paths, run_gop dump directory, config), `pairs` the
+    main path's frames by (height, width), `diamond_pair` the config3
+    frames; `counted` as in `gop_phase`, `reset_counts()` sets every launch
+    count to 0 and `counts()` returns the counts above 0 by name."""
+    from motionestimation_tpu_torch.bench.measure import EMIT
+    from motionestimation_tpu_torch.kernels import full_search_cuda as kc
+    from motionestimation_tpu_torch.kernels import ssim_cuda as sc
+    from motionestimation_tpu_torch.parallel import ingest, make_mesh
+    from motionestimation_tpu_torch.parallel import sharded
+    from motionestimation_tpu_torch.pipeline import runner
+    from motionestimation_tpu_torch.search import diamond
+    from motionestimation_tpu_torch.search import full_search as fs
+
+    def mesh_of(shape):
+        return make_mesh(*shape, devices=[dev] * int(np.prod(shape)))
+
+    def same(got, want, what):
+        for name, a, b in zip(("mv_y", "mv_x", "cost", "comp"), got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"{what}: {name} differs from the unsharded path")
+
+    for label, shape, h, w, blk, span, metric, per_frame in SHARDED_RUNS:
+        if label.startswith("multi-hop"):
+            rng = np.random.default_rng(h + w + span)
+            ref = rng.integers(0, 256, (h, w), dtype=np.uint8)
+            cur = np.clip(np.roll(ref, (5, -9), (0, 1)).astype(np.int32)
+                          + rng.integers(-3, 4, (h, w)), 0, 255
+                          ).astype(np.uint8)
+        else:
+            cur, ref = pairs[h, w]
+        mesh = mesh_of(shape)
+        print(f"== main path (sharded {label}): sharded_full_search on a "
+              f"{shape} mesh of {dev} slots")
+        with counted(per_frame, f"sharded {label}"), \
+                no_plain_path(f"sharded {label}"):
+            got = sharded.sharded_full_search(cur, ref, mesh=mesh,
+                                              blk_dim=blk, span=span,
+                                              metric=metric)
+            torch.cuda.synchronize()
+        if metric == "ssim":
+            want = sc.ssim_search_frame_cuda(cur, ref, blk_dim=blk,
+                                             span=span, device=dev)
+            cost = want.score
+        else:
+            want = kc.full_search_frame_cuda(cur, ref, blk_dim=blk,
+                                             span=span, metric=metric,
+                                             device=dev)
+            cost = want.best_cost_i32
+        comp = fs.compensate_frame(torch.from_numpy(ref).to(dev), want,
+                                   frame_height=h, frame_width=w,
+                                   blk_dim=blk, span=span)
+        same(got, (want.mv_y, want.mv_x, cost, comp), f"sharded {label}")
+        print(f"sharded {label}: MVs, costs and compensated frame equal the "
+              f"unsharded frame entry's")
+
+    h, w, blk, span = DIAMOND
+    cur, ref = diamond_pair
+    for early_term in (None, 2.0):
+        label = f"diamond mse{'' if early_term is None else ' early-term 2.0'}"
+        print(f"== main path (sharded {label}): sharded_motion_step "
+              f"algorithm='diamond' at {w}x{h} {blk}x{blk} +-{span} on "
+              f"config3 content, (1, 2, 2) mesh of {dev} slots")
+        kernels = ("me_phase_search", "me_int_search")
+        reset_counts()
+        with no_plain_path(f"sharded {label}"):
+            res = sharded.sharded_motion_step(
+                cur[None], ref[None], mesh=mesh_of((1, 2, 2)), blk_dim=blk,
+                span=span, frame_height=h, frame_width=w,
+                algorithm="diamond", early_term=early_term)
+            torch.cuda.synchronize()
+        got = counts()
+        print(f"sharded {label} launches: {got}")
+        if set(got) != {n + e for n in kernels for e in ("", EMIT)} or any(
+                got[n] != got[n + EMIT] for n in kernels):
+            fail(f"sharded {label}: launches {got}, expected the phase and "
+                 f"int kernels' emit modes alone")
+        want = diamond.diamond_search_frame(cur, ref, blk_dim=blk, span=span,
+                                            early_term=early_term, device=dev)
+        nby, nbx = want.mv_y.shape
+        comp = fs.compensate_frame(torch.from_numpy(ref).to(dev), want,
+                                   frame_height=h, frame_width=w,
+                                   blk_dim=blk, span=span)
+        same((res.mv_y[0, :nby, :nbx], res.mv_x[0, :nby, :nbx],
+              res.best_cost[0, :nby, :nbx], res.comp[0, :h, :w]),
+             (want.mv_y, want.mv_x, want.best_cost_i32, comp),
+             f"sharded {label}")
+        print(f"sharded {label}: MVs, costs and compensated frame equal "
+              f"diamond_search_frame's")
+
+    paths, gop_dir, config = gop
+    want = sorted(os.path.join(gop_dir, p) for p in os.listdir(gop_dir))
+    pairs_n = len(paths) - 1
+    runs = [(label, shape, pipelined, per_pair, None)
+            for label, shape, pipelined, per_pair in SHARDED_GOPS]
+    runs.append(("(1, 2, 2) pipelined, NCCL process group of one",
+                 (1, 2, 2), True, 4, "nccl"))
+    for label, shape, pipelined, per_pair, backend in runs:
+        print(f"== main path (sharded GOP {label}): run_gop_sharded over the "
+              f"{len(paths)}-frame {config.frame_width}x"
+              f"{config.frame_height} {config.blk_dim}x{config.blk_dim} "
+              f"+-{config.span} GOP")
+        if backend:
+            ingest.distributed_init(f"localhost:{free_port()}", 1, 0,
+                                    backend=backend)
+        try:
+            mesh = mesh_of(shape)
+            out_dir = os.path.join(work, "sharded_" + re.sub(r"\W+", "_",
+                                                              label))
+            with counted({"me_phase_search": per_pair * pairs_n},
+                         f"sharded GOP {label}"), \
+                    no_plain_path(f"sharded GOP {label}"):
+                got = runner.run_gop_sharded(paths, config, mesh=mesh,
+                                             output_dir=out_dir,
+                                             pipelined=pipelined)
+            check_dumps(got, want, f"sharded GOP {label}")
+            mtimes = [os.stat(p).st_mtime_ns for p in got]
+            with counted({}, f"sharded GOP {label}, resumed"):
+                runner.run_gop_sharded(paths, config, mesh=mesh,
+                                       output_dir=out_dir,
+                                       pipelined=pipelined)
+            if [os.stat(p).st_mtime_ns for p in got] != mtimes:
+                fail(f"sharded GOP {label}: a second call rewrote a dump")
+        finally:
+            if backend:
+                torch.distributed.destroy_process_group()
+        print(f"sharded GOP {label}: {pairs_n} dumps equal run_gop's on "
+              f"every key; a second call rewrote nothing")
+
+    # -- the overhead of tiling on one card --------------------------------
+    label, _, h, w, blk, span, _, _ = SHARDED_RUNS[0]
+    cur_d, ref_d = (torch.from_numpy(x).to(dev) for x in pairs[h, w])
+    fns = {"full_search_frame_cuda": lambda: kc.full_search_frame_cuda(
+        cur_d, ref_d, blk_dim=blk, span=span, device=dev)}
+    for shape in ((1, 1, 1), (1, 2, 2)):
+        fns[f"sharded_full_search {shape}"] = (
+            lambda m=mesh_of(shape): sharded.sharded_full_search(
+                cur_d, ref_d, mesh=m, blk_dim=blk, span=span))
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        for _ in range(3):
+            fn()  # warm-up
+    for _ in range(10):
+        for name in [*fns, *reversed(fns)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"sharded timing at {label} (frames on the card; host clock around "
+          f"each call and a synchronize, 20 calls each in turns; one card: "
+          f"tiling overhead, not scaling):")
+    for name, ts in times.items():
+        print(f"  {name}: median {statistics.median(ts):.4f} ms a frame "
+              f"(min {min(ts):.4f}, max {max(ts):.4f}) | {card}")
+    gop_fns = {"run_gop": lambda d: runner.run_gop(
+        paths, config, output_dir=d, device=dev, resume=False)}
+    for glabel, shape, pipelined in (("(1, 1, 1) pipelined", (1, 1, 1),
+                                      True),
+                                     ("(1, 2, 2) pipelined", (1, 2, 2),
+                                      True),
+                                     ("(1, 2, 2) per pair", (1, 2, 2),
+                                      False)):
+        gop_fns[f"run_gop_sharded {glabel}"] = (
+            lambda d, m=mesh_of(shape), p=pipelined: runner.run_gop_sharded(
+                paths, config, mesh=m, output_dir=d, resume=False,
+                pipelined=p))
+    timed_dir = os.path.join(work, "sharded_timed")
+    for name, fn in gop_fns.items():
+        fn(timed_dir)  # warm-up
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(timed_dir)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"  {name} over {pairs_n} pairs: best of 3 "
+              f"{pairs_n / min(walls):.2f} pairs/s (runs "
+              f"{[round(pairs_n / t, 2) for t in walls]}, resume=False, after "
+              f"one warm-up) | {card}")
+
+
+def free_port() -> int:
+    """A free TCP port on this machine, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def diamond_reference(best, volume, *, span, crossover, **kw):
@@ -1078,9 +1359,15 @@ def main(argv=None) -> int:
     # -- the GOP main path ----------------------------------------------------
     t_gop = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
-        gop_phase(work, args.seed, dev, card, counted, sync_errors,
-                  time_run_pair)
-    print(f"GOP phase: {time.perf_counter() - t_gop:.1f} s")
+        gop = gop_phase(work, args.seed, dev, card, counted, sync_errors,
+                        time_run_pair)
+        print(f"GOP phase: {time.perf_counter() - t_gop:.1f} s")
+        t_sharded = time.perf_counter()
+        sharded_phase(work, gop, pairs, contents["config3"], dev, card,
+                      counted, reset_counts,
+                      lambda: {n: launches(n) for n in counters
+                               if launches(n)})
+        print(f"sharded phase: {time.perf_counter() - t_sharded:.1f} s")
 
     # -- 4. each kernel against its plain version on the card -------------
     print("== kernels vs their plain versions on the card (exact)")

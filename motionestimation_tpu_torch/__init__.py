@@ -3,7 +3,8 @@
 The PyTorch port of `motionestimation_tpu`: the same full-search MSE, SAD
 and SSIM paths (search, compensation, PSNR or residual scores, the 5-frame
 stacked output, the GOP pipeline) with the Pallas kernels of those paths
-rewritten as CUDA C++ kernels for sm_90a.
+rewritten as CUDA C++ kernels for sm_90a, and the sharded path over a
+mesh of devices.
 The JAX package stays the reference; this package imports neither it nor
 JAX.
 
@@ -15,8 +16,11 @@ Layering (bottom to top), mirroring the JAX package:
     metrics.cost     SSD/SAD cost helpers, the SSIM score
     search           plain-torch golden full search
     kernels          CUDA kernels (csrc/) with their plain versions beside them
-    pipeline         the frame-pair runner with CUDA-event timing, and the
+    parallel         meshes of devices, halo exchange, the sharded step
+                     and ingest (torch.distributed across processes)
+    pipeline         the frame-pair runner with CUDA-event timing, the
                      GOP pipeline (pinned buffers, a copy stream, threads)
+                     and the sharded GOP
     cli              argv-compatible command-line driver
 """
 

@@ -46,6 +46,28 @@ def load_yuv_into(path: str | os.PathLike, out: np.ndarray) -> np.ndarray:
     return out
 
 
+def load_yuv_rows(path: str | os.PathLike, height: int, width: int,
+                  row_lo: int, row_hi: int) -> np.ndarray:
+    """Rows [row_lo, row_hi) of a [height, width] luma plane, as a [rows,
+    width] uint8 array: one seek and one read, so a process of a sharded
+    run reads only the rows its mesh slots own
+    (`parallel.ingest.local_row_range`). Raises on a short file."""
+    if not 0 <= row_lo <= row_hi <= height:
+        raise ValueError(
+            f"row range [{row_lo}, {row_hi}) outside [0, {height}]")
+    out = np.empty((row_hi - row_lo, width), np.uint8)
+    if not out.size:
+        return out
+    with open(path, "rb") as f:
+        f.seek(row_lo * width)
+        got = f.readinto(out.reshape(-1))
+    if got < out.size:
+        raise IOError(
+            f"{path}: expected {out.size} bytes for rows [{row_lo}, "
+            f"{row_hi}) of {width}x{height} luma, got {got}")
+    return out
+
+
 def save_yuv(path: str | os.PathLike, frame: np.ndarray) -> None:
     """Write an integer frame as raw u8 bytes (C-cast narrowing)."""
     data = np.asarray(frame)

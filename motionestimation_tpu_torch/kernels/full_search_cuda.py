@@ -27,6 +27,13 @@ The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`:
 * `full_search_volume_cuda` (the port of `full_search_volume_pallas`,
   :1796) returns the whole-frame [K², nby, nbx] cost volume from emit
   modes alone.
+* `full_search_tile_cuda` and `full_search_volume_tile_cuda` (the ports of
+  `full_search_tile_pallas`, :1621, and `full_search_volume_tile_pallas`,
+  :1703) search one mesh shard's tile at its global origin with the same
+  kernels (`shard_tile`): the interior kernel on the tile's whole in-frame
+  blocks, the int kernel on the frame's truncated last block row and
+  column where they cross the tile, and nothing on blocks wholly in the
+  mesh's padding.
 
 Beside the kernels stands their plain PyTorch version, `search_plain`,
 built on `search.full_search.make_displacement_cost` over the same inputs
@@ -499,31 +506,44 @@ def right_slab(cur, ref_halo, blk_dim: int, span: int):
             x_org)
 
 
-def _edge_slab_bottom(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
-                      return_volume: bool = False):
-    """Exact search of the last (truncated) block row: `int_search` on the
-    slab of rows [y_org, H) (the port of `_edge_slab_bottom`, :1953).
-    Returns [1, nbx] block grids (and a [K², 1, nbx] volume)."""
-    cur_s, halo_s, y_org = bottom_slab(cur, ref_halo, blk_dim, span)
+def frame_of(cur, frame_height, frame_width):
+    """(frame_height, frame_width), each defaulting to `cur`'s extent: an
+    edge slab's frame is its whole-frame operand unless a tile names its
+    global frame."""
     h, w = cur.shape
+    return (h if frame_height is None else frame_height,
+            w if frame_width is None else frame_width)
+
+
+def _edge_slab_bottom(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
+                      return_volume: bool = False, frame_height=None,
+                      frame_width=None, y_origin: int = 0, x_origin: int = 0):
+    """Exact search of the last (truncated) block row: `int_search` on the
+    slab of rows [y_org, H) (the port of `_edge_slab_bottom`, :1953), of
+    the whole frame `cur` or of a tile at (y_origin, x_origin) of a larger
+    frame. Returns [1, nbx] block grids (and a [K², 1, nbx] volume)."""
+    cur_s, halo_s, y_org = bottom_slab(cur, ref_halo, blk_dim, span)
+    h, w = frame_of(cur, frame_height, frame_width)
     return int_search(
         cur_s, halo_s, blk_dim=blk_dim, span=span, metric=metric,
-        frame_height=h, frame_width=w, y_origin=y_org,
-        return_volume=return_volume,
+        frame_height=h, frame_width=w, y_origin=y_origin + y_org,
+        x_origin=x_origin, return_volume=return_volume,
     )
 
 
 def _edge_slab_right(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
-                     return_volume: bool = False):
+                     return_volume: bool = False, frame_height=None,
+                     frame_width=None, y_origin: int = 0, x_origin: int = 0):
     """Exact search of the last (truncated) block column: `int_search` on
     the slab of columns [x_org, W) (the port of `_edge_slab_right`,
-    :1985). Returns [nby, 1] block grids (and a [K², nby, 1] volume)."""
+    :1985), of the whole frame or of a tile as `_edge_slab_bottom`.
+    Returns [nby, 1] block grids (and a [K², nby, 1] volume)."""
     cur_s, halo_s, x_org = right_slab(cur, ref_halo, blk_dim, span)
-    h, w = cur.shape
+    h, w = frame_of(cur, frame_height, frame_width)
     return int_search(
         cur_s, halo_s, blk_dim=blk_dim, span=span, metric=metric,
-        frame_height=h, frame_width=w, x_origin=x_org,
-        return_volume=return_volume,
+        frame_height=h, frame_width=w, y_origin=y_origin,
+        x_origin=x_origin + x_org, return_volume=return_volume,
     )
 
 
@@ -553,20 +573,31 @@ def frame_operands(cur, ref, span: int, device: torch.device):
 
 
 def search_interior_and_edges(cur, ref_halo, interior, edge_bottom,
-                              edge_right, *, blk_dim: int, span: int, **kw):
+                              edge_right, *, blk_dim: int, span: int,
+                              frame_height=None, frame_width=None,
+                              y_origin: int = 0, x_origin: int = 0, **kw):
     """The results of a whole frame, each [..., nby, nbx]: `interior` on its
     whole blocks, then `edge_bottom` on the truncated last block row and
     `edge_right` on the truncated last block column, which overwrites the
     corner, as the JAX frame functions merge their result grids
     (full_search_pallas.py:1595-1608, ssim_pallas.py:661-676) and volumes
     (:1922-1949, ssim_pallas.py:852-874). With `return_volume=True` in `kw`
-    the last result is the [K², nby, nbx] volume."""
+    the last result is the [K², nby, nbx] volume.
+
+    `cur` may also be the in-frame part of a shard tile at (y_origin,
+    x_origin), block-aligned, of a frame_height x frame_width frame: its
+    rows and columns then end at the tile's edge or at the frame's, and
+    only a tile that holds the frame's last block row or column has a
+    truncated one."""
+    frame = frame_of(cur, frame_height, frame_width)
     h, w = cur.shape
     nby, nbx = geometry.grid_shape(h, w, blk_dim)
     nyf, nxf = h // blk_dim, w // blk_dim
+    where = dict(frame_height=frame[0], frame_width=frame[1],
+                 y_origin=y_origin, x_origin=x_origin)
     inner = interior(
         cur[: nyf * blk_dim, : nxf * blk_dim], ref_halo, blk_dim=blk_dim,
-        span=span, frame_height=h, frame_width=w, **kw,
+        span=span, **where, **kw,
     )
     if (nyf, nxf) == (nby, nbx):
         return list(inner)
@@ -576,11 +607,11 @@ def search_interior_and_edges(cur, ref_halo, interior, edge_bottom,
         o[..., :nyf, :nxf] = g
     if h % blk_dim:
         for o, g in zip(out, edge_bottom(cur, ref_halo, blk_dim=blk_dim,
-                                         span=span, **kw)):
+                                         span=span, **where, **kw)):
             o[..., nby - 1, :] = g[..., 0, :]
     if w % blk_dim:
         for o, g in zip(out, edge_right(cur, ref_halo, blk_dim=blk_dim,
-                                        span=span, **kw)):
+                                        span=span, **where, **kw)):
             o[..., :, nbx - 1] = g[..., :, 0]
     return out
 
@@ -658,6 +689,17 @@ def full_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
     return fs.field_from_argmin(cost, idx, blk_h * blk_w, span, metric)
 
 
+def _volume_interior(blk_dim: int, span: int, metric: str):
+    """The interior kernel whose emit mode covers a config's whole blocks
+    (phase, else chunked for MSE at blk <= 16), or None: the int kernel's
+    emit mode then takes every block."""
+    if phase_supported(blk_dim, span, metric):
+        return phase_search
+    if metric == "mse" and chunked_supported(blk_dim, span):
+        return chunked_search
+    return None
+
+
 def full_search_volume_cuda(cur, ref, *, blk_dim: int, span: int,
                             metric: str = "mse", device=None) -> torch.Tensor:
     """Whole-frame int32 [K², nby, nbx] cost volume (MSE: SSD, or SAD),
@@ -684,13 +726,125 @@ def full_search_volume_cuda(cur, ref, *, blk_dim: int, span: int,
     cur_t, ref_halo = frame_operands(cur, ref, span, resolve_device(device))
     h, w = cur_t.shape
     kw = dict(blk_dim=blk_dim, span=span, metric=metric, return_volume=True)
-    if phase_supported(blk_dim, span, metric):
-        interior = phase_search
-    elif metric == "mse":
-        interior = chunked_search
-    else:
+    interior = _volume_interior(blk_dim, span, metric)
+    if interior is None:
         return int_search(cur_t, ref_halo, frame_height=h, frame_width=w,
                           **kw)[2]
     return search_interior_and_edges(
         cur_t, ref_halo, interior, _edge_slab_bottom, _edge_slab_right, **kw,
+    )[2]
+
+
+def check_shard_tile(shape, blk_dim, y_origin, x_origin):
+    """Raise unless a shard tile is whole blocks at a non-negative
+    origin, as the mesh padding makes every tile."""
+    tile_h, tile_w = shape
+    if tile_h % blk_dim or tile_w % blk_dim or min(y_origin, x_origin) < 0:
+        raise ValueError(
+            f"shard tile {tile_h}x{tile_w} at ({y_origin}, {x_origin}) must "
+            f"be whole blocks of side {blk_dim} at a non-negative origin"
+        )
+
+
+def shard_tile(cur_tile, ref_halo, search, outputs, *, blk_dim: int,
+               frame_height: int, frame_width: int, y_origin: int,
+               x_origin: int):
+    """A shard tile's result grids, each [*lead, th // blk, tw // blk].
+
+    The mesh pads the frame to whole tiles, so a tile at (y_origin,
+    x_origin) may reach past the frame. `search(cur, ref_halo)` runs on the
+    tile's in-frame part (rows and columns up to the frame's edge: its
+    whole blocks and, where the tile holds them, the frame's truncated last
+    block row and column) and returns grids over the blocks that touch the
+    frame. Blocks wholly in the padding launch nothing: `outputs`, one
+    (lead shape, dtype, fill) per result, gives their fixed values. Only
+    the grids' in-frame blocks are contract, as in the JAX package.
+    """
+    tile_h, tile_w = cur_tile.shape
+    check_shard_tile(cur_tile.shape, blk_dim, y_origin, x_origin)
+    h_in = max(0, min(tile_h, frame_height - y_origin))
+    w_in = max(0, min(tile_w, frame_width - x_origin))
+    nby, nbx = tile_h // blk_dim, tile_w // blk_dim
+    nyi, nxi = geometry.cdiv(h_in, blk_dim), geometry.cdiv(w_in, blk_dim)
+    found = search(cur_tile[:h_in, :w_in], ref_halo) if nyi and nxi else ()
+    if (nyi, nxi) == (nby, nbx):
+        return tuple(found)
+    out = tuple(torch.full((*lead, nby, nbx), fill, dtype=dtype,
+                           device=cur_tile.device)
+                for lead, dtype, fill in outputs)
+    for o, g in zip(out, found):
+        o[..., :nyi, :nxi] = g
+    return out
+
+
+def _tile_search(cur_tile, ref_halo, y_origin, x_origin, interior, outputs,
+                 *, blk_dim, span, metric, frame_height, frame_width,
+                 return_volume=False):
+    """`shard_tile` with the MSE/SAD kernels: `interior` and the int
+    kernel's slabs on the in-frame part, or the int kernel over all of it
+    where `interior` is None."""
+    _check_operands(cur_tile, ref_halo, span, metric)
+    where = dict(frame_height=frame_height, frame_width=frame_width,
+                 y_origin=y_origin, x_origin=x_origin)
+    kw = dict(blk_dim=blk_dim, span=span, metric=metric, **where)
+    if return_volume:  # the wide and packed-byte kernels emit none
+        kw["return_volume"] = True
+
+    def search(cur, halo):
+        if interior is None:
+            return int_search(cur, halo, **kw)
+        return search_interior_and_edges(
+            cur, halo, interior, _edge_slab_bottom, _edge_slab_right, **kw)
+
+    return shard_tile(cur_tile, ref_halo, search, outputs, blk_dim=blk_dim,
+                      **where)
+
+
+def full_search_tile_cuda(cur_tile, ref_halo, y_origin: int, x_origin: int,
+                          *, frame_height: int, frame_width: int,
+                          blk_dim: int, span: int, metric: str = "mse"):
+    """Full search (MSE or SAD) over one mesh shard's tile (the port of
+    `full_search_tile_pallas`, full_search_pallas.py:1621).
+
+    cur_tile: uint8 [th, tw], whole blocks, global pixel (y_origin,
+    x_origin) at [0, 0]; ref_halo: uint8 [th + 2*span, tw + 2*span], the
+    exchanged reference halo (`parallel.halo.halo_exchange_2d`), zero
+    outside the frame. The kernels are routed as `full_search_frame_cuda`
+    routes a frame (`interior_search`), on the tile's in-frame part
+    (`shard_tile`). Unlike the JAX entry, which takes phase configs only
+    and leaves the truncated edge to a golden pass outside the mesh, this
+    one covers every config and the truncated edge itself (the int
+    kernel). Returns int32 (cost, flat idx), [th // blk, tw // blk]; blocks
+    wholly outside the frame hold (INT32_MAX, centre index).
+    """
+    k = 2 * span + 1
+    return _tile_search(
+        cur_tile, ref_halo, y_origin, x_origin,
+        interior_search(blk_dim, span, metric),
+        [((), torch.int32, 2**31 - 1), ((), torch.int32, span * k + span)],
+        blk_dim=blk_dim, span=span, metric=metric, frame_height=frame_height,
+        frame_width=frame_width,
+    )
+
+
+def full_search_volume_tile_cuda(cur_tile, ref_halo, y_origin: int,
+                                 x_origin: int, *, frame_height: int,
+                                 frame_width: int, blk_dim: int, span: int,
+                                 metric: str = "mse"):
+    """Per-shard int32 [K², th // blk, tw // blk] cost volume (the port of
+    `full_search_volume_tile_pallas`, full_search_pallas.py:1703), operands
+    as `full_search_tile_cuda`. Every entry comes from an emit mode: the
+    phase kernel's (phase configs) or the chunked kernel's (MSE at other
+    blk <= 16) on the whole in-frame blocks and the int kernel's on the
+    truncated edge, or the int kernel's on every block. INT32_MAX at
+    invalid candidates and on blocks wholly outside the frame. The staged
+    sharded diamond reads it (`search.diamond.diamond_search_tile`)."""
+    k = 2 * span + 1
+    return _tile_search(
+        cur_tile, ref_halo, y_origin, x_origin,
+        _volume_interior(blk_dim, span, metric),
+        [((), torch.int32, 2**31 - 1), ((), torch.int32, span * k + span),
+         ((k * k,), torch.int32, 2**31 - 1)],
+        blk_dim=blk_dim, span=span, metric=metric, frame_height=frame_height,
+        frame_width=frame_width, return_volume=True,
     )[2]

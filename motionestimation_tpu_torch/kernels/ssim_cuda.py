@@ -18,6 +18,10 @@ the SSIM path:
   the same order and decodes MVs.
 * `ssim_volume_cuda` (the port of `ssim_volume_pallas`, :690) returns the
   whole-frame float32 [K², nby, nbx] score volume from the two emit modes.
+* `ssim_search_tile_cuda` and `ssim_volume_tile_cuda` (the ports of
+  `ssim_search_tile_pallas`, :878, and `ssim_volume_tile_pallas`, :724)
+  search one mesh shard's tile at its global origin with the same two
+  kernels (`full_search_cuda.shard_tile`).
 
 Beside the two kernels stands their plain PyTorch version, `ssim_plain`,
 built on `search.full_search.make_displacement_cost(metric="ssim")` and
@@ -232,26 +236,32 @@ def _run(wrapper, cur, ref_halo, grid, return_volume, **kw):
 
 
 def _ssim_edge_bottom(cur, ref_halo, *, blk_dim: int, span: int,
-                      return_volume: bool = False):
+                      return_volume: bool = False, frame_height=None,
+                      frame_width=None, y_origin: int = 0, x_origin: int = 0):
     """SSIM search of the last (truncated) block row: `ssim_search` on the
-    slab of rows [y_org, H) (the port of `_ssim_edge_bottom`, :958).
+    slab of rows [y_org, H) (the port of `_ssim_edge_bottom`, :958), of
+    the whole frame or of a tile as `full_search_cuda._edge_slab_bottom`.
     Returns [1, nbx] block grids (and a [K², 1, nbx] volume)."""
     cur_s, halo_s, y_org = fsc.bottom_slab(cur, ref_halo, blk_dim, span)
-    h, w = cur.shape
+    h, w = fsc.frame_of(cur, frame_height, frame_width)
     return ssim_search(cur_s, halo_s, blk_dim=blk_dim, span=span,
-                       frame_height=h, frame_width=w, y_origin=y_org,
+                       frame_height=h, frame_width=w,
+                       y_origin=y_origin + y_org, x_origin=x_origin,
                        return_volume=return_volume)
 
 
 def _ssim_edge_right(cur, ref_halo, *, blk_dim: int, span: int,
-                     return_volume: bool = False):
+                     return_volume: bool = False, frame_height=None,
+                     frame_width=None, y_origin: int = 0, x_origin: int = 0):
     """SSIM search of the last (truncated) block column: `ssim_search` on
-    the slab of columns [x_org, W) (the port of `_ssim_edge_right`, :999).
-    Returns [nby, 1] block grids (and a [K², nby, 1] volume)."""
+    the slab of columns [x_org, W) (the port of `_ssim_edge_right`, :999),
+    of the whole frame or of a tile. Returns [nby, 1] block grids (and a
+    [K², nby, 1] volume)."""
     cur_s, halo_s, x_org = fsc.right_slab(cur, ref_halo, blk_dim, span)
-    h, w = cur.shape
+    h, w = fsc.frame_of(cur, frame_height, frame_width)
     return ssim_search(cur_s, halo_s, blk_dim=blk_dim, span=span,
-                       frame_height=h, frame_width=w, x_origin=x_org,
+                       frame_height=h, frame_width=w, y_origin=y_origin,
+                       x_origin=x_origin + x_org,
                        return_volume=return_volume)
 
 
@@ -309,4 +319,66 @@ def ssim_volume_cuda(cur, ref, *, blk_dim: int, span: int,
     return fsc.search_interior_and_edges(
         cur_t, ref_halo, ssim_fast_search, _ssim_edge_bottom,
         _ssim_edge_right, blk_dim=blk_dim, span=span, return_volume=True,
+    )[2]
+
+
+def _tile_search(cur_tile, ref_halo, y_origin, x_origin, outputs, *,
+                 blk_dim, span, frame_height, frame_width,
+                 return_volume=False):
+    """`full_search_cuda.shard_tile` with the SSIM kernels, routed as
+    `ssim_search_frame_cuda` routes a frame."""
+    fsc.check_operand_shapes(cur_tile, ref_halo, span)
+    where = dict(frame_height=frame_height, frame_width=frame_width,
+                 y_origin=y_origin, x_origin=x_origin)
+    kw = dict(blk_dim=blk_dim, span=span, return_volume=return_volume,
+              **where)
+
+    def search(cur, halo):
+        if blk_dim > FAST_MAX_BLK:
+            return ssim_search(cur, halo, **kw)
+        return fsc.search_interior_and_edges(
+            cur, halo, ssim_fast_search, _ssim_edge_bottom, _ssim_edge_right,
+            **kw)
+
+    return fsc.shard_tile(cur_tile, ref_halo, search, outputs,
+                          blk_dim=blk_dim, **where)
+
+
+def ssim_search_tile_cuda(cur_tile, ref_halo, y_origin: int, x_origin: int,
+                          *, frame_height: int, frame_width: int,
+                          blk_dim: int, span: int):
+    """SSIM full search over one mesh shard's tile (the port of
+    `ssim_search_tile_pallas`, ssim_pallas.py:878), operands as
+    `full_search_cuda.full_search_tile_cuda`: the fast kernel on the whole
+    in-frame blocks (blk <= 32) and the truncated-extent kernel on the
+    frame's truncated edge, or that kernel on every block (blk > 32).
+    Returns (float32 score, int32 flat idx), [th // blk, tw // blk];
+    blocks wholly outside the frame hold (0.0, centre index). The JAX
+    entry keeps chunk 4 and 2048-lane panels at blk > 16, a sizing its
+    frame driver does not use (ROADMAP Queue 3, reference fault 1); the
+    port has no such parameters, and its blk-32 tiles are held against the
+    golden `full_search_tile(metric="ssim")`."""
+    k = 2 * span + 1
+    return _tile_search(
+        cur_tile, ref_halo, y_origin, x_origin,
+        [((), torch.float32, 0.0), ((), torch.int32, span * k + span)],
+        blk_dim=blk_dim, span=span, frame_height=frame_height,
+        frame_width=frame_width,
+    )
+
+
+def ssim_volume_tile_cuda(cur_tile, ref_halo, y_origin: int, x_origin: int,
+                          *, frame_height: int, frame_width: int,
+                          blk_dim: int, span: int):
+    """Per-shard float32 [K², th // blk, tw // blk] SSIM score volume (the
+    port of `ssim_volume_tile_pallas`, ssim_pallas.py:724) from the two
+    kernels' emit modes, routed as `ssim_search_tile_cuda`; -inf at invalid
+    candidates and on blocks wholly outside the frame."""
+    k = 2 * span + 1
+    return _tile_search(
+        cur_tile, ref_halo, y_origin, x_origin,
+        [((), torch.float32, 0.0), ((), torch.int32, span * k + span),
+         ((k * k,), torch.float32, float("-inf"))],
+        blk_dim=blk_dim, span=span, frame_height=frame_height,
+        frame_width=frame_width, return_volume=True,
     )[2]

@@ -33,7 +33,8 @@ window edge would alias into the next dy row). The volume comes from:
 
 All three give the same MVs, costs and trajectories. The JAX package's
 `lax.cond` around a round becomes a host branch on whether any block is
-still active.
+still active. `diamond_search_tile` runs the staged path on one mesh
+shard's tile, its level volumes from the kernels' tile entries.
 """
 from __future__ import annotations
 
@@ -135,10 +136,13 @@ def staged_supported(blk_dim: int, span: int, metric: str) -> bool:
 
 def _replay(volume, *, blk_dim: int, span: int, metric: str, early_term,
             max_steps: int, record_trajectory: bool, frame_height: int,
-            frame_width: int, track_escape: bool = False, fill=None):
+            frame_width: int, track_escape: bool = False, fill=None,
+            y_origin: int = 0, x_origin: int = 0):
     """Replay the canonical trajectories over a [K², nby, nbx] volume (int32
     with INT32_MAX, or float32 SSIM scores with -inf, at invalid
-    candidates): the port of `_diamond_replay` (diamond.py:259).
+    candidates): the port of `_diamond_replay` (diamond.py:259). The
+    volume's blocks are those of a tile at global (y_origin, x_origin), the
+    whole frame by default; the origin sets their pixel counts.
 
     With `track_escape`, `span` is the radius of a volume cropped below the
     search window (a staged level): the third result marks the blocks whose
@@ -157,7 +161,7 @@ def _replay(volume, *, blk_dim: int, span: int, metric: str, early_term,
     minimise = metric in ("mse", "sad")
     k = 2 * span + 1
     _, _, blk_h, blk_w = geometry.block_extents(
-        0, 0, nby, nbx, blk_dim, frame_height, frame_width, dev
+        y_origin, x_origin, nby, nbx, blk_dim, frame_height, frame_width, dev
     )
     count = blk_h * blk_w
     sentinel = cost_lib.INT32_MAX if minimise else float("-inf")
@@ -478,3 +482,78 @@ def diamond_search_frame(
     if record_trajectory:
         return field, traj
     return field
+
+
+def diamond_search_tile(cur_tile, ref_halo, y_origin: int, x_origin: int, *,
+                        frame_height: int, frame_width: int, blk_dim: int,
+                        span: int, metric: str = "mse",
+                        early_term: float | None = None,
+                        max_steps: int | None = None,
+                        record_trajectory: bool = False,
+                        use_kernels: bool = True):
+    """Staged diamond search over one mesh shard's tile (the port of
+    `diamond_search_tile`, diamond.py:1037).
+
+    cur_tile: [th, tw], whole blocks, global pixel (y_origin, x_origin) at
+    [0, 0]; ref_halo: [th + 2*span, tw + 2*span] from
+    `parallel.halo.halo_exchange_2d` (diamond candidates reach at most
+    +-span, so the full-search halo serves). Level r of `_staged_levels`
+    is the radius-r volume of the halo sliced to radius r: the tile volume
+    entries `full_search_volume_tile_cuda` / `ssim_volume_tile_cuda` with
+    `use_kernels` (the kernels' emit modes; their plain versions for CPU
+    tensors), else the golden `full_search_tile` volume. Each level is
+    replayed at the tile's origin with the global frame size; blocks that
+    could escape it are recomputed at the next level, decided per tile. A
+    block's costs do not depend on the level, so a tile's choice never
+    changes a result: sharded == unsharded == `diamond_search_np`.
+
+    Returns (mv_y, mv_x, cost[, trajectory]): int32 SSD/SAD or the float32
+    SSIM score, [th // blk, tw // blk]; the trajectory as
+    `diamond_search_frame`'s.
+    """
+    tile_h, tile_w = cur_tile.shape
+    if tile_h % blk_dim or tile_w % blk_dim:
+        raise ValueError(
+            f"tile dims must be multiples of blk_dim, got {tile_h}x{tile_w}")
+    if metric not in ("mse", "sad", "ssim"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if max_steps is None:
+        max_steps = default_max_steps(span)
+    where = dict(frame_height=frame_height, frame_width=frame_width)
+
+    def level_volume(r):
+        s0 = span - r
+        rh = ref_halo[s0 : s0 + tile_h + 2 * r, s0 : s0 + tile_w + 2 * r]
+        if not use_kernels:
+            _, vol = fs.full_search_tile(
+                cur_tile, rh, y_origin, x_origin, blk_dim=blk_dim, span=r,
+                metric=metric, return_cost_volume=True, **where)
+            return vol
+        if metric == "ssim":
+            return sc.ssim_volume_tile_cuda(
+                cur_tile, rh, y_origin, x_origin, blk_dim=blk_dim, span=r,
+                **where)
+        return fsc.full_search_volume_tile_cuda(
+            cur_tile, rh, y_origin, x_origin, blk_dim=blk_dim, span=r,
+            metric=metric, **where)
+
+    def run_level(r):
+        return _replay(
+            level_volume(r), blk_dim=blk_dim, span=r, metric=metric,
+            early_term=early_term, max_steps=max_steps,
+            record_trajectory=record_trajectory, track_escape=r < span,
+            y_origin=y_origin, x_origin=x_origin, **where)
+
+    levels = _staged_levels(span)
+    field, traj, esc = run_level(levels[0])
+    for r in levels[1:]:
+        if not bool(esc.any()):
+            break
+        f2, t2, e2 = run_level(r)
+        field = _merge(esc, f2, field)
+        if record_trajectory:
+            traj = torch.where(esc[None, :, :, None], t2, traj)
+        esc = esc & e2
+    out = (field.mv_y, field.mv_x,
+           field.score if metric == "ssim" else field.best_cost_i32)
+    return (*out, traj) if record_trajectory else out
