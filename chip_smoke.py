@@ -16,10 +16,14 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    +-7, 1080p 16x16 +-15 and 4K 32x32 +-7, and of the truncated-extent
    kernels over the 4K 7x7 +-15 (SAD) and 64x64 +-15 (SSIM) frames and on
    the slabs of the 4K 7x7 +-15, 1080p 16x16 +-15 and 4K 32x32 +-7 cells.
-2. Byte-exact CLI runs against the C reference's fixtures: MSE (Foreman
-   8x8 +-12 both ways, the truncated rand_mse_90x70_32_8) and SSIM
-   (`--metric ssim`: Foreman 16x16 +-7 and 4x4 +-15, the truncated
-   rand_ssim_45x33_4_5 and rand_ssim_52x36_8_7).
+2. Every fixture under tests/fixtures (13, by glob) through
+   `tools/verify_card.py` on the card: `full_search_frame_cuda` or
+   `ssim_search_frame_cuda` against the plain golden search (MVs, integer
+   costs, SSIM scores bit for bit), and `cli.main --device cuda` (frames
+   read and stacks written by the native frame IO, `io_native`, built
+   with g++) with its stack byte-equal to the C reference's output.yuv and
+   its PSNR or score lines equal to its stdout.txt; the phase, int, fast
+   SSIM and truncated-extent SSIM kernels each launched.
 3. The main paths at full size, each with every launch count set to 0 just
    before it and read just after: `cli.main --device cuda` at 3840x2160 8x8
    +-12 and 1920x1080 16x16 +-15 (MSE), then with `--metric ssim` at
@@ -58,7 +62,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    33 files and over them thrice (97 frames), which splits the wall into
    a cost per call and one per pair; `run_pair` at that cell, and the two
    rates that bracket the pipeline on the same 33 files: disk reads into
-   one recycled buffer and pinned h2d on a copy stream alone. Then the
+   one recycled buffer (the native reader, with the numpy reader beside
+   it in alternate passes) and pinned h2d on a copy stream alone. Then the
    sharded main path on meshes whose slots are all this one card (the
    halo exchange then copies on the card; no process crosses a card):
    `sharded_full_search` on a (1, 2, 2) mesh at 3840x2160 8x8 +-12 MSE
@@ -80,7 +85,19 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    (tiling overhead on one card, not scaling): `sharded_full_search` at 4K
    8x8 +-12 on (1, 1, 1) and (1, 2, 2) meshes beside
    `full_search_frame_cuda`, frames on the card, and the pairs/s of
-   `run_gop_sharded` beside `run_gop`'s over the 4K GOP.
+   `run_gop_sharded` beside `run_gop`'s over the 4K GOP. Then the graft
+   entry: `graft_entry.entry()` (the CIF 16x16 +-7 MSE step, one
+   phase-kernel launch, equal to the plain golden path) and
+   `dryrun_multichip(8)`, the sharded MSE, diamond and SSIM steps on a
+   (2, 2, 2) mesh of this card's slots (JAX's `_factor_mesh` split; a 13x13
+   frame at blk 8 +-9: truncated edges and two-hop halos), held inside it
+   against the unsharded port for every batch element; the sharded steps'
+   launches, counted apart from those of the unsharded runs, equal the
+   count from their tiles (`dryrun_launches`: the phase, int, fast SSIM
+   and truncated-extent SSIM kernels and the phase and int kernels' emit
+   modes), and no plain search runs; and
+   `examples/ssim_demo_torch.py` on the card, within 1e-6 of the same
+   formula in float64.
 4. Each kernel and emit mode against its plain PyTorch version on the
    card at full size (tolerance: exact equality of every int32 cost, index
    and volume entry, and of every float32 SSIM score and -inf: kernel and
@@ -101,7 +118,12 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    version's; `run_pair` at the two whole-frame cells, with the
    truncated-extent kernel's search and emit beside their plain versions;
    `tools/kernel_turns.py`'s groups, each kernel in turns with
-   the others on the same work: the phase kernel (MSE and SAD), the
+   the others on the same work (K1's M blocks/s at 4K 8x8 +-12 and 16x16
+   +-15 and the GOP phase's pinned h2d MB/s then feed
+   `tools/record_scaling.py`, whose text is printed (into a temporary
+   file, not over the committed results/h100/scaling.txt), and
+   the scaling model's (2, 2) step is printed beside the measured (1, 2,
+   2) slot mesh): the phase kernel (MSE and SAD), the
    chunked and packed-byte chunked kernels at 4K 8x8 +-12, the two chunked
    kernels on the 4K 7x7 +-15 interior, the phase and chunked kernels at
    4K 16x16 +-15, the phase kernel with and without its volume at 1080p
@@ -517,19 +539,26 @@ def gop_phase(work, seed, dev, card, counted, sync_errors, time_run_pair):
     time_run_pair(f"run_pair at the GOP cell {label}", frames[1], frames[0],
                   config)
     frame_mb = h * w / 1e6
-    disk = [measure.disk_rate(paths, h, w) for _ in range(3)]
+    disk, disk_np = [], []
+    for _ in range(3):  # alternate passes, the page cache warm for both
+        disk.append(measure.disk_rate(paths, h, w))
+        disk_np.append(measure.disk_rate(paths, h, w,
+                                         reader=frames_lib.load_yuv_into_np))
     try:
         h2d = [measure.h2d_rate(frames, dev, check=True) for _ in range(3)]
     except ValueError as e:
         fail(str(e))
-    print(f"GOP {label} bracket: disk read (load_yuv_into, one recycled "
-          f"buffer) best {max(disk):.1f} MB/s = {max(disk) / frame_mb:.1f} "
-          f"frames/s (passes {[round(r, 1) for r in disk]}); pinned h2d on a "
+    print(f"GOP {label} bracket: disk read (load_yuv_into, native, one "
+          f"recycled buffer) best {max(disk):.1f} MB/s = "
+          f"{max(disk) / frame_mb:.1f} frames/s (passes "
+          f"{[round(r, 1) for r in disk]}); the numpy reader "
+          f"(load_yuv_into_np) in alternate passes best {max(disk_np):.1f} "
+          f"MB/s (passes {[round(r, 1) for r in disk_np]}); pinned h2d on a "
           f"copy stream alone best {max(h2d):.1f} MB/s = "
           f"{max(h2d) / frame_mb:.1f} frames/s (passes "
           f"{[round(r, 1) for r in h2d]}); {n} frames of {frame_mb:.3f} MB | "
           f"{card}")
-    return paths, out_dir, config
+    return paths, out_dir, config, max(h2d)
 
 
 # The sharded main path on slot meshes of the one card, (label, mesh (dp,
@@ -599,10 +628,13 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
                   reset_counts, counts):
     """The sharded main path on slot meshes of the card (checks) and the
     overhead of tiling on one card; see the module docstring. `gop` is the
-    GOP phase's (frame paths, run_gop dump directory, config), `pairs` the
+    GOP phase's (frame paths, run_gop dump directory, config, pinned h2d
+    MB/s), `pairs` the
     main path's frames by (height, width), `diamond_pair` the config3
     frames; `counted` as in `gop_phase`, `reset_counts()` sets every launch
-    count to 0 and `counts()` returns the counts above 0 by name."""
+    count to 0 and `counts()` returns the counts above 0 by name. Returns
+    the median ms a frame of `sharded_full_search` on the (1, 2, 2) mesh
+    at the first SHARDED_RUNS cell."""
     from motionestimation_tpu_torch.bench.measure import EMIT
     from motionestimation_tpu_torch.kernels import full_search_cuda as kc
     from motionestimation_tpu_torch.kernels import ssim_cuda as sc
@@ -688,7 +720,7 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
         print(f"sharded {label}: MVs, costs and compensated frame equal "
               f"diamond_search_frame's")
 
-    paths, gop_dir, config = gop
+    paths, gop_dir, config, _ = gop
     want = sorted(os.path.join(gop_dir, p) for p in os.listdir(gop_dir))
     pairs_n = len(paths) - 1
     runs = [(label, shape, pipelined, per_pair, None)
@@ -753,6 +785,7 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
     for name, ts in times.items():
         print(f"  {name}: median {statistics.median(ts):.4f} ms a frame "
               f"(min {min(ts):.4f}, max {max(ts):.4f}) | {card}")
+    sharded_ms = statistics.median(times["sharded_full_search (1, 2, 2)"])
     gop_fns = {"run_gop": lambda d: runner.run_gop(
         paths, config, output_dir=d, device=dev, resume=False)}
     for glabel, shape, pipelined in (("(1, 1, 1) pipelined", (1, 1, 1),
@@ -778,6 +811,99 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
               f"{pairs_n / min(walls):.2f} pairs/s (runs "
               f"{[round(pairs_n / t, 2) for t in walls]}, resume=False, after "
               f"one warm-up) | {card}")
+    return sharded_ms
+
+
+def dryrun_launches(n):
+    """Each kernel's launches in the three sharded steps of
+    `dryrun_multichip(n)`, counted from its tiles: for every pair, a tile
+    whose in-frame part holds whole blocks launches its interior kernel
+    once (phase; fast SSIM), and each truncated slab it holds (bottom,
+    right) the truncated-extent kernel once (int; SSIM). The MSE step
+    searches, diamond emits one volume a tile (its levels replay it), the
+    SSIM step searches; the phase and int counts hold their emit launches
+    too."""
+    from motionestimation_tpu_torch import graft_entry
+    from motionestimation_tpu_torch.core.geometry import cdiv
+
+    g = graft_entry.dryrun_geometry(n)
+    blk, h, w = g["blk_dim"], g["h"], g["w"]
+    tile_h, tile_w = cdiv(h, blk * g["ty"]) * blk, cdiv(w, blk * g["tx"]) * blk
+    interior = slabs = 0
+    for i in range(g["ty"]):
+        for j in range(g["tx"]):
+            h_in = max(0, min(tile_h, h - i * tile_h))
+            w_in = max(0, min(tile_w, w - j * tile_w))
+            interior += h_in >= blk and w_in >= blk
+            slabs += bool(h_in % blk and w_in) + bool(w_in % blk and h_in)
+    interior, slabs = interior * g["batch"], slabs * g["batch"]
+    return {"me_phase_search": 2 * interior,
+            "me_phase_search (emit)": interior,
+            "me_int_search": 2 * slabs, "me_int_search (emit)": slabs,
+            "me_ssim_fast_search": interior, "me_ssim_search": slabs}
+
+
+def graft_phase(dev, card, counted):
+    """`graft_entry.entry()` and `dryrun_multichip(8)` on the card, counted,
+    and the SSIM demo; see the module docstring. `counted` as in
+    `gop_phase`."""
+    import importlib.util
+
+    from motionestimation_tpu_torch import graft_entry
+    from motionestimation_tpu_torch.search import full_search as fs
+
+    print("== main path (graft entry): entry() on the card")
+    step, (cur, ref) = graft_entry.entry()
+    with counted({"me_phase_search": 1}, "entry()"), no_plain_path("entry()"):
+        got = step(cur, ref)
+        torch.cuda.synchronize()
+    want = fs.full_search_frame(cur, ref, blk_dim=16, span=7, metric="mse")
+    want = (want.mv_y, want.mv_x, want.best_cost_i32, fs.compensate_frame(
+        ref, want, frame_height=288, frame_width=352, blk_dim=16, span=7))
+    for name, a, b in zip(("mv_y", "mv_x", "cost", "comp"), got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"entry(): {name} differs from the plain golden path")
+    print(f"entry(): CIF 16x16 +-7 MSE step on {cur.device}, MVs, costs and "
+          f"comp {tuple(got[3].shape)} equal the plain golden path's")
+
+    n = 8
+    print(f"== main path (multi-slot dry run): dryrun_multichip({n}) on "
+          f"{min(n, torch.cuda.device_count())} card(s)")
+    # The counts cover the sharded steps alone: the unsharded runs they are
+    # held against launch the same kernels outside the window.
+    t0 = time.perf_counter()
+    with no_plain_path(f"dryrun_multichip({n})"):
+        summary = graft_entry.dryrun_multichip(n, around_sharded=counted(
+            dryrun_launches(n), f"dryrun_multichip({n}) sharded steps"))
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"{summary} ({seconds:.1f} s) | {card}")
+
+    spec = importlib.util.spec_from_file_location(
+        "ssim_demo_torch", os.path.join(ROOT, "examples", "ssim_demo_torch.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = demo.main(["0"])
+    lines = out.getvalue().splitlines()
+    a, b = demo.blocks(0)
+    value = float(demo.ssim_unbiased(torch.from_numpy(a).to(dev),
+                                     torch.from_numpy(b).to(dev)))
+    # The same formula in float64 on the host, as the tolerance's yardstick.
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    mu_a, mu_b = a.mean(), b.mean()
+    s_a, s_b = a.std(ddof=1), b.std(ddof=1)
+    s_ab = ((a - mu_a) * (b - mu_b)).sum() / (a.size - 1)
+    exact = ((2 * mu_a * mu_b + 2) / (mu_a**2 + mu_b**2 + 2)
+             * (2 * s_a * s_b + 2) / (s_a**2 + s_b**2 + 2)
+             * (s_ab + 1) / (s_a * s_b + 1))
+    if (rc != 0 or lines != [f"SSIM VALUE OBTAINED IS {value:f} ",
+                             "(self-SSIM sanity: 1.000000)"]
+            or abs(value - exact) > 1e-6):
+        fail(f"ssim_demo_torch: {lines} (float64 value {exact})")
+    print(f"ssim_demo_torch on the card: {lines}, |float32 - float64| = "
+          f"{abs(value - exact):.3g} (tolerance 1e-6)")
 
 
 def free_port() -> int:
@@ -964,7 +1090,10 @@ def main(argv=None) -> int:
     from motionestimation_tpu_torch.pipeline import runner
     from motionestimation_tpu_torch.search import diamond
     from motionestimation_tpu_torch.search import full_search as fs
+    from motionestimation_tpu_torch import io_native
+    from motionestimation_tpu_torch.parallel import scaling
     from motionestimation_tpu_torch.tools import kern_lab, kernel_turns
+    from motionestimation_tpu_torch.tools import record_scaling, verify_card
     from motionestimation_tpu_torch.tools import vpu_peak
 
     synthetic_pair, cuda_ms = kernel_turns.synthetic_pair, kernel_turns.cuda_ms
@@ -1059,23 +1188,6 @@ def main(argv=None) -> int:
             fail(f"{what}: a kernel never launched: {counts}")
         return counts
 
-    def fixture_frames(name, work):
-        d = os.path.join(FIXTURES, name)
-        with open(os.path.join(d, "meta.json")) as f:
-            meta = json.load(f)
-        h, w = meta["height"], meta["width"]
-        golden = np.fromfile(os.path.join(d, "output.yuv"), np.uint8)
-        cur_path, ref_path = (os.path.join(d, meta[k]) for k in ("cur", "ref"))
-        if not os.path.exists(cur_path):  # Foreman: F4/F1 from the planes
-            planes = golden.reshape(5, h, w)
-            cur_path = os.path.join(work, f"{name}_cur.yuv")
-            ref_path = os.path.join(work, f"{name}_ref.yuv")
-            planes[1].tofile(cur_path)
-            planes[0].tofile(ref_path)
-        with open(os.path.join(d, "stdout.txt")) as f:
-            stdout = f.read()
-        return meta, golden, cur_path, ref_path, stdout
-
     max_err = dict.fromkeys(counters, 0.0)
 
     def compare(kernel_names, got, want, what, quiet=False):
@@ -1140,52 +1252,19 @@ def main(argv=None) -> int:
             torch.cuda.set_sync_debug_mode("default")
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
-        # -- 2. byte-exact CLI runs against the C reference's outputs ------
-        print("== byte-exact CLI runs vs the C reference fixtures")
+        # -- 2. every fixture through the card route (verify_card) ---------
+        print("== every fixture through the card route vs the plain path "
+              "and the C reference's outputs (tools/verify_card.py)")
+        t_fix = time.perf_counter()
         reset_counts()
-        for name, psnr in (("foreman_mse_8_12", "31.816000"),
-                           ("foreman_mse_rev_8_12", "31.750712"),
-                           ("rand_mse_90x70_32_8", "23.476472")):
-            meta, golden, cur_path, ref_path, _ = fixture_frames(name, work)
-            h, w = meta["height"], meta["width"]
-            out_dir = os.path.join(work, name)
-            stdout = run_cli(cli, [
-                cur_path, ref_path, out_dir, str(meta["blk_dim"]),
-                str(meta["span"]), str(w), str(h), "--device", "cuda",
-            ])
-            if f"PSNR: {psnr}" not in stdout.splitlines():
-                fail(f"{name}: expected 'PSNR: {psnr}'")
-            got = np.fromfile(frames_lib.output_filename(
-                out_dir, meta["blk_dim"], meta["span"]), np.uint8)
-            if got.tobytes() != golden.tobytes():
-                fail(f"{name}: stacked output differs from the fixture")
-            print(f"{name}: PSNR {psnr}, stack byte-exact")
-        read_counts(mse_kernels, "MSE fixture runs")
-
-        def score_lines(text):
-            return [line for line in text.splitlines() if line.startswith(
-                ("Original Score:", "Output file dimensions", "PSNR"))]
-
-        reset_counts()
-        for name in ("foreman_ssim_16_7", "foreman_ssim_4_15",
-                     "rand_ssim_45x33_4_5", "rand_ssim_52x36_8_7"):
-            meta, golden, cur_path, ref_path, want = fixture_frames(name, work)
-            h, w = meta["height"], meta["width"]
-            out_dir = os.path.join(work, name)
-            stdout = run_cli(cli, [
-                cur_path, ref_path, out_dir, str(meta["blk_dim"]),
-                str(meta["span"]), str(w), str(h), "--device", "cuda",
-                "--metric", "ssim",
-            ])
-            if score_lines(stdout) != score_lines(want):
-                fail(f"{name}: expected {score_lines(want)}, got "
-                     f"{score_lines(stdout)}")
-            got = np.fromfile(frames_lib.output_filename(
-                out_dir, meta["blk_dim"], meta["span"]), np.uint8)
-            if got.tobytes() != golden.tobytes():
-                fail(f"{name}: stacked output differs from the fixture")
-            print(f"{name}: {score_lines(stdout)[0]}, stack byte-exact")
-        read_counts(ssim_kernels, "SSIM fixture runs")
+        results = verify_card.verify(device=dev)
+        failed = {n: d for n, d in results.items() if d}
+        if failed:
+            fail(f"verify_card: {failed}")
+        read_counts(mse_kernels + ssim_kernels,
+                    f"fixture runs ({len(results)} fixtures)")
+        print(f"fixture phase: {time.perf_counter() - t_fix:.1f} s; frames "
+              f"read and stacks written by {io_native.build().name}")
 
         # -- 3. the main paths at full size, counted -----------------------
         pairs = {}
@@ -1363,11 +1442,14 @@ def main(argv=None) -> int:
                         time_run_pair)
         print(f"GOP phase: {time.perf_counter() - t_gop:.1f} s")
         t_sharded = time.perf_counter()
-        sharded_phase(work, gop, pairs, contents["config3"], dev, card,
-                      counted, reset_counts,
-                      lambda: {n: launches(n) for n in counters
-                               if launches(n)})
+        sharded_ms = sharded_phase(work, gop, pairs, contents["config3"],
+                                   dev, card, counted, reset_counts,
+                                   lambda: {n: launches(n) for n in counters
+                                            if launches(n)})
         print(f"sharded phase: {time.perf_counter() - t_sharded:.1f} s")
+    t_graft = time.perf_counter()
+    graft_phase(dev, card, counted)
+    print(f"graft phase: {time.perf_counter() - t_graft:.1f} s")
 
     # -- 4. each kernel against its plain version on the card -------------
     print("== kernels vs their plain versions on the card (exact)")
@@ -1726,7 +1808,9 @@ def main(argv=None) -> int:
         print(line + f" | {card}")
 
     # Kernels in turns on the same work; time_group fails unless those of
-    # one metric in a group give the same (cost, idx).
+    # one metric in a group give the same (cost, idx). K1's M blocks/s at
+    # each cell feed the scaling model.
+    k1_rate = {}
     for label, h, w, blk, span, entries in kernel_turns.GROUPS:
         print(f"== {', '.join(e[0] for e in entries)} on the same work "
               f"({label} interior), in turns, {kernel_turns.LAUNCHES} "
@@ -1737,6 +1821,8 @@ def main(argv=None) -> int:
         pixel_cands, _ = valid_candidates(*geo)
         for (name, _, metric, volume), ts in zip(entries, times.values()):
             ms = statistics.mean(ts)
+            if name == "K1 me_phase_search":
+                k1_rate[label] = (h // blk) * (w // blk) / ms / 1e3
             b_ms = bound(*geo, ssim=metric == "ssim", volume=volume)[0]
             print(f"  {name} {ms:.4f} ms (runs {[round(t, 4) for t in ts]}), "
                   f"{pixel_cands / ms / 1e9:.2f} T pixel-candidates/s | "
@@ -1754,6 +1840,31 @@ def main(argv=None) -> int:
             print(f"  {name} {statistics.mean(ts):.4f} ms (runs "
                   f"{[round(t, 4) for t in ts]}) | bound {b_ms:.6f} ms | "
                   f"{card}")
+
+    # The scaling model at the rates just measured, its text printed (and
+    # written to a temporary file: the committed results/h100/scaling.txt
+    # is the tool's own), and its (2, 2) step beside the measured slot mesh.
+    headline, north = k1_rate["4K 8x8 +-12"], k1_rate["4K 16x16 +-15"]
+    print(f"== the scaling model at K1's {headline:.3f} M blocks/s (4K 8x8 "
+          f"+-12) and {north:.3f} (4K 16x16 +-15), pinned h2d "
+          f"{gop[3]:.1f} MB/s ({card})")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        if record_scaling.main([
+                "--headline", f"{headline:.3f}", "--north", f"{north:.3f}",
+                "--ingest-mb-s", f"{gop[3]:.1f}", "--card", card,
+                "--out", os.path.join(tmp, "scaling.txt")]) != 0:
+            fail("record_scaling failed")
+    m22 = scaling.model_step(frame_height=2160, frame_width=3840, blk_dim=8,
+                             span=12, ty=2, tx=2,
+                             measured_mblocks_per_s=headline)
+    print(f"scaling model, 4K 8x8 +-12 on a (2, 2) mesh of four cards: step "
+          f"{m22.step_s * 1e3:.4f} ms (compute {m22.compute_s * 1e3:.4f}, "
+          f"halo {m22.halo_s * 1e3:.4f}, stats {m22.stats_s * 1e3:.4f}, "
+          f"gather {m22.gather_s * 1e3:.4f}) beside sharded_full_search on "
+          f"the (1, 2, 2) slot mesh of this one card: {sharded_ms:.4f} ms a "
+          f"frame; the model leaves out the host's issue of each tile's "
+          f"launches, ~0.8 ms a 4K tile on one card (PERF.md section 5) | "
+          f"{card}")
 
     label, h, w, blk, span, metric = VOLUME_CONFIGS[0]
     print(f"== the volume at {label} ({card})")

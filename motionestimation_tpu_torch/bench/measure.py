@@ -224,13 +224,15 @@ def profile_pass(call, n: int, device: torch.device) -> Profile:
     )
 
 
-def disk_rate(paths, h: int, w: int) -> float:
-    """MB/s of `load_yuv_into` reads of the files (h x w luma frames) into
-    one recycled buffer."""
+def disk_rate(paths, h: int, w: int, reader=None) -> float:
+    """MB/s of reads of the files (h x w luma frames) into one recycled
+    buffer by `reader(path, buf)`, by default `load_yuv_into` (the native
+    reader)."""
+    reader = reader or frames_lib.load_yuv_into
     buf = np.empty((h, w), np.uint8)
     t0 = time.perf_counter()
     for path in paths:
-        frames_lib.load_yuv_into(path, buf)
+        reader(path, buf)
     return len(paths) * h * w / 1e6 / (time.perf_counter() - t0)
 
 

@@ -1,4 +1,10 @@
-"""Raw YUV (luma plane) frame I/O and host-side frame ops (numpy only).
+"""Raw YUV (luma plane) frame I/O and host-side frame ops.
+
+`load_yuv`, `load_yuv_into`, `save_yuv` and `stack_output` run through the
+native frame IO (`io_native`, built with g++ at first use; a failed build
+raises). Their numpy bodies stay beside them as the plain versions
+(`load_yuv_np`, `load_yuv_into_np`, `save_yuv_np`, `stack_output_np`),
+which give the same bytes.
 
 Reference semantics reproduced:
 
@@ -20,6 +26,8 @@ import os
 
 import numpy as np
 
+from motionestimation_tpu_torch import io_native
+
 
 def load_yuv(path: str | os.PathLike, height: int, width: int) -> np.ndarray:
     """Read the first H*W bytes of a raw YUV file as a [H, W] uint8 plane
@@ -28,11 +36,23 @@ def load_yuv(path: str | os.PathLike, height: int, width: int) -> np.ndarray:
 
 
 def load_yuv_into(path: str | os.PathLike, out: np.ndarray) -> np.ndarray:
-    """`load_yuv` into a caller-owned [H, W] uint8 buffer (no allocation).
+    """`load_yuv` into a caller-owned [H, W] uint8 buffer (no allocation),
+    by the native mmap reader; a short file raises OSError.
 
     Same bytes as `load_yuv`; the GOP reader recycles a fixed pool of
     (pinned) buffers through it, so no 4K frame pays for a fresh
     allocation's page faults."""
+    return io_native.read_frame_into(path, out)
+
+
+def load_yuv_np(path: str | os.PathLike, height: int,
+                width: int) -> np.ndarray:
+    """The plain version of `load_yuv` (numpy, `readinto`)."""
+    return load_yuv_into_np(path, np.empty((height, width), np.uint8))
+
+
+def load_yuv_into_np(path: str | os.PathLike, out: np.ndarray) -> np.ndarray:
+    """The plain version of `load_yuv_into`; a short file raises IOError."""
     if out.dtype != np.uint8 or out.ndim != 2 or not out.flags.c_contiguous:
         raise ValueError("out must be a C-contiguous [H, W] uint8 array")
     with open(path, "rb") as f:
@@ -69,7 +89,13 @@ def load_yuv_rows(path: str | os.PathLike, height: int, width: int,
 
 
 def save_yuv(path: str | os.PathLike, frame: np.ndarray) -> None:
-    """Write an integer frame as raw u8 bytes (C-cast narrowing)."""
+    """Write an integer frame as raw u8 bytes (C-cast narrowing), by the
+    native writer."""
+    io_native.write_frame(path, np.asarray(frame).astype(np.int32, copy=False))
+
+
+def save_yuv_np(path: str | os.PathLike, frame: np.ndarray) -> None:
+    """The plain version of `save_yuv`."""
     data = np.asarray(frame)
     if data.dtype != np.uint8:
         data = data.astype(np.uint8)  # wraps mod 256 like the C cast
@@ -126,6 +152,12 @@ def compensate_frame_np(
     return ref.astype(np.int32)[yy, xx]
 
 
+def residual_mse(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean squared residual between two frames (float64, the true value)."""
+    d = a.astype(np.float64).ravel() - b.astype(np.float64).ravel()
+    return float(np.dot(d, d)) / d.size
+
+
 def residual_mse_c_float32(a: np.ndarray, b: np.ndarray) -> float:
     """Mean squared residual with the reference's float32 accumulation.
 
@@ -142,7 +174,14 @@ def stack_output(
     ref: np.ndarray, cur: np.ndarray, comp: np.ndarray
 ) -> np.ndarray:
     """The 5-frame stack [ref, cur, comp, |ref-cur|, |comp-cur|], [5*H, W]
-    int32."""
+    int32, built by the native library from three [H, W] frames."""
+    return io_native.stack_output(ref, cur, comp)
+
+
+def stack_output_np(
+    ref: np.ndarray, cur: np.ndarray, comp: np.ndarray
+) -> np.ndarray:
+    """The plain version of `stack_output`."""
     return np.concatenate(
         (
             ref.astype(np.int32),

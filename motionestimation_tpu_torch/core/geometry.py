@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -41,6 +42,19 @@ def padded_dims(height: int, width: int, blk_dim: int) -> Tuple[int, int]:
     """Frame dims rounded up to a whole number of blocks."""
     nby, nbx = grid_shape(height, width, blk_dim)
     return nby * blk_dim, nbx * blk_dim
+
+
+def block_extents_np(height: int, width: int, blk_dim: int):
+    """NumPy block geometry of a whole frame: int32 (tl_y, tl_x, blk_h,
+    blk_w), each [nby, nbx], the top-left pixels and truncated extents."""
+    nby, nbx = grid_shape(height, width, blk_dim)
+    tl_y = np.broadcast_to(
+        (np.arange(nby, dtype=np.int32) * blk_dim)[:, None], (nby, nbx))
+    tl_x = np.broadcast_to(
+        (np.arange(nbx, dtype=np.int32) * blk_dim)[None, :], (nby, nbx))
+    blk_h = np.minimum(blk_dim, height - tl_y).astype(np.int32)
+    blk_w = np.minimum(blk_dim, width - tl_x).astype(np.int32)
+    return tl_y.copy(), tl_x.copy(), blk_h, blk_w
 
 
 def block_extents(

@@ -47,6 +47,24 @@ def test_geometry_matches_jax(h, w, blk):
                 np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
 
 
+# tests/test_geometry.py's block_extents_np shapes, then SHAPES.
+@pytest.mark.parametrize("h,w,blk", [(36, 52, 8), (47, 61, 8)] + SHAPES)
+def test_block_extents_np_and_residual_mse_match_jax(h, w, blk):
+    got = tgeo.block_extents_np(h, w, blk)
+    want = jgeo.block_extents_np(h, w, blk)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.int32 and a.flags.writeable
+        np.testing.assert_array_equal(a, b)
+    text = tgeo.block_extents(0, 0, *tgeo.grid_shape(h, w, blk), blk, h, w)
+    for a, b in zip(got, text):
+        np.testing.assert_array_equal(a, b.numpy())
+    rng = np.random.default_rng(h * w)
+    a = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    b = rng.integers(0, 256, (h, w)).astype(np.int32)
+    assert tframes.residual_mse(a, b) == jframes.residual_mse(a, b)
+    assert tframes.residual_mse(a, a) == 0.0
+
+
 @pytest.mark.parametrize("span", [0, 3, 12, 31])
 def test_mv_from_flat_index_matches_jax(span):
     k = 2 * span + 1
