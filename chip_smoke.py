@@ -44,8 +44,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    1920x1080 16x16 +-15 on the JAX bench's config3 content (MSE, SAD, SSIM,
    MSE `--early-term 2.0`) and its adversarial content (MSE, canonical
    escalation and `--escape-policy crossover`), each run's MVs, costs and
-   trajectories equal to a replay over the golden volume on the card, and
-   its stack to one built from those MVs. Then the GOP main path:
+   trajectories equal to the plain replay (`replay_plain`) over the golden
+   volume on the card, and its stack to one built from those MVs; each
+   run launches `me_diamond_replay` once a level (a level is one volume of
+   the interior kernel's emit mode), runs no plain replay or plain search,
+   and each replay call runs under `torch.cuda.set_sync_debug_mode("error")`
+   (the staged path branches on the host once a level, outside it). Then
+   the GOP main path:
    `cli.main --device cuda --gop` over 33 frames at 3840x2160 8x8 +-12
    (the JAX bench's headline GOP, bench.py's content from --seed; the
    packed readback): exactly 32 launches of the phase kernel and none of
@@ -81,7 +86,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    per pair, a (2, 1, 1) mesh ("dp" batching) and, after
    `distributed_init` of a NCCL process group of one, pipelined again:
    one phase-kernel launch a tile and pair, every dump equal to
-   `run_gop`'s on every key, and a second call rewriting nothing. Timed
+   `run_gop`'s on every key, and a second call rewriting nothing; the
+   diamond steps launch one replay a tile and level and no plain replay,
+   each replay under the sync check, as the GOP's diamond run. Timed
    (tiling overhead on one card, not scaling): `sharded_full_search` at 4K
    8x8 +-12 on (1, 1, 1) and (1, 2, 2) meshes beside
    `full_search_frame_cuda`, frames on the card, and the pairs/s of
@@ -93,9 +100,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    frame at blk 8 +-9: truncated edges and two-hop halos), held inside it
    against the unsharded port for every batch element; the sharded steps'
    launches, counted apart from those of the unsharded runs, equal the
-   count from their tiles (`dryrun_launches`: the phase, int, fast SSIM
-   and truncated-extent SSIM kernels and the phase and int kernels' emit
-   modes), and no plain search runs; and
+   count from their tiles (`dryrun_launches`: the replay, the phase, int,
+   fast SSIM and truncated-extent SSIM kernels and the phase and int
+   kernels' emit modes), and no plain search or replay runs; and
    `examples/ssim_demo_torch.py` on the card, within 1e-6 of the same
    formula in float64.
 4. Each kernel and emit mode against its plain PyTorch version on the
@@ -110,7 +117,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    truncated-extent kernels (int: SSD and SAD; SSIM), with and without
    their volumes, over the two whole 4K frames and at every blk 1..33,
    40, 48 and 64, spans 0, 1 and 7, on small whole frames, their bottom
-   and right slabs, tiles off the origin and constant frames.
+   and right slabs, tiles off the origin and constant frames. First of
+   them `me_diamond_replay` against `replay_plain` (`replay_checks`):
+   fields, trajectories and escape masks bit for bit at both staged
+   levels of config3 MSE, SAD, SSIM and MSE early term 2.0 and of the
+   adversarial content, on a tile at (544, 960) that holds the frame's
+   truncated bottom block row, and on the 4K 32x32 +-31 worst case's
+   first level, each with and without the trajectory.
 5. Timing with CUDA events: `run_pair` (median of --runs runs after
    warm-up) at 4K 8x8 +-12, 1080p 16x16 +-15, 4K 16x16 +-15, 4K 7x7 +-15
    and 1080p 24x24 +-15 (MSE) and 4K 16x16 +-7, 1080p 16x16 +-15 and 4K
@@ -138,7 +151,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    entries and the emit modes at 1080p 16x16 +-15, and the chunked kernel
    with and without its volume at 1080p 7x7 +-7; `run_pair` diamond
    beside full search on the config3 frames and on the adversarial frames
-   (canonical and crossover), and the diamond replay alone.
+   (canonical and crossover), and the diamond replay alone at level 6 (MSE
+   and SSIM): `me_diamond_replay` beside `replay_plain`, with its bound
+   (`bench/roofline.replay_bound`: the distinct volume entries this run's
+   trajectories read, counted by `replay_reads`, and the outputs).
 6. The bench main path, counted: `python -m motionestimation_tpu_torch.bench`
    -v 1, then -v 2, into a temp dir, with Foreman F4/F1 written from
    planes 1 and 0 of the foreman_mse_8_12 fixture (Jockey and Beauty
@@ -151,9 +167,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    row's first call held against the plain golden path on the card: the
    full-search and SSIM rows' fields equal to the golden search's, the
    diamond rows' fields (and, but for crossover, trajectories) equal to
-   the replay over the golden volume; then `bench_torch.main()`, whose
-   JSON line is printed, every number finite and `pct_of_roofline` in
-   (0, 100].
+   the replay over the golden volume, each row's trajectory call
+   launching `me_diamond_replay` and no `replay_plain`; then
+   `bench_torch.main()`, whose JSON line is printed, every number finite
+   and `pct_of_roofline` in (0, 100].
 7. The speed-of-light tools' main path, counted: `vpu_peak.main()` (the
    fma, mix and roll mixes of P1 and the P2 chain at the JAX tool's
    shapes) and `kern_lab.main()` on the lab's L2 ("P0", "P1") and L4
@@ -201,6 +218,7 @@ SOURCE = {
     "me_chunked_search": CSRC + "chunked.cu",
     "me_chunked_u8_search": CSRC + "chunked.cu",
     "me_wide_search": CSRC + "chunked.cu",
+    "me_diamond_replay": CSRC + "diamond.cu",
     "me_lab_peak": CSRC + "lab.cu",
     "me_lab_chain": CSRC + "lab.cu",
     "me_lab_phase": CSRC + "lab.cu",
@@ -221,6 +239,8 @@ REPLACES = {
     "me_chunked_u8_search":
         "motionestimation_tpu/kernels/full_search_pallas.py:348",
     "me_wide_search": "motionestimation_tpu/kernels/full_search_pallas.py:471",
+    # An XLA program, not a Pallas kernel: the jitted `_diamond_replay`.
+    "me_diamond_replay": "motionestimation_tpu/search/diamond.py:259",
     "me_lab_peak": "tools/vpu_peak.py:44",
     "me_lab_chain": "tools/vpu_peak.py:99",
     "me_lab_phase": "tools/kern_lab.py:357",
@@ -317,7 +337,8 @@ GOP_RUNS = [
     ("1080p 16x16 +-15 diamond mse early-term 2.0", 5,
      dict(blk_dim=16, span=15, algorithm="diamond", early_term=2.0),
      "config3", {"me_phase_search": 1, "me_phase_search (emit)": 1,
-                 "me_int_search": 1, "me_int_search (emit)": 1}),
+                 "me_int_search": 1, "me_int_search (emit)": 1,
+                 "me_diamond_replay": 1}),
 ]
 # The speed-of-light tools: the lab's variants at 2048x2048 8x8 +-12 and
 # tile_h 64 and 128 (L2 "P0"/"P1", L4 "P4"/"P4S"), and the card-filling
@@ -492,8 +513,13 @@ def gop_phase(work, seed, dev, card, counted, sync_errors, time_run_pair):
             frame.tofile(run_paths[-1])
         expected = {k: v * (m - 1) for k, v in per_pair.items()}
         diamond = kw.get("algorithm") == "diamond"
+        # Diamond branches on the host between levels: there only the
+        # replay runs under the sync check, and no plain replay may run.
         with counted(expected, f"GOP {run_label}"), (
-                contextlib.nullcontext() if diamond else sync_errors()):
+                replay_without_sync(sync_errors) if diamond
+                else sync_errors()), (
+                no_plain_path(f"GOP {run_label}") if diamond
+                else contextlib.nullcontext()):
             out = runner.run_gop(
                 run_paths, run_config, device=dev, chunk_pairs=3,
                 output_dir=os.path.join(work, "gop_" + run_label.replace(
@@ -590,26 +616,57 @@ SHARDED_GOPS = [
 
 
 @contextlib.contextmanager
-def no_plain_path(what):
-    """Fails if the block runs a plain search: every plain version (the
-    kernels', the golden tile search and volume) evaluates its costs through
-    `search.full_search.make_displacement_cost`."""
+def no_plain_path(what, search=True):
+    """Fails if the block runs a plain search (with `search`) or a plain
+    replay: every plain version of a search kernel (the kernels', the
+    golden tile search and volume) evaluates its costs through
+    `search.full_search.make_displacement_cost`, and diamond's plain
+    replay is `kernels.diamond_cuda.replay_plain`."""
+    from motionestimation_tpu_torch.kernels import diamond_cuda as dc
     from motionestimation_tpu_torch.search import full_search as fs
 
-    calls = [0]
-    real = fs.make_displacement_cost
+    calls = {}
+    reals = [(dc, "replay_plain", dc.replay_plain)]
+    if search:
+        reals.append(
+            (fs, "make_displacement_cost", fs.make_displacement_cost))
 
-    def counting(*a, **kw):
-        calls[0] += 1
-        return real(*a, **kw)
+    def counting(name, real):
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*a, **kw)
+        return call
 
-    fs.make_displacement_cost = counting
+    for module, name, real in reals:
+        setattr(module, name, counting(name, real))
     try:
         yield
     finally:
-        fs.make_displacement_cost = real
-    if calls[0]:
-        fail(f"{what}: the plain path ran {calls[0]} times")
+        for module, name, real in reals:
+            setattr(module, name, real)
+    if calls:
+        fail(f"{what}: the plain path ran {calls}")
+
+
+@contextlib.contextmanager
+def replay_without_sync(sync_errors):
+    """Each replay call of the diamond paths (`search.diamond._replay`)
+    inside the block runs under `sync_errors()`: the replay itself issues
+    no host sync (the staged path around it still branches on the host
+    once a level)."""
+    from motionestimation_tpu_torch.search import diamond
+
+    real = diamond._replay
+
+    def checked(*a, **kw):
+        with sync_errors():
+            return real(*a, **kw)
+
+    diamond._replay = checked
+    try:
+        yield
+    finally:
+        diamond._replay = real
 
 
 def check_dumps(got, want, what):
@@ -625,14 +682,15 @@ def check_dumps(got, want, what):
 
 
 def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
-                  reset_counts, counts):
+                  reset_counts, counts, sync_errors):
     """The sharded main path on slot meshes of the card (checks) and the
     overhead of tiling on one card; see the module docstring. `gop` is the
     GOP phase's (frame paths, run_gop dump directory, config, pinned h2d
     MB/s), `pairs` the
     main path's frames by (height, width), `diamond_pair` the config3
     frames; `counted` as in `gop_phase`, `reset_counts()` sets every launch
-    count to 0 and `counts()` returns the counts above 0 by name. Returns
+    count to 0 and `counts()` returns the counts above 0 by name;
+    `sync_errors()` makes a synchronising call raise inside it. Returns
     the median ms a frame of `sharded_full_search` on the (1, 2, 2) mesh
     at the first SHARDED_RUNS cell."""
     from motionestimation_tpu_torch.bench.measure import EMIT
@@ -695,7 +753,8 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
               f"config3 content, (1, 2, 2) mesh of {dev} slots")
         kernels = ("me_phase_search", "me_int_search")
         reset_counts()
-        with no_plain_path(f"sharded {label}"):
+        with no_plain_path(f"sharded {label}"), \
+                replay_without_sync(sync_errors):
             res = sharded.sharded_motion_step(
                 cur[None], ref[None], mesh=mesh_of((1, 2, 2)), blk_dim=blk,
                 span=span, frame_height=h, frame_width=w,
@@ -703,10 +762,14 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
             torch.cuda.synchronize()
         got = counts()
         print(f"sharded {label} launches: {got}")
-        if set(got) != {n + e for n in kernels for e in ("", EMIT)} or any(
-                got[n] != got[n + EMIT] for n in kernels):
+        # Every tile holds whole blocks: one interior emit and one replay a
+        # level it replays.
+        if set(got) != {n + e for n in kernels for e in ("", EMIT)} | {
+                "me_diamond_replay"} or any(
+                got[n] != got[n + EMIT] for n in kernels) or (
+                got["me_diamond_replay"] != got["me_phase_search" + EMIT]):
             fail(f"sharded {label}: launches {got}, expected the phase and "
-                 f"int kernels' emit modes alone")
+                 f"int kernels' emit modes alone and one replay a level")
         want = diamond.diamond_search_frame(cur, ref, blk_dim=blk, span=span,
                                             early_term=early_term, device=dev)
         nby, nbx = want.mv_y.shape
@@ -820,11 +883,12 @@ def dryrun_launches(n):
     whose in-frame part holds whole blocks launches its interior kernel
     once (phase; fast SSIM), and each truncated slab it holds (bottom,
     right) the truncated-extent kernel once (int; SSIM). The MSE step
-    searches, diamond emits one volume a tile (its levels replay it), the
-    SSIM step searches; the phase and int counts hold their emit launches
-    too."""
+    searches, diamond emits one volume a tile and replays it once (span 9
+    has one level), the SSIM step searches; the phase and int counts hold
+    their emit launches too."""
     from motionestimation_tpu_torch import graft_entry
     from motionestimation_tpu_torch.core.geometry import cdiv
+    from motionestimation_tpu_torch.search.diamond import _staged_levels
 
     g = graft_entry.dryrun_geometry(n)
     blk, h, w = g["blk_dim"], g["h"], g["w"]
@@ -837,7 +901,10 @@ def dryrun_launches(n):
             interior += h_in >= blk and w_in >= blk
             slabs += bool(h_in % blk and w_in) + bool(w_in % blk and h_in)
     interior, slabs = interior * g["batch"], slabs * g["batch"]
-    return {"me_phase_search": 2 * interior,
+    if len(_staged_levels(g["span"])) != 1:
+        fail(f"dryrun_launches: span {g['span']} replays more than one level")
+    return {"me_diamond_replay": g["ty"] * g["tx"] * g["batch"],
+            "me_phase_search": 2 * interior,
             "me_phase_search (emit)": interior,
             "me_int_search": 2 * slabs, "me_int_search (emit)": slabs,
             "me_ssim_fast_search": interior, "me_ssim_search": slabs}
@@ -919,20 +986,108 @@ def diamond_reference(best, volume, *, span, crossover, **kw):
     """(field, trajectory or None, escaped or None): the canonical replay
     over the golden volume, as `diamond_search_frame` must give it; with
     `crossover`, the replay over the first staged level, the golden full
-    search's field (`best`) on the blocks that escape it."""
+    search's field (`best`) on the blocks that escape it. The replay is the
+    kernel's plain version, `replay_plain`."""
+    from motionestimation_tpu_torch.kernels import diamond_cuda as dc
     from motionestimation_tpu_torch.search import diamond
 
     if not crossover:
-        want, want_traj, _ = diamond._replay(volume, span=span,
+        want, want_traj, _ = dc.replay_plain(volume, span=span,
                                              record_trajectory=True, **kw)
         return want, want_traj, None
     r, k = diamond._staged_levels(span)[0], 2 * span + 1
     level = volume.view(k, k, *volume.shape[1:])[
         span - r : span + r + 1, span - r : span + r + 1]
-    want, _, esc = diamond._replay(
+    want, _, esc = dc.replay_plain(
         level.reshape(-1, *volume.shape[1:]).contiguous(), span=r,
         record_trajectory=False, track_escape=True, **kw)
     return diamond._merge(esc, best, want), None, esc
+
+
+def replay_checks(contents, dev, compare, seed):
+    """`me_diamond_replay` against `replay_plain` on the card, bit for bit
+    (fields, trajectories and escape masks): at every staged level of the
+    config3 MSE, SAD, SSIM and MSE early-term 2.0 cells and of the
+    adversarial content (which escalates), with and without the
+    trajectory; on a tile at a nonzero origin that holds the frame's
+    truncated bottom block row (the volumes of `diamond_search_tile`);
+    and on the 4K 32x32 +-31 worst case's first level. `compare` records
+    the largest difference. Returns the number of checks."""
+    import torch.nn.functional as F
+
+    from motionestimation_tpu_torch.kernels import diamond_cuda as dc
+    from motionestimation_tpu_torch.kernels import full_search_cuda as kc
+    from motionestimation_tpu_torch.kernels import ssim_cuda as sc
+    from motionestimation_tpu_torch.search import diamond
+
+    checks = 0
+
+    def check(volume, what, search_span, **kw):
+        nonlocal checks
+        kw["max_steps"] = diamond.default_max_steps(search_span)
+        for record in (True, False):
+            got = dc.replay_cuda(volume, record_trajectory=record, **kw)
+            want = dc.replay_plain(volume, record_trajectory=record, **kw)
+            compare(["me_diamond_replay"],
+                    [*got[0], *(t for t in got[1:] if t is not None)],
+                    [*want[0], *(t for t in want[1:] if t is not None)],
+                    f"me_diamond_replay {what}"
+                    f"{', trajectory' if record else ''}: "
+                    f"{int(want[2].sum())} blocks escape", quiet=True)
+            checks += 1
+
+    h, w, blk, span = DIAMOND
+    levels = diamond._staged_levels(span)
+    for content, metric, early in (
+            ("config3", "mse", None), ("config3", "sad", None),
+            ("config3", "ssim", None), ("config3", "mse", 2.0),
+            ("adversarial", "mse", None)):
+        cur, ref = (torch.from_numpy(a).to(dev) for a in contents[content])
+        for r in levels:
+            volume = (sc.ssim_volume_cuda(cur, ref, blk_dim=blk, span=r,
+                                          device=dev) if metric == "ssim"
+                      else kc.full_search_volume_cuda(
+                          cur, ref, blk_dim=blk, span=r, metric=metric,
+                          device=dev))
+            check(volume, f"{content} {metric} early-term {early} level {r}",
+                  blk_dim=blk, span=r, search_span=span, metric=metric,
+                  early_term=early, frame_height=h, frame_width=w,
+                  track_escape=r < span)
+
+    # The bottom-right tile of a (2, 2) split of the config3 frame: origin
+    # (544, 960), its last block row truncated to 8 of 16 rows.
+    cur, ref = (torch.from_numpy(a).to(dev) for a in contents["config3"])
+    hp, wp = (-(-n // (2 * blk)) * 2 * blk for n in (h, w))
+    y0, x0 = hp // 2, wp // 2
+    cur_tile = F.pad(cur, (0, wp - w, 0, hp - h))[y0:, x0:]
+    th, tw = cur_tile.shape
+    ref_halo = F.pad(ref, (span, span + wp - w, span, span + hp - h))[
+        y0 : y0 + th + 2 * span, x0 : x0 + tw + 2 * span]
+    for early in (None, 2.0):
+        for r in levels:
+            rh = ref_halo[span - r : span - r + th + 2 * r,
+                          span - r : span - r + tw + 2 * r]
+            volume = kc.full_search_volume_tile_cuda(
+                cur_tile, rh, y0, x0, frame_height=h, frame_width=w,
+                blk_dim=blk, span=r)
+            check(volume, f"tile at ({y0}, {x0}) {th}x{tw} mse early-term "
+                  f"{early} level {r}", blk_dim=blk, span=r,
+                  search_span=span, metric="mse", early_term=early,
+                  frame_height=h, frame_width=w, track_escape=r < span,
+                  y_origin=y0, x_origin=x0)
+
+    # The 4K worst case's first level (bench/matrix.py diamond-worstcase-4k).
+    h4, w4, blk4, span4 = 2160, 3840, 32, 31
+    cur, ref = (torch.from_numpy(a).to(dev) for a in synth(
+        np.random.default_rng(seed + 1), h4, w4, shift=(28, -28), noise=2))
+    r = diamond._staged_levels(span4)[0]
+    volume = kc.full_search_volume_cuda(cur, ref, blk_dim=blk4, span=r,
+                                        device=dev)
+    check(volume, f"4K {blk4}x{blk4} +-{span4} adversarial level {r}",
+          blk_dim=blk4, span=r, search_span=span4, metric="mse",
+          early_term=None, frame_height=h4, frame_width=w4,
+          track_escape=True)
+    return checks
 
 
 def equal_fields(got, want, what):
@@ -947,6 +1102,7 @@ def bench_phase(work, dev, card):
     import bench_torch
     from motionestimation_tpu_torch.bench import __main__ as bench_main
     from motionestimation_tpu_torch.bench import matrix, regression
+    from motionestimation_tpu_torch.kernels import diamond_cuda as dc
     from motionestimation_tpu_torch.search import diamond
     from motionestimation_tpu_torch.search import full_search as fs
 
@@ -1013,16 +1169,24 @@ def bench_phase(work, dev, card):
                   f"volume, the golden search's on the {int(esc.sum())} "
                   f"escaped blocks")
             return
-        _, traj = diamond.diamond_search_frame(
-            cur, ref, blk_dim=row.blk, span=row.span, metric=row.metric,
-            early_term=row.early_term, record_trajectory=True,
-            volume_mode={"staged": "staged", "lazy": "lazy",
-                         "volume": "full"}[row.entry], device=dev)
+        # Every mode replays on the kernel: once a level, or once a fill
+        # pass in the lazy mode (whose planes are golden by design).
+        before = dc.replay_cuda.launches
+        with no_plain_path(what, search=False):
+            _, traj = diamond.diamond_search_frame(
+                cur, ref, blk_dim=row.blk, span=row.span, metric=row.metric,
+                early_term=row.early_term, record_trajectory=True,
+                volume_mode={"staged": "staged", "lazy": "lazy",
+                             "volume": "full"}[row.entry], device=dev)
         if not torch.equal(traj, want_traj):
             fail(f"{what}: trajectory differs from the replay over the golden "
                  f"volume")
+        replays = dc.replay_cuda.launches - before
+        if not replays:
+            fail(f"{what}: the replay kernel never launched")
         print(f"{what}: MVs, costs or scores and trajectories equal the "
-              f"replay over the golden volume")
+              f"replay over the golden volume; me_diamond_replay launched "
+              f"{replays} times, no plain replay")
 
     out_dir = os.path.join(work, "matrix")
     t0 = time.perf_counter()
@@ -1080,10 +1244,13 @@ def main(argv=None) -> int:
     from motionestimation_tpu_torch import cli
     from motionestimation_tpu_torch.bench import measure
     from motionestimation_tpu_torch.bench.roofline import bound
+    from motionestimation_tpu_torch.bench.roofline import replay_bound
+    from motionestimation_tpu_torch.bench.roofline import replay_reads
     from motionestimation_tpu_torch.bench.roofline import valid_candidates
     from motionestimation_tpu_torch.core import frames as frames_lib
     from motionestimation_tpu_torch.core.config import SearchConfig
     from motionestimation_tpu_torch.kernels import _build
+    from motionestimation_tpu_torch.kernels import diamond_cuda as dc
     from motionestimation_tpu_torch.kernels import full_search_cuda as kc
     from motionestimation_tpu_torch.kernels import lab_cuda as lab
     from motionestimation_tpu_torch.kernels import ssim_cuda as sc
@@ -1377,18 +1544,26 @@ def main(argv=None) -> int:
             cur, ref = contents[content]
             out_dir = os.path.join(work, "diamond_" + label.replace(" ", "_"))
             reset_counts()
-            run_cli(cli, [
-                os.path.join(work, f"cur_{content}.yuv"),
-                os.path.join(work, f"ref_{content}.yuv"), out_dir, str(blk),
-                str(span), str(w), str(h), "--device", "cuda",
-                "--algorithm", "diamond", *extra, "--timing-row",
-            ])
+            with no_plain_path(f"diamond {label}"), \
+                    replay_without_sync(sync_errors):
+                run_cli(cli, [
+                    os.path.join(work, f"cur_{content}.yuv"),
+                    os.path.join(work, f"ref_{content}.yuv"), out_dir,
+                    str(blk), str(span), str(w), str(h), "--device", "cuda",
+                    "--algorithm", "diamond", *extra, "--timing-row",
+                ])
             names = [n + EMIT for n in (ssim_kernels if metric == "ssim"
                                         else mse_kernels)]
             crossover = "crossover" in extra
-            counts = read_counts(names, f"main path (diamond {label})")
+            counts = read_counts(names + ["me_diamond_replay"],
+                                 f"main path (diamond {label})")
             for n, c in counts.items():
                 main_launches.setdefault(n, c)
+            # One replay a level: a level is one volume of the interior
+            # kernel's emit mode.
+            if counts["me_diamond_replay"] != counts[names[0]]:
+                fail(f"diamond {label}: {counts['me_diamond_replay']} "
+                     f"replays for {counts[names[0]]} level volumes")
             if content == "adversarial" and not crossover and any(
                     c < len(levels) for c in counts.values()):
                 fail(f"diamond {label}: no escalation to level {span}")
@@ -1445,7 +1620,7 @@ def main(argv=None) -> int:
         sharded_ms = sharded_phase(work, gop, pairs, contents["config3"],
                                    dev, card, counted, reset_counts,
                                    lambda: {n: launches(n) for n in counters
-                                            if launches(n)})
+                                            if launches(n)}, sync_errors)
         print(f"sharded phase: {time.perf_counter() - t_sharded:.1f} s")
     t_graft = time.perf_counter()
     graft_phase(dev, card, counted)
@@ -1453,6 +1628,12 @@ def main(argv=None) -> int:
 
     # -- 4. each kernel against its plain version on the card -------------
     print("== kernels vs their plain versions on the card (exact)")
+    t_replay = time.perf_counter()
+    n_checks = replay_checks(contents, dev, compare, args.seed)
+    print(f"me_diamond_replay: {n_checks} checks against replay_plain, "
+          f"fields, trajectories and escape masks bit for bit, max |kernel "
+          f"- plain| = {max_err['me_diamond_replay']} "
+          f"({time.perf_counter() - t_replay:.1f} s)")
 
     def operands(h, w, span, seed):
         cur, ref = synthetic_pair(h, w, seed)
@@ -1948,23 +2129,45 @@ def main(argv=None) -> int:
               f" ms (runs {[round(t, 4) for t in entry_ms]}) | {card}")
     for metric in ("mse", "ssim"):
         r = levels[0]
-        rounds = []
         rkw = dict(blk_dim=blk, span=r, metric=metric, early_term=None,
                    max_steps=diamond.default_max_steps(span),
-                   record_trajectory=False, frame_height=h, frame_width=w,
-                   track_escape=True)
-        _, _, esc = diamond._replay(volumes[metric, r],
-                                    fill=lambda t, *_: rounds.append(t),
-                                    **rkw)
-        replay_ms = [cuda_ms(lambda: diamond._replay(volumes[metric, r],
-                                                     **rkw), 1)
-                     for _ in range(5)]
-        print(f"  replay alone, {metric} level {r}: median "
-              f"{statistics.median(replay_ms):.4f} ms (runs "
-              f"{[round(t, 4) for t in replay_ms]}; CUDA events around host "
-              f"dispatch), {len(rounds)} LDSP rounds, {int(esc.sum())} "
-              f"blocks escape | {card}")
-    del volumes
+                   frame_height=h, frame_width=w, track_escape=True)
+        vol = volumes[metric, r]
+        _, traj, esc = dc.replay_plain(vol, record_trajectory=True, **rkw)
+        # Round 0 and every round after one in which some block moved.
+        moved = (traj[1:] != traj[:-1]).any(-1).flatten(1).any(1)
+        rounds = 1 + int(moved[:-1].sum())
+        rkw["record_trajectory"] = False
+        plain_ms = [cuda_ms(lambda: dc.replay_plain(vol, **rkw), 1)
+                    for _ in range(5)]
+        dc.replay_cuda(vol, **rkw)  # warm-up
+        # The wrapper's call issues ~15 small torch ops besides the kernel
+        # (outputs, block extents, the mean), which outlast it: the
+        # kernel's own time is the profiler's device time.
+        call_ms = [cuda_ms(lambda: dc.replay_cuda(vol, **rkw), 20)
+                   for _ in range(5)]
+        prof = measure.profile_pass(lambda: dc.replay_cuda(vol, **rkw), 20,
+                                    dev)
+        name = "me::diamond::replay_kernel<int>" if metric != "ssim" else (
+            "me::diamond::replay_kernel<float>")
+        kernel_ms = prof.kernels[name][1]
+        reads = replay_reads(traj.cpu().numpy(), span=r)
+        bound_ms, bound_by = replay_bound(reads, esc.numel())
+        print(f"  replay alone, {metric} level {r}: me_diamond_replay "
+              f"{kernel_ms:.4f} ms (device time, mean of 20 launches in a "
+              f"profiled pass); replay_cuda call median "
+              f"{statistics.median(call_ms):.4f} ms (runs "
+              f"{[round(t, 4) for t in call_ms]}, 20 calls each behind a "
+              f"sleep), replay_plain median "
+              f"{statistics.median(plain_ms):.4f} ms "
+              f"(runs {[round(t, 4) for t in plain_ms]}; CUDA events around "
+              f"host dispatch); bound {bound_ms:.6f} ms ({bound_by}: "
+              f"{reads} distinct volume entries read); {rounds} LDSP rounds, "
+              f"{int(esc.sum())} blocks escape | {card}")
+        if metric == "mse":  # the main path's first replay: the kernels line
+            replay_line = (kernel_ms, statistics.median(plain_ms),
+                           bound_ms, bound_by)
+    del volumes, vol
     cur_t, halo = operands(h, w, span, args.seed)
     nyf = h // blk
     kw = dict(blk_dim=blk, span=span, frame_height=h, frame_width=w)
@@ -1992,7 +2195,7 @@ def main(argv=None) -> int:
     # -- 6. the bench main path ---------------------------------------------
     t_bench = time.perf_counter()
     bench_kernels = [n + e for n in mse_kernels + ssim_kernels
-                     for e in ("", EMIT)]
+                     for e in ("", EMIT)] + ["me_diamond_replay"]
     reset_counts()
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
         bench_phase(work, dev, card)
@@ -2266,7 +2469,8 @@ def main(argv=None) -> int:
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-    for name, (ms, plain_ms, bound_ms, bound_by) in lab_times.items():
+    for name, (ms, plain_ms, bound_ms, bound_by) in [
+            ("me_diamond_replay", replay_line), *lab_times.items()]:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": main_launches[name],

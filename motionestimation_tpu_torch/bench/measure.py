@@ -4,9 +4,10 @@ pinned h2d link rate, the disk read rate, and the card's name and power
 limit.
 
 The profiler pass reads the card's activity from `torch.profiler` (CUPTI).
-The search kernels, launched through ctypes from kernels/csrc, appear
-there by their C++ names, all in namespace `me` (`me::warp_search_kernel`,
-`me::edge::edge_search_kernel`); every other device event is PyTorch's.
+The search kernels and diamond's replay, launched through ctypes from
+kernels/csrc, appear there by their C++ names, all in namespace `me`
+(`me::warp_search_kernel`, `me::edge::edge_search_kernel`,
+`me::diamond::replay_kernel`); every other device event is PyTorch's.
 """
 from __future__ import annotations
 
@@ -20,11 +21,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from motionestimation_tpu_torch.core import frames as frames_lib
+from motionestimation_tpu_torch.kernels import diamond_cuda as dc
 from motionestimation_tpu_torch.kernels import full_search_cuda as kc
 from motionestimation_tpu_torch.kernels import ssim_cuda as sc
 
 EMIT = " (emit)"
-# Launcher name -> wrapper: the search kernels (K1-K7).
+# Launcher name -> wrapper: the search kernels (K1-K7) and diamond's
+# replay.
 WRAPPERS = {
     "me_phase_search": kc.phase_search,
     "me_int_search": kc.int_search,
@@ -33,6 +36,7 @@ WRAPPERS = {
     "me_chunked_search": kc.chunked_search,
     "me_chunked_u8_search": kc.chunked_u8_search,
     "me_wide_search": kc.wide_search,
+    "me_diamond_replay": dc.replay_cuda,
 }
 # Host ops that are the profiler's own or the pass's closing wait, left out
 # of the ranking of host work, and how many of the rest a profile names.

@@ -1,4 +1,5 @@
-"""The least time the card could take for a search: its bound.
+"""The least time the card could take for a search or a diamond replay:
+its bound.
 
 One copy of the arithmetic, shared by `chip_smoke.py` (each kernel's
 `bound_ms`) and `bench_torch.py` (`pct_of_roofline`), so a share of the
@@ -7,6 +8,8 @@ bound can never pass 100% by one side counting less work than the other.
 from __future__ import annotations
 
 import numpy as np
+
+from motionestimation_tpu_torch.search.patterns import LDSP, SDSP
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, int8 ops/s, and
 # float32 outside the tensor cores.
@@ -54,4 +57,47 @@ def bound(h, w, blk, span, tile, origin, ssim=False, volume=False):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = max(2 * pixel_cands / INT8_OPS_S * 1e3,
                 SSIM_FLOPS * block_cands / FP32_OPS_S * 1e3 if ssim else 0.0)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def replay_reads(traj, *, span: int) -> int:
+    """Distinct volume entries a diamond replay without early termination
+    reads on this data, each (plane, block) pair once: per block, the
+    window-clipped LDSP neighbourhoods of its centres over the rounds it
+    was active and the SDSP neighbourhood of its last centre. `traj` is
+    the replay's int32 trajectory [max_steps + 1, nby, nbx, 2] (numpy); a
+    block is active in round 0 and in each later round that follows a
+    move."""
+    k = 2 * span + 1
+    rows = traj.shape[0]
+    cy = traj[..., 0].reshape(rows, -1).astype(np.int64)
+    cx = traj[..., 1].reshape(rows, -1).astype(np.int64)
+    blocks = np.arange(cy.shape[1])
+    keys = []
+
+    def read(y, x, which, pattern):
+        for oy, ox in pattern:
+            ty, tx = y[which] + oy, x[which] + ox
+            ok = (np.abs(ty) <= span) & (np.abs(tx) <= span)
+            plane = (ty[ok] + span) * k + tx[ok] + span
+            keys.append(plane * len(blocks) + blocks[which][ok])
+
+    active = np.ones(len(blocks), dtype=bool)
+    for t in range(rows - 1):
+        read(cy[t], cx[t], active, LDSP)
+        active &= (cy[t + 1] != cy[t]) | (cx[t + 1] != cx[t])
+    read(cy[-1], cx[-1], np.ones_like(active), SDSP)
+    return len(np.unique(np.concatenate(keys)))
+
+
+def replay_bound(reads: int, nblocks: int, trajectory_rows: int = 0):
+    """(bound_ms, bound_by) of a diamond replay: `reads` 4-byte volume
+    entries (`replay_reads`) read once, and per block its int32 MV pair
+    and cost and its escape byte written, plus `trajectory_rows` int32
+    (y, x) rows, over the HBM rate; the operations (a window test, a
+    compare and a select per entry read) over the float32 lane rate stay
+    well below it."""
+    nbytes = 4 * reads + nblocks * (3 * 4 + 1 + 8 * trajectory_rows)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 3 * reads / FP32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

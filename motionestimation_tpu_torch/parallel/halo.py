@@ -39,15 +39,17 @@ def comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _halo_1d(tiles: dict, span: int, mesh: Mesh, axis: str) -> dict:
+def _halo_1d(tiles: dict, span: int, mesh: Mesh, axis: str):
     """Widen every local tile by `span` on both ends of its dimension for
-    `axis` ("ty": rows, "tx": columns) with its neighbours' data."""
+    `axis` ("ty": rows, "tx": columns) with its neighbours' data. Issues
+    the transfers and returns `finish()`, which waits on them and returns
+    the widened tiles."""
     dim = -2 if axis == "ty" else -1
     pos = AXES.index(axis)
     n = mesh.shape[axis]
     ref = next(iter(tiles.values()), None)
     if ref is None:  # this rank owns no slot; it still joins no transfer
-        return {}
+        return lambda: {}
     size = ref.shape[dim]
     hops = geometry.cdiv(span, size)
 
@@ -102,17 +104,34 @@ def _halo_1d(tiles: dict, span: int, mesh: Mesh, axis: str) -> dict:
                     ops.append(dist.P2POp(dist.irecv, buf,
                                           int(mesh.ranks[src]), tag=order))
                     recvs.append((dst, (side, k), buf))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+
+    def finish() -> dict:
+        for req in reqs:
             req.wait()
-    for dst, key, buf in recvs:
-        pieces[dst][key] = buf.to(mesh.devices[dst])
-    out = {}
-    for s, t in tiles.items():
-        before = [pieces[s]["before", k] for k in range(hops, 0, -1)]
-        after = [pieces[s]["after", k] for k in range(1, hops + 1)]
-        out[s] = torch.cat(before + [t] + after, dim=dim)
-    return out
+        ops.clear()  # the send buffers lived until here
+        for dst, key, buf in recvs:
+            pieces[dst][key] = buf.to(mesh.devices[dst])
+        out = {}
+        for s, t in tiles.items():
+            before = [pieces[s]["before", k] for k in range(hops, 0, -1)]
+            after = [pieces[s]["after", k] for k in range(1, hops + 1)]
+            out[s] = torch.cat(before + [t] + after, dim=dim)
+        return out
+
+    return finish
+
+
+def start_halo_exchange_2d(tiles: dict, span: int, mesh: Mesh):
+    """`halo_exchange_2d` issued now and waited on later: the "tx" sweep's
+    transfers leave before the call returns; the returned `wait()`
+    completes them, runs the "ty" sweep on the widened tiles and returns
+    the halos. Every rank of the mesh calls both together and issues no
+    other transfer between them."""
+    if span == 0:
+        return lambda: dict(tiles)
+    finish_tx = _halo_1d(tiles, span, mesh, "tx")
+    return lambda: _halo_1d(finish_tx(), span, mesh, "ty")()
 
 
 def halo_exchange_2d(tiles: dict, span: int, mesh: Mesh) -> dict:
@@ -122,7 +141,4 @@ def halo_exchange_2d(tiles: dict, span: int, mesh: Mesh) -> dict:
     the port of `halo_exchange_2d` (halo.py:81). Every rank of the mesh
     calls it together. Any span works, halos wider than a tile included
     (multi-hop)."""
-    if span == 0:
-        return dict(tiles)
-    wide = _halo_1d(tiles, span, mesh, "tx")
-    return _halo_1d(wide, span, mesh, "ty")
+    return start_halo_exchange_2d(tiles, span, mesh)()

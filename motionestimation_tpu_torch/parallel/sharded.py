@@ -53,7 +53,8 @@ class ShardedStepResult(NamedTuple):
     mv_y / mv_x: [B, nby_p, nbx_p] int32 on the mesh-padded block grid
       (only [:, :nby, :nbx] is contract);
     best_cost:   [B, nby_p, nbx_p] int32 SSD/SAD, or float32 SSIM score;
-    comp:        [B, Hp, Wp] int32 motion-compensated frames;
+    comp:        [B, Hp, Wp] int32 motion-compensated frames (None where
+      the caller asked for no compensated frame);
     sum_sq:      [B] int64 Σerr² over the true frame pixels;
     frame_max:   [B] int32 max(comp, cur) over them, so that
       `frames.psnr_from_stats(sum_sq, H*W, frame_max)` equals
@@ -215,7 +216,8 @@ def sharded_motion_step(cur_batch, ref_batch, *, mesh: Mesh, blk_dim: int,
                         span: int, metric: str = "mse", frame_height: int,
                         frame_width: int, backend: str = "auto",
                         algorithm: str = "full",
-                        early_term: float | None = None) -> ShardedStepResult:
+                        early_term: float | None = None,
+                        with_comp: bool = True) -> ShardedStepResult:
     """One full motion-estimation step for a batch of frame pairs (the
     port of `sharded_motion_step`, sharded.py:109).
 
@@ -228,7 +230,9 @@ def sharded_motion_step(cur_batch, ref_batch, *, mesh: Mesh, blk_dim: int,
     `search.diamond.diamond_search_tile`, with `early_term`; its
     candidates reach at most +-span, so the same halo serves). backend:
     "auto", "cuda" or "golden" (module docstring). Returns a
-    ShardedStepResult; sharded == unsharded holds exactly.
+    ShardedStepResult; sharded == unsharded holds exactly. Without
+    `with_comp`, each slot still compensates its tile for the stats but
+    the compensated frame is not gathered, and `comp` is None.
     """
     if algorithm not in ("full", "diamond"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
@@ -253,17 +257,19 @@ def sharded_motion_step(cur_batch, ref_batch, *, mesh: Mesh, blk_dim: int,
     home = _home(mesh)
     grid = (batch, hp // blk_dim, wp // blk_dim)
     cost_dtype = torch.float32 if metric == "ssim" else torch.int32
-    mv_y, mv_x, cost, comp = (
+    gathered = [(0, grid, torch.int32), (1, grid, torch.int32),
+                (2, grid, cost_dtype)]
+    if with_comp:
+        gathered.append((3, (batch, hp, wp), torch.int32))
+    mv_y, mv_x, cost, *comp = (
         _assemble({s: p[i] for s, p in parts.items()}, mesh, shape, dtype,
                   home)
-        for i, shape, dtype in ((0, grid, torch.int32),
-                                (1, grid, torch.int32),
-                                (2, grid, cost_dtype),
-                                (3, (batch, hp, wp), torch.int32)))
+        for i, shape, dtype in gathered)
     sq, fmax = _reduce_stats({s: p[4] for s, p in parts.items()},
                              {s: p[5] for s, p in parts.items()}, mesh,
                              batch, home)
-    return ShardedStepResult(mv_y, mv_x, cost, comp, sq, fmax)
+    return ShardedStepResult(mv_y, mv_x, cost, comp[0] if comp else None,
+                             sq, fmax)
 
 
 def sharded_gop_pipelined(frames, *, mesh: Mesh, blk_dim: int, span: int,
@@ -303,19 +309,20 @@ def sharded_gop_pipelined(frames, *, mesh: Mesh, blk_dim: int, span: int,
     outs = {slot: [] for slot in local}
 
     def exchange(i):
-        return halo_lib.halo_exchange_2d(
+        return halo_lib.start_halo_exchange_2d(
             {s: t[i] for s, t in stack.tiles.items()}, span, mesh)
 
-    carried = exchange(0)
+    carried = exchange(0)()
     for i in range(1, pairs + 1):
         # The next pair's reference halo does not depend on this pair's
-        # search; it is issued first.
+        # search: its "tx" sweep is issued first; the wait before the next
+        # pair's search finishes it and runs the "ty" sweep.
         nxt = exchange(i)
         for slot in local:
             outs[slot].append(_step_slot(
                 stack.tiles[slot][i : i + 1], [carried[slot]],
                 slot[1] * tile_h, slot[2] * tile_w, **kw))
-        carried = nxt
+        carried = nxt()
     parts = {s: [torch.cat(kind) for kind in zip(*o)]
              for s, o in outs.items()}
     home = _home(mesh)

@@ -538,7 +538,8 @@ def run_gop_sharded(
     Consecutive pairs are batched along the mesh's "dp" axis, each batch
     one `parallel.sharded.sharded_motion_step` (halo exchange, search on
     the ported kernels' tile entries on a CUDA mesh, compensation, exact
-    stats), frame tiles over ("ty", "tx"); the next batch is staged while
+    stats; the compensated frame, which no dump holds, is not gathered),
+    frame tiles over ("ty", "tx"); the next batch is staged while
     the current one computes (`parallel.ingest.ShardedPrefetcher`). On a
     dp = 1 mesh, full search runs `sharded_gop_pipelined` over runs of
     `chunk_pairs` consecutive pairs instead, which exchanges each frame's
@@ -659,7 +660,7 @@ def run_gop_sharded(
         for chunk, cur_b, ref_b in zip(chunks, cur_stream, ref_stream):
             res = sharded.sharded_motion_step(
                 cur_b, ref_b, algorithm=config.algorithm,
-                early_term=config.early_term, **step_kw)
+                early_term=config.early_term, with_comp=False, **step_kw)
             yield chunk, (res.mv_y, res.mv_x, res.best_cost, res.sum_sq,
                           res.frame_max)
             for i in chunk:

@@ -19,21 +19,26 @@ stops the block, SDSP included; otherwise one SDSP step over
 gives the MV.
 
 Every path replays the trajectories over a [K², nby, nbx] volume of
-candidate costs (`_replay`): one `torch.gather` per pattern step at the
-flat index (cy + oy + span) * K + (cx + ox + span), with every target
-outside the window masked to the sentinel (a horizontal step past the
-window edge would alias into the next dy row). The volume comes from:
+candidate costs (`_replay`) at the flat index (cy + oy + span) * K + (cx +
+ox + span), with every target outside the window masked to the sentinel (a
+horizontal step past the window edge would alias into the next dy row). On
+the card one launch of `me_diamond_replay` walks every block's trajectory
+(`kernels/diamond_cuda.replay_cuda`); on the CPU `replay_plain` replays
+all blocks in lockstep, one `torch.gather` per pattern step. The volume
+comes from:
 
 * "staged": the kernels' emit modes at radius 6, then the full span only
   if some block's trajectory could leave the first level
   (`_staged_levels`, `_diamond_staged`);
-* "lazy": the golden `make_displacement_cost`, round by round, only for
-  the planes near an active centre (`_round_plan`);
+* "lazy": the golden `make_displacement_cost`, only for the planes near
+  the trajectories, pass by pass (`_diamond_lazy`);
 * "full": the whole volume up front.
 
 All three give the same MVs, costs and trajectories. The JAX package's
-`lax.cond` around a round becomes a host branch on whether any block is
-still active. `diamond_search_tile` runs the staged path on one mesh
+`lax.cond` around a round becomes each block's own stop in the kernel (a
+host branch on whether any block is still active in the plain replay); its
+`lax.cond` around an escalation, a host branch on whether any block
+escaped a level. `diamond_search_tile` runs the staged path on one mesh
 shard's tile, its level volumes from the kernels' tile entries.
 """
 from __future__ import annotations
@@ -43,17 +48,14 @@ import functools
 import numpy as np
 import torch
 
-from motionestimation_tpu_torch.core import geometry
 from motionestimation_tpu_torch.core.device import resolve_device, to_tensor
+from motionestimation_tpu_torch.kernels import diamond_cuda as dc
 from motionestimation_tpu_torch.kernels import full_search_cuda as fsc
 from motionestimation_tpu_torch.kernels import ssim_cuda as sc
 from motionestimation_tpu_torch.metrics import cost as cost_lib
 from motionestimation_tpu_torch.search import full_search as fs
 from motionestimation_tpu_torch.search.full_search import MotionField
-
-LDSP = ((-2, 0), (-1, -1), (-1, 1), (0, -2), (0, 0),
-        (0, 2), (1, -1), (1, 1), (2, 0))
-SDSP = ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0))
+from motionestimation_tpu_torch.search.patterns import LDSP, SDSP
 
 
 def default_max_steps(span: int) -> int:
@@ -134,178 +136,83 @@ def staged_supported(blk_dim: int, span: int, metric: str) -> bool:
     return fsc.volume_supported(blk_dim, span, metric)
 
 
-def _replay(volume, *, blk_dim: int, span: int, metric: str, early_term,
-            max_steps: int, record_trajectory: bool, frame_height: int,
-            frame_width: int, track_escape: bool = False, fill=None,
-            y_origin: int = 0, x_origin: int = 0):
-    """Replay the canonical trajectories over a [K², nby, nbx] volume (int32
-    with INT32_MAX, or float32 SSIM scores with -inf, at invalid
-    candidates): the port of `_diamond_replay` (diamond.py:259). The
-    volume's blocks are those of a tile at global (y_origin, x_origin), the
-    whole frame by default; the origin sets their pixel counts.
+def _replay(volume, **kw):
+    """Replay the canonical trajectories over a [K², nby, nbx] volume (the
+    port of `_diamond_replay`, diamond.py:259; arguments and results as
+    `diamond_cuda.replay_plain`'s): `me_diamond_replay` on a CUDA volume,
+    the plain lockstep replay on a CPU volume."""
+    if volume.device.type == "cuda":
+        return dc.replay_cuda(volume, **kw)
+    return dc.replay_plain(volume, **kw)
 
-    With `track_escape`, `span` is the radius of a volume cropped below the
-    search window (a staged level): the third result marks the blocks whose
-    trajectory could reach past it, a centre beyond span - 2 while active
-    or beyond span - 1 at SDSP. Up to that event the trajectory is exact.
 
-    `fill(t, cy, cx, active)`, where given, fills planes of `volume` in
-    place before round t's lookups (the lazy path).
-
-    Returns (field, trajectory or None, escaped); the trajectory is int32
-    [max_steps + 1, nby, nbx, 2], the centre after each LDSP round, frozen
-    once no block is active.
-    """
-    kk, nby, nbx = volume.shape
-    dev = volume.device
-    minimise = metric in ("mse", "sad")
-    k = 2 * span + 1
-    _, _, blk_h, blk_w = geometry.block_extents(
-        y_origin, x_origin, nby, nbx, blk_dim, frame_height, frame_width, dev
-    )
-    count = blk_h * blk_w
-    sentinel = cost_lib.INT32_MAX if minimise else float("-inf")
-    planes = volume.view(kk, nby * nbx)
-    threshold = (None if early_term is None else
-                 torch.tensor(early_term, dtype=torch.float32, device=dev))
-
-    def offsets(pattern):
-        """(oy, ox) of the pattern's non-centre offsets, [n, 1, 1] each, and
-        the [n + 1] tables that decode a winner (0: the centre)."""
-        offs = [o for o in pattern if o != (0, 0)]
-        t = torch.tensor([(0, 0)] + offs, dtype=torch.int32, device=dev)
-        return t[1:, 0, None, None], t[1:, 1, None, None], t[:, 0], t[:, 1]
-
-    ldsp, sdsp = offsets(LDSP), offsets(SDSP)
-
-    def pattern_step(cy, cx, ccost, pattern):
-        """The winning offset and cost per block; (0, 0) and ccost when no
-        candidate beats the centre. The centre comes first and the
-        candidates in pattern order, and argmin/argmax return the first
-        extremum: strict comparisons, first in order winning ties."""
-        oy, ox, table_y, table_x = pattern
-        ty, tx = cy + oy, cx + ox
-        ok = (ty.abs() <= span) & (tx.abs() <= span)
-        flat = torch.where(ok, (ty + span) * k + (tx + span), 0)
-        cand = planes.gather(0, flat.view(len(oy), -1).long())
-        cand = cand.view(len(oy), nby, nbx).masked_fill(~ok, sentinel)
-        costs = torch.cat([ccost[None], cand])
-        win = costs.argmin(0) if minimise else costs.argmax(0)
-        return (table_y[win], table_x[win],
-                costs.gather(0, win[None])[0])
-
-    def early_mask(ccost):
-        if threshold is None:
-            return torch.zeros(ccost.shape, dtype=torch.bool, device=dev)
-        if minimise:
-            per_px = ccost.to(torch.float32) / count.clamp(min=1).to(
-                torch.float32)
-            return per_px <= threshold
-        return ccost >= threshold
-
-    def chebyshev(cy, cx):
-        return torch.maximum(cy.abs(), cx.abs())
-
-    cy = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
-    cx = torch.zeros_like(cy)
-    ccost = volume[span * k + span].clone()
-    active = torch.ones((nby, nbx), dtype=torch.bool, device=dev)
-    terminated = torch.zeros_like(active)
-    escaped = torch.zeros_like(active)
-    trajs = [torch.stack([cy, cx], -1)] if record_trajectory else None
-    for t in range(max_steps):
-        if not bool(active.any()):  # every block converged or terminated
-            break
-        hit = early_mask(ccost) & active
-        terminated |= hit
-        active &= ~hit
-        if track_escape:
-            escaped |= active & (chebyshev(cy, cx) > span - 2)
-        if fill is not None:
-            fill(t, cy, cx, active)
-        wy, wx, wc = pattern_step(cy, cx, ccost, ldsp)
-        moved = active & ((wy != 0) | (wx != 0))
-        active = moved
-        cy = torch.where(moved, cy + wy, cy)
-        cx = torch.where(moved, cx + wx, cx)
-        ccost = torch.where(moved, wc, ccost)
-        if record_trajectory:
-            trajs.append(torch.stack([cy, cx], -1))
-    traj = None
-    if record_trajectory:
-        trajs += [trajs[-1]] * (max_steps + 1 - len(trajs))
-        traj = torch.stack(trajs)
-
-    # The post-loop early check mirrors the golden model's final state.
-    terminated |= early_mask(ccost)
-    wy, wx, wc = pattern_step(cy, cx, ccost, sdsp)
-    apply_sdsp = ~terminated
-    if track_escape:
-        escaped |= apply_sdsp & (chebyshev(cy, cx) > span - 1)
-    cy = torch.where(apply_sdsp, cy + wy, cy)
-    cx = torch.where(apply_sdsp, cx + wx, cx)
-    ccost = torch.where(apply_sdsp, wc, ccost)
-
-    if minimise:
-        mean = (cost_lib.mse_from_ssd if metric == "mse"
-                else cost_lib.mad_from_sad)(ccost, count)
-        field = MotionField(cy, cx, ccost, mean)
-    else:
-        field = MotionField(cy, cx, (cy + span) * k + (cx + span), ccost)
-    return field, traj, escaped
+def _near(mask, radius: int):
+    """The [k, k] bool mask of the displacements within Chebyshev `radius`
+    of a True entry of `mask` (numpy)."""
+    k = mask.shape[0]
+    padded = np.pad(mask, radius)
+    out = np.zeros_like(mask)
+    for dy in range(2 * radius + 1):
+        for dx in range(2 * radius + 1):
+            out |= padded[dy : dy + k, dx : dx + k]
+    return out
 
 
 def _diamond_lazy(cur, ref, *, blk_dim: int, span: int, metric: str,
                   early_term, max_steps: int, record_trajectory: bool):
-    """Lazy replay (the port of `_diamond_lazy`, diamond.py:463): before
-    round t, evaluate with the golden `make_displacement_cost` the planes of
-    the round's fill list (`_round_plan`) that are not filled yet and lie
-    within Chebyshev distance 3 of some active block's centre (this round's
-    LDSP reach plus the next SDSP). Covers every metric and block size.
-    Returns (field, trajectory or None)."""
+    """Lazy replay (the counterpart of `_diamond_lazy`, diamond.py:463):
+    only the planes near the trajectories are evaluated, by the golden
+    `make_displacement_cost` (every metric and block size), into a [K²,
+    nby, nbx] volume whose other planes hold the sentinel, which never
+    wins a comparison. Each pass replays that volume (`_replay`: one
+    `me_diamond_replay` launch on the card), then fills the planes within
+    Chebyshev distance 3 (the LDSP reach plus the SDSP step) of any
+    centre its trajectories visited and within `max_steps` rounds' reach
+    (`_round_plan`). A pass after which none was missing read only filled
+    planes: it is the replay over the whole golden volume. Each pass takes
+    every unfinished trajectory at least one round further. JAX's lazy
+    mode makes the same pick before every round under `lax.cond`; here it
+    costs one host sync a pass. Returns (field, trajectory or None)."""
     frame_height, frame_width = cur.shape
     cur_p = fs.pad_cur_frame(cur, frame_height, frame_width, blk_dim)
     ref_halo = fs.make_ref_halo(ref, frame_height, frame_width, blk_dim, span)
     nby, nbx = cur_p.shape[0] // blk_dim, cur_p.shape[1] // blk_dim
+    dev = cur_p.device
     k = 2 * span + 1
     disp_cost = fs.make_displacement_cost(
         cur_p, ref_halo, 0, 0, frame_height=frame_height,
         frame_width=frame_width, blk_dim=blk_dim, span=span, metric=metric,
     )
-    need_lists, _, _ = _round_plan(span, max_steps)
     if metric == "ssim":
         volume = torch.full((k * k, nby, nbx), float("-inf"),
-                            dtype=torch.float32, device=cur_p.device)
+                            dtype=torch.float32, device=dev)
     else:
         volume = torch.full((k * k, nby, nbx), cost_lib.INT32_MAX,
-                            dtype=torch.int32, device=cur_p.device)
-    filled = np.zeros(k * k, dtype=bool)
-    centre = span * k + span
-    volume[centre] = disp_cost(centre)
-    filled[centre] = True
-
-    def fill(t, cy, cx, active):
-        idxs = np.asarray(need_lists[t])
-        idxs = idxs[~filled[idxs]]
-        if not len(idxs):
-            return
-        centres = torch.stack([cy[active], cx[active]], 1).unique(dim=0)
-        centres = centres.cpu().numpy()
-        near = (
-            (np.abs(centres[None, :, 0] - (idxs // k - span)[:, None]) <= 3)
-            & (np.abs(centres[None, :, 1] - (idxs % k - span)[:, None]) <= 3)
-        ).any(1)
-        for idx in idxs[near]:
+                            dtype=torch.int32, device=dev)
+    _, radii, sdsp_radius = _round_plan(span, max_steps)
+    d = np.abs(np.arange(-span, span + 1))
+    in_reach = np.maximum.outer(d, d) <= max(radii + (sdsp_radius,))
+    filled = np.zeros((k, k), dtype=bool)
+    visited = np.zeros((k, k), dtype=bool)
+    visited[span, span] = True
+    while True:
+        need = _near(visited, 3) & in_reach & ~filled
+        if not need.any():
+            break
+        for idx in np.flatnonzero(need):
             volume[idx] = disp_cost(int(idx))
-        filled[idxs[near]] = True
-
-    field, traj, _ = _replay(
-        volume, blk_dim=blk_dim, span=span, metric=metric,
-        early_term=early_term, max_steps=max_steps,
-        record_trajectory=record_trajectory, frame_height=frame_height,
-        frame_width=frame_width, fill=fill,
-    )
-    return field, traj
+        filled |= need
+        field, traj, _ = _replay(
+            volume, blk_dim=blk_dim, span=span, metric=metric,
+            early_term=early_term, max_steps=max_steps,
+            record_trajectory=True, frame_height=frame_height,
+            frame_width=frame_width,
+        )
+        hit = torch.zeros(k * k, dtype=torch.bool, device=dev)
+        hit[((traj[..., 0] + span) * k + traj[..., 1] + span).flatten()
+            .long()] = True
+        visited = hit.view(k, k).cpu().numpy()
+    return field, traj if record_trajectory else None
 
 
 def _merge(esc, new: MotionField, old: MotionField) -> MotionField:
@@ -411,8 +318,8 @@ def diamond_search_frame(
         else "lazy". "auto" takes "lazy" for SSIM on the CPU, where the
         volume is the golden full-plane scan (more planes than lazy's), as
         the JAX package does off the TPU.
-      "lazy": only diamond-reachable planes, round by round, from the
-        golden `make_displacement_cost`; every metric and block size.
+      "lazy": only the planes near the trajectories, pass by pass, from
+        the golden `make_displacement_cost`; every metric and block size.
       "full": the whole [K², nby, nbx] volume up front (the kernels' emit
         modes where they cover the config, else the golden volume).
     All modes give the same MVs, costs and trajectories.

@@ -106,3 +106,22 @@ def test_halo_keeps_leading_dims_and_devices():
     assert (t[:, 2:10, 10:] == 1).all() and (t[:, 10:, 2:10] == 10).all()
     assert (t[:, 10:, 10:] == 11).all() and (t[:, :2] == 0).all()
     assert halo.halo_exchange_2d(tiles, 0, mesh) == tiles
+
+
+@pytest.mark.parametrize("dp,ty,tx,h,w,blk,span", CASES)
+def test_started_exchange_equals_exchange(dp, ty, tx, h, w, blk, span):
+    """`start_halo_exchange_2d(...)()` gives `halo_exchange_2d`'s halos,
+    with tiles computed on between the two calls."""
+    rng = np.random.default_rng(h + w + span)
+    refs = rng.integers(0, 256, (dp, h, w), dtype=np.uint8)
+    mesh = make_mesh(dp, ty, tx, devices=[CPU] * (dp * ty * tx))
+    hp, wp = sharded.padded_dims_for_mesh(h, w, blk, mesh)
+    tiles = ingest.put_frame_batch(
+        np.pad(refs, ((0, 0), (0, hp - h), (0, wp - w))), mesh).tiles
+    want = halo.halo_exchange_2d(tiles, span, mesh)
+    wait = halo.start_halo_exchange_2d(tiles, span, mesh)
+    _ = [t.sum() for t in tiles.values()]  # work between issue and wait
+    got = wait()
+    assert sorted(got) == sorted(want)
+    for slot, t in got.items():
+        assert torch.equal(t, want[slot]), slot

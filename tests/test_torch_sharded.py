@@ -610,3 +610,33 @@ def test_sharded_on_one_card_matches_frame_entries_cuda(cuda, ty, tx, h, w,
     assert torch.equal(comp, fs.compensate_frame(
         torch.from_numpy(ref).to(cuda), want, frame_height=h, frame_width=w,
         blk_dim=blk, span=span))
+
+
+@pytest.mark.parametrize("backend", BACKENDS, ids=BACKEND_IDS)
+@pytest.mark.parametrize("algorithm", ["full", "diamond"])
+def test_step_without_comp_gathers_no_frame(backend, algorithm, monkeypatch):
+    """`with_comp=False` (run_gop_sharded's per-pair path): MVs, costs and
+    stats equal the full step's, `comp` is None, and the compensated frame
+    is never assembled."""
+    rng = np.random.default_rng(31)
+    h, w, blk, span = 40, 56, 8, 5
+    refs = np.stack([_pair(rng, h, w)[1] for _ in range(2)])
+    curs = np.clip(refs.astype(np.int32) + rng.integers(-8, 9, refs.shape),
+                   0, 255).astype(np.uint8)
+    kw = dict(mesh=_mesh(2, 2, 2), blk_dim=blk, span=span, frame_height=h,
+              frame_width=w, backend=backend, algorithm=algorithm)
+    want = sharded.sharded_motion_step(curs, refs, **kw)
+    shapes = []
+    real = sharded._assemble
+
+    def recording(local, mesh, shape, dtype, home):
+        shapes.append(tuple(shape))
+        return real(local, mesh, shape, dtype, home)
+
+    monkeypatch.setattr(sharded, "_assemble", recording)
+    got = sharded.sharded_motion_step(curs, refs, with_comp=False, **kw)
+    assert got.comp is None and want.comp is not None
+    assert len(shapes) == 3 and want.comp.shape not in shapes
+    for name in ("mv_y", "mv_x", "best_cost", "sum_sq", "frame_max"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
