@@ -50,7 +50,19 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    the interior kernel's emit mode), runs no plain replay or plain search,
    and each replay call runs under `torch.cuda.set_sync_debug_mode("error")`
    (the staged path branches on the host once a level, outside it). Then
-   the GOP main path:
+   the lazy mode's main path (`LAZY_RUNS`): config3-ssim (lazy) at 1080p
+   16x16 +-15 SSIM, 1080p 24x24 +-15 MSE diamond through `run_pair` and
+   3840x2160 64x64 +-15 SSIM diamond through the CLI (auto falls back to
+   lazy there), an explicit lazy 3840x2160 8x8 +-31 MSE, SAD, span 1 and
+   MSE early term 2.0 and 2500 (where the early check must stop blocks),
+   each call exactly one `me_diamond_walk` launch and
+   no other, no golden plane, no replay and no host sync inside the lazy
+   mode; each case's `walk_cuda` against its plain version `lazy_plain`
+   (MVs, costs or scores and trajectories bit for bit) and the entry's
+   output against the plain version's; timed: the kernel's device time,
+   the lazy call's and `lazy_plain`'s ms, the evaluations and the bound
+   (`bench/roofline.walk_bound`), and at 4K 8x8 +-31 the peak memory of
+   the call beside `lazy_plain`'s. Then the GOP main path:
    `cli.main --device cuda --gop` over 33 frames at 3840x2160 8x8 +-12
    (the JAX bench's headline GOP, bench.py's content from --seed; the
    packed readback): exactly 32 launches of the phase kernel and none of
@@ -167,8 +179,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    row's first call held against the plain golden path on the card: the
    full-search and SSIM rows' fields equal to the golden search's, the
    diamond rows' fields (and, but for crossover, trajectories) equal to
-   the replay over the golden volume, each row's trajectory call
-   launching `me_diamond_replay` and no `replay_plain`; then
+   the replay over the golden volume, each staged or full row's
+   trajectory call launching `me_diamond_replay` and no `replay_plain`,
+   the lazy row's one `me_diamond_walk` launch and no replay or golden
+   plane; then
    `bench_torch.main()`, whose JSON line is printed, every number finite
    and `pct_of_roofline` in (0, 100].
 7. The speed-of-light tools' main path, counted: `vpu_peak.main()` (the
@@ -219,6 +233,7 @@ SOURCE = {
     "me_chunked_u8_search": CSRC + "chunked.cu",
     "me_wide_search": CSRC + "chunked.cu",
     "me_diamond_replay": CSRC + "diamond.cu",
+    "me_diamond_walk": CSRC + "diamond_walk.cu",
     "me_lab_peak": CSRC + "lab.cu",
     "me_lab_chain": CSRC + "lab.cu",
     "me_lab_phase": CSRC + "lab.cu",
@@ -241,6 +256,8 @@ REPLACES = {
     "me_wide_search": "motionestimation_tpu/kernels/full_search_pallas.py:471",
     # An XLA program, not a Pallas kernel: the jitted `_diamond_replay`.
     "me_diamond_replay": "motionestimation_tpu/search/diamond.py:259",
+    # An XLA program, not a Pallas kernel: the jitted `_diamond_lazy`.
+    "me_diamond_walk": "motionestimation_tpu/search/diamond.py:463",
     "me_lab_peak": "tools/vpu_peak.py:44",
     "me_lab_chain": "tools/vpu_peak.py:99",
     "me_lab_phase": "tools/kern_lab.py:357",
@@ -319,6 +336,35 @@ DIAMOND_RUNS = [
     ("mse adversarial", "adversarial", [], "mse"),
     ("mse adversarial crossover", "adversarial",
      ["--escape-policy", "crossover"], "mse"),
+]
+# The lazy mode's main path, one `me_diamond_walk` launch a call: (label,
+# entry, content, blk, span, metric, early_term, volume_mode). config3-ssim
+# (lazy), the JAX bench's lazy row (bench/matrix.py:139-140); the full
+# search cells' blk 24 MSE (K7) and 4K 64x64 SSIM (K4) as diamond, which
+# the staged path cannot take (auto falls back to lazy), through
+# `run_pair` and the CLI; the JAX lazy mode's own case, 4K 8x8 +-31
+# (motionestimation_tpu/search/diamond.py:477-480); SAD, span 1 (auto ->
+# lazy) and early termination on config3 content: at 2.0, the threshold of
+# the diamond GOP, no block stops (config3's true shift (1, -2) is never an
+# LDSP centre, and one pixel off its 4x4 tiles costs an MSE in the
+# thousands); at 2500 about half of them stop before an LDSP round, so the
+# kernel's early stop runs at full size.
+LAZY_RUNS = [
+    ("config3-ssim (lazy) 1080p 16x16 +-15 ssim", "frame", "config3", 16,
+     15, "ssim", None, "lazy"),
+    ("1080p 24x24 +-15 mse, run_pair (auto -> lazy)", "run_pair", "config3",
+     24, 15, "mse", None, "auto"),
+    ("4K 64x64 +-15 ssim, cli (auto -> lazy)", "cli", "4K", 64, 15, "ssim",
+     None, "auto"),
+    ("4K 8x8 +-31 mse (lazy)", "frame", "4K", 8, 31, "mse", None, "lazy"),
+    ("1080p 16x16 +-15 sad (lazy)", "frame", "config3", 16, 15, "sad", None,
+     "lazy"),
+    ("1080p 16x16 +-1 mse (auto -> lazy)", "frame", "config3", 16, 1, "mse",
+     None, "auto"),
+    ("1080p 16x16 +-15 mse early-term 2.0 (lazy)", "frame", "config3", 16,
+     15, "mse", 2.0, "lazy"),
+    ("1080p 16x16 +-15 mse early-term 2500 (lazy)", "frame", "config3", 16,
+     15, "mse", 2500.0, "lazy"),
 ]
 # The GOP main path. The JAX package's headline (bench.py:15-24, 73): a
 # 33-frame 4K 8x8 +-12 MSE GOP, through the CLI (the packed readback); then
@@ -667,6 +713,167 @@ def replay_without_sync(sync_errors):
         yield
     finally:
         diamond._replay = real
+
+
+@contextlib.contextmanager
+def lazy_without_sync(sync_errors):
+    """Each call of the lazy mode (`search.diamond._diamond_lazy`) inside
+    the block runs under `sync_errors()`: on the card it issues no host
+    sync."""
+    from motionestimation_tpu_torch.search import diamond
+
+    real = diamond._diamond_lazy
+
+    def checked(*a, **kw):
+        with sync_errors():
+            return real(*a, **kw)
+
+    diamond._diamond_lazy = checked
+    try:
+        yield
+    finally:
+        diamond._diamond_lazy = real
+
+
+def lazy_phase(work, contents, dev, card, counted, sync_errors, compare,
+               cuda_ms):
+    """The lazy mode's main path (LAZY_RUNS): each case once through its
+    entry, counted (one `me_diamond_walk` launch and no other kernel), with
+    no golden plane, no plain replay and no host sync in the lazy mode; then
+    `walk_cuda` against its plain version `lazy_plain` on the card (MVs,
+    costs or scores and trajectories bit for bit), the entry's output
+    against the plain version's, and the timing: the kernel's device time,
+    the whole call's and the plain version's ms, the evaluations and the
+    bound (`bench/roofline.walk_bound`), and at 4K 8x8 +-31 the peak memory
+    of the call beside the plain version's. Fails where no early-term case
+    stopped a block (`bench/roofline.walk_terminated`). Returns {label:
+    (kernel ms, plain ms, bound ms, bound by)}."""
+    from motionestimation_tpu_torch import cli
+    from motionestimation_tpu_torch.bench import measure, roofline
+    from motionestimation_tpu_torch.core import frames as frames_lib
+    from motionestimation_tpu_torch.core.config import SearchConfig
+    from motionestimation_tpu_torch.kernels import diamond_cuda as dc
+    from motionestimation_tpu_torch.pipeline import runner
+    from motionestimation_tpu_torch.search import diamond
+
+    out = {}
+    stopped = 0  # blocks the early check stopped, over the early-term cases
+    for label, entry, content, blk, span, metric, early, mode in LAZY_RUNS:
+        cur, ref = contents[content]
+        h, w = cur.shape
+        cur_t, ref_t = (torch.from_numpy(a).to(dev) for a in (cur, ref))
+        kw = dict(blk_dim=blk, span=span, metric=metric, early_term=early,
+                  max_steps=diamond.default_max_steps(span))
+        what = f"diamond {label}"
+        print(f"== main path ({what}): {entry}, volume_mode {mode!r}, "
+              f"{content} content")
+        out_dir = os.path.join(work, "lazy_" + content + f"_{blk}_{span}")
+        with counted({"me_diamond_walk": 1}, f"main path ({what})"), \
+                no_plain_path(what), lazy_without_sync(sync_errors):
+            if entry == "frame":
+                got_main = diamond.diamond_search_frame(
+                    cur_t, ref_t, record_trajectory=True, volume_mode=mode,
+                    device=dev, **kw)
+            elif entry == "run_pair":
+                res = runner.run_pair(cur, ref, SearchConfig(
+                    blk_dim=blk, span=span, metric=metric,
+                    algorithm="diamond", early_term=early, frame_width=w,
+                    frame_height=h), device=dev)
+            else:
+                paths = [os.path.join(work, f"{n}_{content}.yuv")
+                         for n in ("cur", "ref")]
+                cur.tofile(paths[0])
+                ref.tofile(paths[1])
+                run_cli(cli, [*paths, out_dir, str(blk), str(span), str(w),
+                              str(h), "--device", "cuda", "--metric", metric,
+                              "--algorithm", "diamond", "--timing-row"])
+        # The kernel against its plain version, the pass loop on the card.
+        want, want_traj = diamond.lazy_plain(cur_t, ref_t,
+                                             record_trajectory=True, **kw)
+        got, got_traj = dc.walk_cuda(cur_t, ref_t, record_trajectory=True,
+                                     **kw)
+        compare(["me_diamond_walk"], [*got, got_traj], [*want, want_traj],
+                f"me_diamond_walk {label}: fields and trajectory vs "
+                f"lazy_plain")
+        if entry == "frame":
+            field, traj = got_main
+            equal_fields(field, want, what)
+            if not torch.equal(traj, want_traj):
+                fail(f"{what}: trajectory differs from lazy_plain's")
+        elif entry == "run_pair":
+            for name, a, b in zip(want._fields, res.field, want):
+                if not np.array_equal(a, b.cpu().numpy()):
+                    fail(f"{what}: run_pair's {name} differs from "
+                         f"lazy_plain's")
+        else:
+            check_stack(out_dir, cur, ref, want, blk, span, label,
+                        frames_lib)
+        moved = int(((want.mv_y != 0) | (want.mv_x != 0)).sum())
+        print(f"{what}: the entry's output equals lazy_plain's; {moved} of "
+              f"{want.mv_y.numel()} blocks moved")
+
+        # Timing: the kernel alone in a profiled pass, the whole call and the
+        # plain version (CUDA events; the calls queued behind a sleep).
+        walk = functools.partial(dc.walk_cuda, cur_t, ref_t,
+                                 record_trajectory=False, **kw)
+        walk()  # warm-up
+        prof = measure.profile_pass(walk, 10, dev)
+        kernel_ms = next(ms for name, (_, ms) in prof.kernels.items()
+                         if "walk_kernel" in name)
+        call = functools.partial(
+            diamond.diamond_search_frame, cur_t, ref_t, volume_mode=mode,
+            device=dev, **kw)
+        call_ms = [cuda_ms(call, 10) for _ in range(3)]
+        plain = functools.partial(diamond.lazy_plain, cur_t, ref_t,
+                                  record_trajectory=False, **kw)
+        plain_ms = [cuda_ms(plain, 1) for _ in range(3)]
+        count = (np.minimum(blk, h - np.arange(0, h, blk))[:, None]
+                 * np.minimum(blk, w - np.arange(0, w, blk))[None, :])
+        traj_np = got_traj.cpu().numpy()
+        cost = (got.score if metric == "ssim" else got.best_cost_i32)
+        terminated = roofline.walk_terminated(
+            got.mv_y.cpu().numpy(), got.mv_x.cpu().numpy(),
+            cost.cpu().numpy(), traj_np, early_term=early, count=count,
+            minimise=metric != "ssim")
+        stopped += int(terminated.sum())
+        block_evals, pixel_evals = roofline.walk_evals(
+            traj_np, span=span, blk_dim=blk, frame_height=h, frame_width=w,
+            terminated=terminated)
+        bound_ms, bound_by = roofline.walk_bound(
+            h, w, nblocks=got.mv_y.numel(), block_evals=block_evals,
+            pixel_evals=pixel_evals, metric=metric)
+        print(f"  {label}: me_diamond_walk {kernel_ms:.4f} ms (device time, "
+              f"mean of 10 launches in a profiled pass; "
+              f"{prof.device_ops:g} operations on the card a walk_cuda "
+              f"call); the lazy call ({mode}) median "
+              f"{statistics.median(call_ms):.4f} ms (runs "
+              f"{[round(t, 4) for t in call_ms]}, 10 calls each behind a "
+              f"sleep); lazy_plain median {statistics.median(plain_ms):.4f}"
+              f" ms (runs {[round(t, 4) for t in plain_ms]}); "
+              f"{block_evals} block-candidates ({pixel_evals} "
+              f"pixel-candidates) evaluated, {int(terminated.sum())} blocks "
+              f"stopped early; bound {bound_ms:.6f} ms ({bound_by}), the "
+              f"kernel at {bound_ms / kernel_ms:.1%} of it | {card}")
+        if (blk, span) == (8, 31):
+            peaks = {}
+            for name, fn in (("lazy call", call), ("lazy_plain", plain)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peaks[name] = torch.cuda.max_memory_allocated() - base
+            print(f"  {label}: peak memory above the frames "
+                  f"{peaks['lazy call'] / 1e6:.3f} MB for the lazy call, "
+                  f"{peaks['lazy_plain'] / 1e6:.3f} MB for lazy_plain (a "
+                  f"[{(2 * span + 1) ** 2}, {got.mv_y.shape[0]}, "
+                  f"{got.mv_y.shape[1]}] volume) | {card}")
+        out[label] = (kernel_ms, statistics.median(plain_ms), bound_ms,
+                      bound_by)
+    if stopped == 0:
+        fail("lazy phase: the early check stopped no block in any early-term "
+             "case, so the kernel's early stop never ran")
+    return out
 
 
 def check_dumps(got, want, what):
@@ -1169,10 +1376,11 @@ def bench_phase(work, dev, card):
                   f"volume, the golden search's on the {int(esc.sum())} "
                   f"escaped blocks")
             return
-        # Every mode replays on the kernel: once a level, or once a fill
-        # pass in the lazy mode (whose planes are golden by design).
-        before = dc.replay_cuda.launches
-        with no_plain_path(what, search=False):
+        # The staged and full modes replay on the kernel once a level; the
+        # lazy mode is one walk launch with no replay and no golden plane.
+        lazy = row.entry == "lazy"
+        before = dc.replay_cuda.launches, dc.walk_cuda.launches
+        with no_plain_path(what, search=lazy):
             _, traj = diamond.diamond_search_frame(
                 cur, ref, blk_dim=row.blk, span=row.span, metric=row.metric,
                 early_term=row.early_term, record_trajectory=True,
@@ -1181,12 +1389,17 @@ def bench_phase(work, dev, card):
         if not torch.equal(traj, want_traj):
             fail(f"{what}: trajectory differs from the replay over the golden "
                  f"volume")
-        replays = dc.replay_cuda.launches - before
-        if not replays:
-            fail(f"{what}: the replay kernel never launched")
+        replays = dc.replay_cuda.launches - before[0]
+        walks = dc.walk_cuda.launches - before[1]
+        if not ((replays, walks) == (0, 1) if lazy
+                else replays > 0 and walks == 0):
+            fail(f"{what}: me_diamond_replay launched {replays} times, "
+                 f"me_diamond_walk {walks}")
         print(f"{what}: MVs, costs or scores and trajectories equal the "
-              f"replay over the golden volume; me_diamond_replay launched "
-              f"{replays} times, no plain replay")
+              f"replay over the golden volume; "
+              + ("me_diamond_walk launched once, no replay, no golden plane"
+                 if lazy else f"me_diamond_replay launched {replays} times, "
+                 f"no plain replay"))
 
     out_dir = os.path.join(work, "matrix")
     t0 = time.perf_counter()
@@ -1530,7 +1743,9 @@ def main(argv=None) -> int:
     h, w, blk, span = DIAMOND
     rng = np.random.default_rng(args.seed)
     contents = {"config3": synth(rng, h, w),
-                "adversarial": synth(rng, h, w, shift=(14, -14), noise=2)}
+                "adversarial": synth(rng, h, w, shift=(14, -14), noise=2),
+                "4K": synth(np.random.default_rng(args.seed + 2), 2160,
+                            3840)}
     levels = diamond._staged_levels(span)
     golden = {}  # (content, metric) -> (golden field, golden volume)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
@@ -1609,6 +1824,17 @@ def main(argv=None) -> int:
                   f"the replay over the golden volume; {moved} of "
                   f"{want.mv_y.numel()} blocks moved; PSNR "
                   f"{frames_lib.image_psnr(comp, cur):.6f}")
+
+    # -- the lazy mode's main path -------------------------------------------
+    t_lazy = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
+        lazy_lines = lazy_phase(work, contents, dev, card, counted,
+                                sync_errors, compare, cuda_ms)
+    main_launches["me_diamond_walk"] = 1  # each case: `counted` held it
+    print(f"me_diamond_walk: {len(LAZY_RUNS)} cases against lazy_plain, "
+          f"fields and trajectories bit for bit, max |kernel - plain| = "
+          f"{max_err['me_diamond_walk']}; lazy phase "
+          f"{time.perf_counter() - t_lazy:.1f} s")
 
     # -- the GOP main path ----------------------------------------------------
     t_gop = time.perf_counter()
@@ -2195,7 +2421,8 @@ def main(argv=None) -> int:
     # -- 6. the bench main path ---------------------------------------------
     t_bench = time.perf_counter()
     bench_kernels = [n + e for n in mse_kernels + ssim_kernels
-                     for e in ("", EMIT)] + ["me_diamond_replay"]
+                     for e in ("", EMIT)] + ["me_diamond_replay",
+                                             "me_diamond_walk"]
     reset_counts()
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as work:
         bench_phase(work, dev, card)
@@ -2470,7 +2697,9 @@ def main(argv=None) -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     for name, (ms, plain_ms, bound_ms, bound_by) in [
-            ("me_diamond_replay", replay_line), *lab_times.items()]:
+            ("me_diamond_replay", replay_line),
+            ("me_diamond_walk", lazy_lines[LAZY_RUNS[0][0]]),
+            *lab_times.items()]:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": main_launches[name],

@@ -4,10 +4,11 @@ pinned h2d link rate, the disk read rate, and the card's name and power
 limit.
 
 The profiler pass reads the card's activity from `torch.profiler` (CUPTI).
-The search kernels and diamond's replay, launched through ctypes from
-kernels/csrc, appear there by their C++ names, all in namespace `me`
+The search kernels and diamond's replay and walk, launched through ctypes
+from kernels/csrc, appear there by their C++ names, all in namespace `me`
 (`me::warp_search_kernel`, `me::edge::edge_search_kernel`,
-`me::diamond::replay_kernel`); every other device event is PyTorch's.
+`me::diamond::replay_kernel`, `me::diamond::walk::walk_kernel`); every
+other device event is PyTorch's.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from motionestimation_tpu_torch.kernels import ssim_cuda as sc
 
 EMIT = " (emit)"
 # Launcher name -> wrapper: the search kernels (K1-K7) and diamond's
-# replay.
+# replay and walk.
 WRAPPERS = {
     "me_phase_search": kc.phase_search,
     "me_int_search": kc.int_search,
@@ -37,6 +38,7 @@ WRAPPERS = {
     "me_chunked_u8_search": kc.chunked_u8_search,
     "me_wide_search": kc.wide_search,
     "me_diamond_replay": dc.replay_cuda,
+    "me_diamond_walk": dc.walk_cuda,
 }
 # Host ops that are the profiler's own or the pass's closing wait, left out
 # of the ranking of host work, and how many of the rest a profile names.

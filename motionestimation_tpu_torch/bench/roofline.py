@@ -1,5 +1,5 @@
-"""The least time the card could take for a search or a diamond replay:
-its bound.
+"""The least time the card could take for a search, a diamond replay or a
+diamond walk: its bound.
 
 One copy of the arithmetic, shared by `chip_smoke.py` (each kernel's
 `bound_ms`) and `bench_torch.py` (`pct_of_roofline`), so a share of the
@@ -100,4 +100,95 @@ def replay_bound(reads: int, nblocks: int, trajectory_rows: int = 0):
     nbytes = 4 * reads + nblocks * (3 * 4 + 1 + 8 * trajectory_rows)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = 3 * reads / FP32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def walk_terminated(mv_y, mv_x, cost, traj, *, early_term, count,
+                    minimise: bool):
+    """[nby, nbx] bool (numpy): the blocks of a diamond walk that the early
+    check stopped, from its result. Such a block skipped its last LDSP
+    round and the SDSP step, so it ends at its last trajectory row with a
+    cost that passes the check; a block that converged and took the SDSP
+    step fails the check on its last LDSP centre's cost, and keeps that
+    cost where the centre held. `count`: the blocks' in-frame pixels."""
+    if early_term is None:
+        return np.zeros(np.shape(mv_y), dtype=bool)
+    thr = np.float32(early_term)
+    if minimise:
+        passes = (np.asarray(cost).astype(np.float32)
+                  / np.maximum(count, 1).astype(np.float32)) <= thr
+    else:
+        passes = np.asarray(cost) >= thr
+    return ((mv_y == traj[-1, ..., 0]) & (mv_x == traj[-1, ..., 1])
+            & passes)
+
+
+def walk_evals(traj, *, span: int, blk_dim: int, frame_height: int,
+               frame_width: int, terminated=None):
+    """(block-candidates, pixel-candidates): the distinct (block,
+    displacement) evaluations a diamond walk needs on this data, and their
+    in-frame pixels. Per block: the centre (0, 0); the LDSP candidates of
+    each round it moved, and of the round after its last move unless the
+    early check stopped it there (`terminated`, [nby, nbx] bool, None for
+    no early check) or the rounds ran out; the SDSP candidates of its last
+    centre unless terminated. Targets beyond the window or invalid for the
+    block (outside the frame) need no pixels and are not counted. `traj` is
+    the walk's int32 trajectory [max_steps + 1, nby, nbx, 2] (numpy), frozen
+    after a block stops, as `replay_reads` reads it."""
+    k = 2 * span + 1
+    rows, nby, nbx = traj.shape[:3]
+    cy = traj[..., 0].reshape(rows, -1).astype(np.int64)
+    cx = traj[..., 1].reshape(rows, -1).astype(np.int64)
+    blocks = np.arange(nby * nbx)
+    tl_y = (blocks // nbx) * blk_dim
+    tl_x = (blocks % nbx) * blk_dim
+    bh = np.clip(frame_height - tl_y, 0, blk_dim)
+    bw = np.clip(frame_width - tl_x, 0, blk_dim)
+    stopped = (np.zeros(len(blocks), dtype=bool) if terminated is None
+               else np.asarray(terminated).reshape(-1))
+    keys = [blocks * k * k + span * k + span]
+
+    def read(y, x, which, pattern):
+        for oy, ox in pattern:
+            ty, tx = y[which] + oy, x[which] + ox
+            ok = ((np.abs(ty) <= span) & (np.abs(tx) <= span)
+                  & (tl_y[which] + ty >= 0)
+                  & (tl_y[which] + ty <= frame_height - bh[which])
+                  & (tl_x[which] + tx >= 0)
+                  & (tl_x[which] + tx <= frame_width - bw[which]))
+            plane = (ty[ok] + span) * k + tx[ok] + span
+            keys.append(blocks[which][ok] * k * k + plane)
+
+    active = np.ones(len(blocks), dtype=bool)
+    for t in range(rows - 1):
+        moved = (cy[t + 1] != cy[t]) | (cx[t + 1] != cx[t])
+        read(cy[t], cx[t], active & (moved | ~stopped), LDSP)
+        active &= moved
+    read(cy[-1], cx[-1], ~stopped, SDSP)
+    found = np.unique(np.concatenate(keys))
+    pixels = (bh * bw)[found // (k * k)]
+    return len(found), int(pixels.sum())
+
+
+# Integer operations of one pixel-candidate: the difference and its square
+# or absolute value, accumulated (SSD/SAD: 2); Σr, Σr² and Σr·c (SSIM: 5).
+WALK_INT_OPS = {"mse": 2, "sad": 2, "ssim": 5}
+
+
+def walk_bound(frame_height: int, frame_width: int, *, nblocks: int,
+               block_evals: int, pixel_evals: int, metric: str,
+               trajectory_rows: int = 0):
+    """(bound_ms, bound_by) of a diamond walk over the frames' pixels: the
+    current frame and the evaluated candidates' reference pixels read once
+    each (the centre candidates alone cover the whole reference frame), and
+    per block its int32 MV pair and cost written, plus `trajectory_rows`
+    int32 (y, x) rows, over the HBM rate; `WALK_INT_OPS` per
+    pixel-candidate over the int8 peak and, for SSIM, SSIM_FLOPS per
+    block-candidate over the float32 rate (`walk_evals` counts both)."""
+    nbytes = (2 * frame_height * frame_width
+              + nblocks * (3 * 4 + 8 * trajectory_rows))
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = WALK_INT_OPS[metric] * pixel_evals / INT8_OPS_S * 1e3
+    if metric == "ssim":
+        t_ops = max(t_ops, SSIM_FLOPS * block_evals / FP32_OPS_S * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -1,16 +1,26 @@
-"""Diamond search's trajectory replay on the CUDA kernel of csrc/diamond.cu.
+"""Diamond search on the CUDA kernels of csrc/diamond.cu and
+csrc/diamond_walk.cu.
 
 `replay_cuda` launches `me_diamond_replay`, the counterpart of the jitted
 XLA program `_diamond_replay` (motionestimation_tpu/search/diamond.py:259;
 not a Pallas kernel): one CUDA thread walks one block's LDSP/SDSP
 trajectory over a [K², nby, nbx] cost volume and stops on its own, so the
 replay issues one launch and no host sync, where the lockstep loop asks the
-card after every round whether any block is still active.
+card after every round whether any block is still active. Beside it stands
+its plain PyTorch version, `replay_plain`: the lockstep replay of every
+block in torch ops, which the CPU runs. `search.diamond._replay` picks
+between them by the volume's device.
 
-Beside it stands its plain PyTorch version, `replay_plain`: the lockstep
-replay of every block in torch ops, which the CPU runs.
-`search.diamond._replay` picks between them by the volume's device;
-`replay_cuda` raises on a CPU tensor. The wrapper counts its launches in
+`walk_cuda` launches `me_diamond_walk`, the counterpart of the jitted XLA
+program `_diamond_lazy` (motionestimation_tpu/search/diamond.py:463): one
+CUDA block walks one block's trajectory and computes each candidate it
+visits from the frames' pixels, so the lazy mode is one launch with no
+volume, no replay and no host sync. Its plain version is
+`search.diamond.lazy_plain` (golden planes and `replay_plain`, pass by
+pass); `search.diamond._diamond_lazy` picks between them by the frames'
+device.
+
+Both wrappers raise on CPU tensors and count their launches in
 `launches`.
 """
 from __future__ import annotations
@@ -34,11 +44,25 @@ _ARGTYPES = ([_PTR] * 6 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 5
              + [_PTR])
 
 
+# cur, ref, mv_y, mv_x, cost, traj; metric, frame_h, frame_w, blk, span,
+# max_steps, has_threshold; threshold; the stream.
+_WALK_ARGTYPES = [_PTR] * 6 + [_INT] * 7 + [ctypes.c_float, _PTR]
+_WALK_METRIC = {"mse": 0, "sad": 1, "ssim": 2}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("diamond")
     lib.me_diamond_replay.argtypes = _ARGTYPES
     lib.me_diamond_replay.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _walk_lib() -> ctypes.CDLL:
+    lib = _build.load("diamond_walk")
+    lib.me_diamond_walk.argtypes = _WALK_ARGTYPES
+    lib.me_diamond_walk.restype = ctypes.c_int
     return lib
 
 
@@ -112,6 +136,67 @@ def replay_cuda(volume, *, blk_dim: int, span: int, metric: str, early_term,
 
 
 replay_cuda.launches = 0
+
+
+def walk_cuda(cur, ref, *, blk_dim: int, span: int, metric: str, early_term,
+              max_steps: int, record_trajectory: bool):
+    """`me_diamond_walk` on contiguous uint8 CUDA frames [H, W]: the lazy
+    mode's result, (field, trajectory or None) as
+    `search.diamond.lazy_plain` gives it, the trajectory int32 [max_steps +
+    1, nby, nbx, 2]. One launch, no volume, no host sync."""
+    if cur.device.type != "cuda" or ref.device != cur.device:
+        raise ValueError(
+            f"walk_cuda runs on CUDA tensors of one card, got {cur.device} "
+            f"and {ref.device} (the plain version is "
+            f"search.diamond.lazy_plain)")
+    if metric not in _WALK_METRIC:
+        raise ValueError(f"unknown metric {metric!r}")
+    for name, t in (("cur", cur), ("ref", ref)):
+        if (t.dtype != torch.uint8 or t.dim() != 2
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"walk_cuda takes contiguous uint8 [H, W] frames, got {name} "
+                f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    if cur.shape != ref.shape:
+        raise ValueError(f"frames differ in shape: {tuple(cur.shape)} vs "
+                         f"{tuple(ref.shape)}")
+    if blk_dim < 1 or span < 0 or max_steps < 0:
+        raise ValueError(f"walk_cuda takes blk_dim >= 1, span >= 0 and "
+                         f"max_steps >= 0, got {blk_dim}, {span}, "
+                         f"{max_steps}")
+    frame_height, frame_width = cur.shape
+    nby, nbx = -(-frame_height // blk_dim), -(-frame_width // blk_dim)
+    dev = cur.device
+    minimise = metric in ("mse", "sad")
+    cy = torch.empty((nby, nbx), dtype=torch.int32, device=dev)
+    cx = torch.empty_like(cy)
+    ccost = torch.empty((nby, nbx), dtype=torch.int32 if minimise
+                        else torch.float32, device=dev)
+    traj = (torch.empty((max_steps + 1, nby, nbx, 2), dtype=torch.int32,
+                        device=dev) if record_trajectory else None)
+    if nby and nbx:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = _walk_lib().me_diamond_walk(
+                cur.data_ptr(), ref.data_ptr(), cy.data_ptr(), cx.data_ptr(),
+                ccost.data_ptr(),
+                traj.data_ptr() if traj is not None else None,
+                _WALK_METRIC[metric], frame_height, frame_width, blk_dim,
+                span, max_steps, int(early_term is not None),
+                0.0 if early_term is None else float(early_term), stream)
+        if err:
+            raise RuntimeError(f"me_diamond_walk launch failed: CUDA error "
+                               f"{err}")
+        walk_cuda.launches += 1
+    count = None
+    if minimise:
+        _, _, blk_h, blk_w = geometry.block_extents(
+            0, 0, nby, nbx, blk_dim, frame_height, frame_width, dev)
+        count = blk_h * blk_w
+    return _field(cy, cx, ccost, metric=metric, span=span, count=count), traj
+
+
+walk_cuda.launches = 0
 
 
 def replay_plain(volume, *, blk_dim: int, span: int, metric: str,

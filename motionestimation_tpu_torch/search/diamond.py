@@ -18,21 +18,26 @@ stops the block, SDSP included; otherwise one SDSP step over
 
 gives the MV.
 
-Every path replays the trajectories over a [K², nby, nbx] volume of
-candidate costs (`_replay`) at the flat index (cy + oy + span) * K + (cx +
-ox + span), with every target outside the window masked to the sentinel (a
-horizontal step past the window edge would alias into the next dy row). On
-the card one launch of `me_diamond_replay` walks every block's trajectory
-(`kernels/diamond_cuda.replay_cuda`); on the CPU `replay_plain` replays
-all blocks in lockstep, one `torch.gather` per pattern step. The volume
-comes from:
+The "staged" and "full" modes replay the trajectories over a [K², nby,
+nbx] volume of candidate costs (`_replay`) at the flat index (cy + oy +
+span) * K + (cx + ox + span), with every target outside the window masked
+to the sentinel (a horizontal step past the window edge would alias into
+the next dy row). On the card one launch of `me_diamond_replay` walks every
+block's trajectory (`kernels/diamond_cuda.replay_cuda`); on the CPU
+`replay_plain` replays all blocks in lockstep, one `torch.gather` per
+pattern step. The volume comes from:
 
 * "staged": the kernels' emit modes at radius 6, then the full span only
   if some block's trajectory could leave the first level
   (`_staged_levels`, `_diamond_staged`);
-* "lazy": the golden `make_displacement_cost`, only for the planes near
-  the trajectories, pass by pass (`_diamond_lazy`);
 * "full": the whole volume up front.
+
+"lazy" (`_diamond_lazy`) builds no volume on the card: one launch of
+`me_diamond_walk` (`kernels/diamond_cuda.walk_cuda`) walks every block and
+computes each candidate it visits from the frames' pixels. Its plain
+version, which the CPU runs, is `lazy_plain`: the golden
+`make_displacement_cost` for the planes near the trajectories only, pass
+by pass, each pass replayed by `replay_plain`.
 
 All three give the same MVs, costs and trajectories. The JAX package's
 `lax.cond` around a round becomes each block's own stop in the kernel (a
@@ -158,21 +163,34 @@ def _near(mask, radius: int):
     return out
 
 
-def _diamond_lazy(cur, ref, *, blk_dim: int, span: int, metric: str,
-                  early_term, max_steps: int, record_trajectory: bool):
-    """Lazy replay (the counterpart of `_diamond_lazy`, diamond.py:463):
-    only the planes near the trajectories are evaluated, by the golden
+def _diamond_lazy(cur, ref, **kw):
+    """Lazy mode (the counterpart of `_diamond_lazy`, diamond.py:463): on
+    CUDA frames one launch of `me_diamond_walk` (`diamond_cuda.walk_cuda`),
+    which evaluates each block's candidates along its trajectory from the
+    frames' pixels, with no volume, no replay and no host sync; on CPU
+    frames its plain version `lazy_plain`. CUDA frames arrive as
+    contiguous uint8 (`diamond_search_frame` makes them so). Returns
+    (field, trajectory or None)."""
+    if cur.device.type == "cuda":
+        return dc.walk_cuda(cur, ref, **kw)
+    return lazy_plain(cur, ref, **kw)
+
+
+def lazy_plain(cur, ref, *, blk_dim: int, span: int, metric: str,
+               early_term, max_steps: int, record_trajectory: bool):
+    """`me_diamond_walk`'s plain version, on frames on any device: only the
+    planes near the trajectories are evaluated, by the golden
     `make_displacement_cost` (every metric and block size), into a [K²,
     nby, nbx] volume whose other planes hold the sentinel, which never
-    wins a comparison. Each pass replays that volume (`_replay`: one
-    `me_diamond_replay` launch on the card), then fills the planes within
-    Chebyshev distance 3 (the LDSP reach plus the SDSP step) of any
-    centre its trajectories visited and within `max_steps` rounds' reach
-    (`_round_plan`). A pass after which none was missing read only filled
-    planes: it is the replay over the whole golden volume. Each pass takes
-    every unfinished trajectory at least one round further. JAX's lazy
-    mode makes the same pick before every round under `lax.cond`; here it
-    costs one host sync a pass. Returns (field, trajectory or None)."""
+    wins a comparison. Each pass replays that volume (`replay_plain`, on
+    the card too), then fills the planes within Chebyshev distance 3 (the
+    LDSP reach plus the SDSP step) of any centre its trajectories visited
+    and within `max_steps` rounds' reach (`_round_plan`). A pass after which
+    none was missing read only filled planes: it is the replay over the
+    whole golden volume. Each pass takes every unfinished trajectory at
+    least one round further. JAX's lazy mode makes the same pick before
+    every round under `lax.cond`; here it costs one host sync a pass.
+    Returns (field, trajectory or None)."""
     frame_height, frame_width = cur.shape
     cur_p = fs.pad_cur_frame(cur, frame_height, frame_width, blk_dim)
     ref_halo = fs.make_ref_halo(ref, frame_height, frame_width, blk_dim, span)
@@ -202,7 +220,7 @@ def _diamond_lazy(cur, ref, *, blk_dim: int, span: int, metric: str,
         for idx in np.flatnonzero(need):
             volume[idx] = disp_cost(int(idx))
         filled |= need
-        field, traj, _ = _replay(
+        field, traj, _ = dc.replay_plain(
             volume, blk_dim=blk_dim, span=span, metric=metric,
             early_term=early_term, max_steps=max_steps,
             record_trajectory=True, frame_height=frame_height,
@@ -311,15 +329,20 @@ def diamond_search_frame(
     """Whole-frame diamond search (the port of `diamond_search_frame`,
     diamond.py:688). cur/ref: [H, W] integer frames (numpy or torch), moved
     to `device` (default "cuda"; "cpu" runs the plain versions of the
-    kernels).
+    kernels). The lazy mode on the card reads the frames as bytes: pixels
+    outside [0, 255] and floating frames raise there, and an integer frame
+    other than uint8 costs a host sync for its range check before the
+    lazy mode starts.
 
     volume_mode:
       "auto" / "staged": the staged level volumes where `staged_supported`,
         else "lazy". "auto" takes "lazy" for SSIM on the CPU, where the
         volume is the golden full-plane scan (more planes than lazy's), as
         the JAX package does off the TPU.
-      "lazy": only the planes near the trajectories, pass by pass, from
-        the golden `make_displacement_cost`; every metric and block size.
+      "lazy": no volume: on the card one `me_diamond_walk` launch
+        computes each candidate along the trajectories from the pixels
+        (on the CPU `lazy_plain`: the golden planes near the
+        trajectories, pass by pass); every metric, block size and span.
       "full": the whole [K², nby, nbx] volume up front (the kernels' emit
         modes where they cover the config, else the golden volume).
     All modes give the same MVs, costs and trajectories.
@@ -368,6 +391,8 @@ def diamond_search_frame(
         else:
             volume_mode = "lazy"
     if volume_mode == "lazy":
+        if dev.type == "cuda":
+            cur_t, ref_t = (fsc.as_u8(t).contiguous() for t in (cur_t, ref_t))
         field, traj = _diamond_lazy(cur_t, ref_t, **kw)
     elif volume_mode == "full":
         if metric == "ssim" and sc.ssim_supported(blk_dim, span):

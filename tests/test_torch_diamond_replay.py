@@ -16,8 +16,8 @@ the model reads.
 
 Then the dispatch in `search.diamond._replay`: a CPU volume takes
 `replay_plain` and no kernel, and `replay_cuda` raises on a CPU tensor.
-The lazy volume mode replays through `_replay` (so on the card through
-the kernel) after each fill and equals the numpy model
+The lazy mode's plain version (`lazy_plain`, which the CPU runs) replays
+through `replay_plain` after each fill and equals the numpy model
 `diamond_search_np`, `max_steps` 0 included, where JAX's lazy mode skips
 the final SDSP step.
 
@@ -289,8 +289,8 @@ def _lazy_pair():
     ("mse", None, 2), ("ssim", None, 0)])
 def test_lazy_mode_replays_pass_by_pass(monkeypatch, metric, early, steps):
     """volume_mode="lazy" evaluates each golden plane at most once, fewer
-    than the window's, replays the whole-span volume through `_replay`
-    after each fill, and equals the numpy model: MVs, costs or scores and
+    than the window's, replays the whole-span volume through
+    `replay_plain` after each fill, and equals the numpy model: MVs, costs or scores and
     trajectories. With max_steps 0 the final SDSP step still reads its
     planes (JAX's lazy mode fills none before it and leaves every block
     at (0, 0); pinned below)."""
@@ -298,7 +298,7 @@ def test_lazy_mode_replays_pass_by_pass(monkeypatch, metric, early, steps):
 
     cur, ref = _lazy_pair()
     spans, planes = [], []
-    real_replay, real_cost = td._replay, tfs.make_displacement_cost
+    real_replay, real_cost = dc.replay_plain, tfs.make_displacement_cost
 
     def replay(volume, **kw):
         spans.append(kw["span"])
@@ -308,7 +308,7 @@ def test_lazy_mode_replays_pass_by_pass(monkeypatch, metric, early, steps):
         plane = real_cost(*a, **kw)
         return lambda idx: planes.append(idx) or plane(idx)
 
-    monkeypatch.setattr(td, "_replay", replay)
+    monkeypatch.setattr(dc, "replay_plain", replay)
     monkeypatch.setattr(tfs, "make_displacement_cost", cost)
     field, traj = td.diamond_search_frame(
         cur, ref, blk_dim=8, span=15, metric=metric, early_term=early,
