@@ -55,7 +55,9 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    3840x2160 64x64 +-15 SSIM diamond through the CLI (auto falls back to
    lazy there), an explicit lazy 3840x2160 8x8 +-31 MSE, SAD, span 1 and
    MSE early term 2.0 and 2500 (where the early check must stop blocks),
-   each call exactly one `me_diamond_walk` launch and
+   after the registers, spills, resident warps and walks in flight of each
+   of the walk kernel's team shapes; each call exactly one
+   `me_diamond_walk` launch and
    no other, no golden plane, no replay and no host sync inside the lazy
    mode; each case's `walk_cuda` against its plain version `lazy_plain`
    (MVs, costs or scores and trajectories bit for bit) and the entry's
@@ -337,6 +339,10 @@ DIAMOND_RUNS = [
     ("mse adversarial crossover", "adversarial",
      ["--escape-policy", "crossover"], "mse"),
 ]
+# One blk of each of W's instances (a team shape and where a lane finds
+# the block's words) and the blk range it takes.
+WALK_SHAPES = [(4, "1-4"), (8, "5-8"), (12, "9-12"), (16, "13-16"),
+               (32, "17-32"), (64, "33-64"), (70, "65 and above")]
 # The lazy mode's main path, one `me_diamond_walk` launch a call: (label,
 # entry, content, blk, span, metric, early_term, volume_mode). config3-ssim
 # (lazy), the JAX bench's lazy row (bench/matrix.py:139-140); the full
@@ -756,6 +762,20 @@ def lazy_phase(work, contents, dev, card, counted, sync_errors, compare,
     from motionestimation_tpu_torch.pipeline import runner
     from motionestimation_tpu_torch.search import diamond
 
+    # W's instances: one team shape and block placement a blk range.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for metric in ("mse", "sad", "ssim"):
+        for blk, blks in WALK_SHAPES:
+            occ = dc.walk_occupancy(blk, metric)
+            print(f"me_diamond_walk {metric} at blk {blks}: "
+                  f"{occ['team_threads']} threads a walk, "
+                  f"{occ['walks_per_block']} walks a CUDA block; "
+                  f"{occ['registers']} registers and {occ['local_bytes']} "
+                  f"bytes of local memory (spills) per thread; "
+                  f"{occ['blocks_per_sm']} CUDA blocks "
+                  f"({occ['warps_per_sm']} warps) resident per SM, "
+                  f"{occ['walks_per_sm'] * sms} walks in flight on {sms} "
+                  f"SMs")
     out = {}
     stopped = 0  # blocks the early check stopped, over the early-term cases
     for label, entry, content, blk, span, metric, early, mode in LAZY_RUNS:

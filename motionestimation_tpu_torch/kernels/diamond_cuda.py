@@ -12,10 +12,11 @@ block in torch ops, which the CPU runs. `search.diamond._replay` picks
 between them by the volume's device.
 
 `walk_cuda` launches `me_diamond_walk`, the counterpart of the jitted XLA
-program `_diamond_lazy` (motionestimation_tpu/search/diamond.py:463): one
-CUDA block walks one block's trajectory and computes each candidate it
-visits from the frames' pixels, so the lazy mode is one launch with no
-volume, no replay and no host sync. Its plain version is
+program `_diamond_lazy` (motionestimation_tpu/search/diamond.py:463): a
+team of threads (one warp at blk <= 16, 128 threads at blk 17..64, 256
+above; `walk_occupancy`) walks one block's trajectory and computes each
+candidate it visits from the frames' pixels, so the lazy mode is one launch
+with no volume, no replay and no host sync. Its plain version is
 `search.diamond.lazy_plain` (golden planes and `replay_plain`, pass by
 pass); `search.diamond._diamond_lazy` picks between them by the frames'
 device.
@@ -63,6 +64,8 @@ def _walk_lib() -> ctypes.CDLL:
     lib = _build.load("diamond_walk")
     lib.me_diamond_walk.argtypes = _WALK_ARGTYPES
     lib.me_diamond_walk.restype = ctypes.c_int
+    lib.me_diamond_walk_occupancy.argtypes = [_INT, _INT, _PTR]
+    lib.me_diamond_walk_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -197,6 +200,28 @@ def walk_cuda(cur, ref, *, blk_dim: int, span: int, metric: str, early_term,
 
 
 walk_cuda.launches = 0
+
+
+def walk_occupancy(blk_dim: int, metric: str) -> dict:
+    """The resources of the `me_diamond_walk` instance that `walk_cuda`
+    launches at `blk_dim` and `metric` on the current card: registers and
+    local (spill) bytes per thread, threads a walk (the team), walks a CUDA
+    block, and the CUDA blocks, warps and walks resident per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a card."""
+    if metric not in _WALK_METRIC or blk_dim < 1:
+        raise ValueError(f"no walk kernel for blk_dim={blk_dim} "
+                         f"metric={metric!r}")
+    out = (ctypes.c_int * 5)()
+    err = _walk_lib().me_diamond_walk_occupancy(_WALK_METRIC[metric],
+                                                blk_dim, out)
+    if err:
+        raise RuntimeError(f"me_diamond_walk_occupancy failed: CUDA error "
+                           f"{err}")
+    regs, local, team, walks, blocks = out
+    return dict(registers=regs, local_bytes=local, team_threads=team,
+                walks_per_block=walks, blocks_per_sm=blocks,
+                warps_per_sm=blocks * team * walks // 32,
+                walks_per_sm=blocks * walks)
 
 
 def replay_plain(volume, *, blk_dim: int, span: int, metric: str,

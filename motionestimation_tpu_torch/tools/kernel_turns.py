@@ -11,15 +11,25 @@ one metric give equal (cost or score, idx); then LAUNCHES launches each
 between CUDA events, in turns (A B ... B A), queued behind a sleep on the
 card so that they run back to back and the events time the card, not the
 host's issue of a short kernel. Prints each kernel's mean ms per launch and
-its two runs, with the card's name. --group times only the cells with those
-labels (e.g. "4K 7x7 +-15 sad").
+its two runs, with the card's name. Each cell of WALK_GROUPS (the lazy
+mode's cases of `chip_smoke.py`, on the JAX bench's synthetic content) runs
+`me_diamond_walk` through `kernels/diamond_cuda.walk_cuda`: the call's mean
+ms over LAUNCHES calls behind a sleep, twice, the kernel's own device time
+from a profiled pass, and a digest of the result, so that two checkouts'
+runs can be seen to agree. --group times only the cells with those labels
+(e.g. "4K 7x7 +-15 sad", "lazy 4K 8x8 +-31 mse").
 `chip_smoke.py` times its in-turns groups with `time_group`; the tool uses
-only the public wrappers of `kernels/full_search_cuda.py` (MSE, SAD) and
-`kernels/ssim_cuda.py` (SSIM), so it times any checkout's kernels.
+only the public wrappers of `kernels/full_search_cuda.py` (MSE, SAD),
+`kernels/ssim_cuda.py` (SSIM) and `kernels/diamond_cuda.py` (the walk), so
+it times any checkout's kernels: dropped into a `git archive` copy of a
+parent commit, it times the parent's, and runs of the two copies in turns
+(parent, change, change, parent) compare them on one card.
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import hashlib
 import statistics
 import sys
 
@@ -27,9 +37,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from motionestimation_tpu_torch.bench import matrix, measure
 from motionestimation_tpu_torch.core.device import resolve_device
+from motionestimation_tpu_torch.kernels import diamond_cuda as dc
 from motionestimation_tpu_torch.kernels import full_search_cuda as kc
 from motionestimation_tpu_torch.kernels import ssim_cuda as sc
+from motionestimation_tpu_torch.search import diamond
 
 LAUNCHES = 20
 # (label, height, width, blk, span, entries); an entry is (name, wrapper,
@@ -93,6 +106,51 @@ SLAB_GROUPS = [
     ("4K 32x32 +-7 bottom slab", 2160, 3840, 32, 7, [
         ("K4 me_ssim_search", "ssim_search", "ssim", False)]),
 ]
+
+
+# The lazy mode's cases (`chip_smoke.py` LAZY_RUNS), W through `walk_cuda`
+# with `default_max_steps(span)` rounds and no trajectory: (label, content,
+# blk, span, metric, early_term). Content as `chip_smoke.py` makes it:
+# "config3" the JAX bench's 1080p frames from --seed, "4K" from --seed + 2.
+WALK_GROUPS = [
+    ("lazy 4K 8x8 +-31 mse", "4K", 8, 31, "mse", None),
+    ("lazy config3-ssim 1080p 16x16 +-15", "config3", 16, 15, "ssim", None),
+    ("lazy 1080p 16x16 +-15 sad", "config3", 16, 15, "sad", None),
+    ("lazy 1080p 16x16 +-15 mse early-term 2.0", "config3", 16, 15, "mse",
+     2.0),
+    ("lazy 1080p 24x24 +-15 mse", "config3", 24, 15, "mse", None),
+    ("lazy 4K 64x64 +-15 ssim", "4K", 64, 15, "ssim", None),
+]
+
+
+def walk_content(name, seed):
+    """(cur, ref) uint8 numpy frames of a WALK_GROUPS content: the JAX
+    bench's synthetic frames (`bench/matrix._synth`), config3 at 1080p."""
+    if name == "config3":
+        return matrix._synth(np.random.default_rng(seed), 1080, 1920)
+    return matrix._synth(np.random.default_rng(seed + 2), 2160, 3840)
+
+
+def time_walk(content, blk, span, metric, early_term, seed=0, device=None):
+    """(call ms [two runs], W's device ms, digest) of a WALK_GROUPS cell:
+    the `walk_cuda` call's mean ms over LAUNCHES calls behind a sleep, in
+    two runs; `me_diamond_walk`'s mean device time per launch in a
+    profiled pass of LAUNCHES calls; a digest of the MotionField."""
+    dev = resolve_device(device)
+    cur, ref = (torch.from_numpy(a).to(dev)
+                for a in walk_content(content, seed))
+    call = functools.partial(
+        dc.walk_cuda, cur, ref, blk_dim=blk, span=span, metric=metric,
+        early_term=early_term, max_steps=diamond.default_max_steps(span),
+        record_trajectory=False)
+    field, _ = call()  # loads the kernel
+    digest = hashlib.sha1(b"".join(
+        t.cpu().numpy().tobytes() for t in field)).hexdigest()[:12]
+    runs = [cuda_ms(call, LAUNCHES) for _ in range(2)]
+    prof = measure.profile_pass(call, LAUNCHES, dev)
+    kernel_ms = next(ms for name, (_, ms) in prof.kernels.items()
+                     if "walk_kernel" in name)
+    return runs, kernel_ms, digest
 
 
 def synthetic_pair(h, w, seed):
@@ -191,9 +249,15 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--group", nargs="+", metavar="LABEL",
-                   help="time only these cells of GROUPS (default: all)")
+                   help="time only these cells of GROUPS, SLAB_GROUPS "
+                   "and WALK_GROUPS (default: all)")
     args = p.parse_args(argv)
-    groups = select(args.group)
+    if args.group is None:
+        groups, walks = select(), WALK_GROUPS
+    else:
+        walks = [g for g in WALK_GROUPS if g[0] in args.group]
+        rest = [g for g in args.group if g not in {w[0] for w in walks}]
+        groups = select(rest) if rest else []
     dev = resolve_device()
     print(f"# {torch.cuda.get_device_name(dev)}, {LAUNCHES} launches each, "
           f"in turns")
@@ -203,6 +267,13 @@ def main(argv=None) -> int:
             print(f"{label}{'' if slab else ' interior'}: {name} "
                   f"{statistics.mean(ts):.4f} ms (runs "
                   f"{[round(t, 4) for t in ts]})")
+    for label, content, blk, span, metric, early in walks:
+        runs, kernel_ms, digest = time_walk(content, blk, span, metric, early,
+                                            args.seed, dev)
+        print(f"{label}: W me_diamond_walk {kernel_ms:.4f} ms (device time, "
+              f"profiled mean of {LAUNCHES}); walk_cuda call "
+              f"{statistics.mean(runs):.4f} ms (runs "
+              f"{[round(t, 4) for t in runs]}); result {digest}")
     return 0
 
 

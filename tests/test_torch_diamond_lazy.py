@@ -19,18 +19,29 @@ against
   block there (the check is `<=` for MSE/SAD, `>=` for SSIM, before each
   round and after the last).
 
-`walk_np` below is the kernel's per-block walk in numpy, with its memo of
-evaluated candidates: it equals `lazy_plain`, and the candidates it
-evaluates are those `bench/roofline.walk_evals` counts for the bound.
+`walk_np` below is the kernel's per-block walk in numpy, which skips the
+targets the previous LDSP round evaluated (none can beat the centre it moved
+to) and keeps no memo: it equals `lazy_plain`, the distinct candidates it
+evaluates are those `bench/roofline.walk_evals` counts for the bound, and it
+counts the evaluations the kernel makes. Frames whose pixels depend only on
+y + x or y - x make LDSP candidates tie below the centre, and flat frames
+make all of them tie with it: the tie rule (strictly better than the
+centre, the first in pattern order among equals).
 
 Tests whose names end in `_cuda` hold `walk_cuda` against `lazy_plain` on
-the card, bit for bit (the early check stopping blocks in each early-term
-case; at the equality threshold; on a walk longer than the kernel's memo),
-hold the lazy mode on the card against `diamond_search_np` and JAX's lazy
-mode, and check that it is one launch, with no golden plane, no replay and
-no host sync; they skip where there is no card: `python -m pytest
---noconftest tests/test_torch_diamond_lazy.py -k cuda`.
+the card, bit for bit, at every team shape of the kernel and its edges
+(blk 1, 8, 9, 16, 17, 32, 33, 64, 70 and 130; walk counts that are not a
+multiple of the walks a CUDA block; truncated blocks with bw not a multiple
+of 4; span 0; the tie frames; frames at unaligned addresses; the early
+check stopping blocks in each early-term case; at the equality threshold; a
+52-move walk), hold the lazy mode on the card against `diamond_search_np`
+and JAX's lazy mode, and check that it is one launch, with no golden plane,
+no replay and no host sync; they skip where there is no card: `python -m
+pytest --noconftest tests/test_torch_diamond_lazy.py -k cuda`.
 """
+import importlib.util
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -41,6 +52,7 @@ from motionestimation_tpu_torch.bench import roofline
 from motionestimation_tpu_torch.kernels import diamond_cuda as dc
 from motionestimation_tpu_torch.search import diamond as td
 from motionestimation_tpu_torch.search import full_search as tfs
+from motionestimation_tpu_torch.tools import kernel_turns
 
 torch.set_num_threads(1)
 
@@ -58,6 +70,30 @@ def _pair(seed, h, w, shift=(2, -3)):
     cur = np.roll(ref, shift, (0, 1)).astype(np.int32)
     cur = np.clip(cur + rng.integers(-2, 3, (h, w)), 0, 255).astype(np.uint8)
     return cur, ref
+
+
+def _tie_frames(kind, h, w):
+    """(cur, ref) of a tie case: "flat" frames (every candidate ties with
+    the centre), or a reference whose pixels depend only on y + x ("sum") or
+    y - x ("diff") with the current frame moved two steps along that sum,
+    so that the three LDSP candidates of that sum tie below the centre:
+    (0, 2), (1, 1), (2, 0) for "sum+2", (-2, 0), (-1, -1), (0, -2) for
+    "sum-2", (0, -2), (1, -1), (2, 0) for "diff+2"."""
+    if kind == "flat":
+        cur = np.full((h, w), 117, np.uint8)
+        return cur, cur.copy()
+    f = np.random.default_rng(12).integers(0, 256, h + w + 8).astype(np.uint8)
+    y, x = np.mgrid[:h, :w]
+    s = y + x if kind.startswith("sum") else y - x + w
+    return f[s + 4 + int(kind[-2:])], f[s + 4]
+
+
+# The first tied candidate in pattern order: the MV of a block the tie
+# content leaves inside the frame.
+TIE_MV = {"flat": (0, 0), "sum+2": (0, 2), "sum-2": (-2, 0),
+          "diff+2": (0, -2)}
+TIE_CASES = [(blk, metric, kind) for blk in (8, 24, 40, 70)
+             for metric in ("mse", "sad", "ssim") for kind in TIE_MV]
 
 
 def _port(cur, ref, **kw):
@@ -249,6 +285,19 @@ def test_early_check_passes_at_equality(metric, steps):
         _assert_matches_jax(field, traj, j_field, j_traj)
 
 
+@pytest.mark.parametrize("blk,metric,kind", TIE_CASES)
+def test_lazy_ties_match_numpy_model(blk, metric, kind):
+    """On tie frames the lazy mode equals `diamond_search_np`, and a block
+    inside the frame takes the first tied candidate in pattern order (or
+    holds its centre on flat frames)."""
+    cur, ref = _tie_frames(kind, 3 * blk + 5, 4 * blk + 3)
+    kw = dict(blk_dim=blk, span=5, metric=metric)
+    field, traj = _port(cur, ref, volume_mode="lazy", **kw)
+    _assert_matches_np(field, traj, jd.diamond_search_np(cur, ref, **kw),
+                       metric)
+    assert (int(field.mv_y[1, 1]), int(field.mv_x[1, 1])) == TIE_MV[kind]
+
+
 def test_lazy_on_the_cpu_takes_the_plain_version(monkeypatch):
     """CPU frames run `lazy_plain` and launch no kernel."""
     calls = []
@@ -261,6 +310,31 @@ def test_lazy_on_the_cpu_takes_the_plain_version(monkeypatch):
                             device="cpu")
     assert calls == [1]
     assert (dc.walk_cuda.launches, dc.replay_cuda.launches) == before
+
+
+def test_kernel_turns_walk_groups_take_walk_labels():
+    """tools/kernel_turns.py's walk cells are cases of `chip_smoke.py`'s
+    lazy phase (content, blk, span, metric, early term); --group takes
+    their labels beside GROUPS' and still refuses an unknown label before
+    anything needs a card, and a walk cell asks for the card."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    lazy = {run[2:7] for run in smoke.LAZY_RUNS}
+    for label, *case in kernel_turns.WALK_GROUPS:
+        assert tuple(case) in lazy, label
+    with pytest.raises(ValueError, match="unknown groups"):
+        kernel_turns.main(["--group", "lazy 4K 8x8 +-31 mse", "no such"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_turns.main(["--group", "lazy 1080p 24x24 +-15 mse"])
+
+
+def test_walk_occupancy_rejects_what_the_kernel_does_not_take():
+    for blk, metric in ((0, "mse"), (8, "psnr")):
+        with pytest.raises(ValueError, match="no walk kernel"):
+            dc.walk_occupancy(blk, metric)
 
 
 @pytest.mark.parametrize("metric", ["mse", "ssim"])
@@ -277,9 +351,14 @@ def test_walk_cuda_raises_on_cpu(metric):
 def walk_np(volume, *, blk_dim, span, metric, early_term, max_steps,
             frame_height, frame_width):
     """The kernel's walk, one block at a time, over the golden volume for
-    the costs: (mv_y, mv_x, cost, trajectory, evaluated), `evaluated` the
-    set of (block, flat displacement) it computed from pixels (in the
-    window, valid for the block, each once: the memo)."""
+    the costs: (mv_y, mv_x, cost, trajectory, evaluated, evaluations),
+    `evaluated` the set of distinct (block, flat displacement) pairs it
+    computed from pixels (in the window, valid for the block) and
+    `evaluations` how many computations that took. Like the kernel it keeps
+    no memo: after a move of m it skips the candidates p with |m + p|_1 in
+    {0, 2}, which the previous round evaluated and which cannot beat the
+    new centre (the sentinel stands in for them), and computes the rest,
+    also where an older round saw them."""
     _, nby, nbx = volume.shape
     k = 2 * span + 1
     minimise = metric in ("mse", "sad")
@@ -293,23 +372,23 @@ def walk_np(volume, *, blk_dim, span, metric, early_term, max_steps,
     cost = np.zeros((nby, nbx), volume.dtype)
     traj = np.zeros((max_steps + 1, nby, nbx, 2), np.int32)
     evaluated = set()
+    evaluations = 0
     for by in range(nby):
         for bx in range(nbx):
             tl_y, tl_x = by * blk_dim, bx * blk_dim
             bh = min(blk_dim, frame_height - tl_y)
             bw = min(blk_dim, frame_width - tl_x)
-            memo = {}
 
             def value(ty, tx):
+                nonlocal evaluations
                 if abs(ty) > span or abs(tx) > span or not (
                         0 <= tl_y + ty <= frame_height - bh
                         and 0 <= tl_x + tx <= frame_width - bw):
                     return sentinel
                 flat = (ty + span) * k + tx + span
-                if flat not in memo:
-                    memo[flat] = volume[flat, by, bx]
-                    evaluated.add((by * nbx + bx, flat))
-                return memo[flat]
+                evaluated.add((by * nbx + bx, flat))
+                evaluations += 1
+                return volume[flat, by, bx]
 
             def early(c):
                 if thr is None:
@@ -318,48 +397,64 @@ def walk_np(volume, *, blk_dim, span, metric, early_term, max_steps,
                     return np.float32(c) / np.float32(bh * bw) <= thr
                 return c >= thr
 
-            def step(cy, cx, c, pattern):
+            def step(cy, cx, c, pattern, move=None):
                 wy = wx = 0
                 for oy, ox in pattern:
-                    v = value(cy + oy, cx + ox)
+                    seen = move is not None and abs(move[0] + oy) + abs(
+                        move[1] + ox) in (0, 2)
+                    v = sentinel if seen else value(cy + oy, cx + ox)
                     if (v < c) if minimise else (v > c):
                         wy, wx, c = oy, ox, v
                 return wy, wx, c
 
             cy = cx = 0
             c = value(0, 0)
+            move = None
             for t in range(max_steps):
                 if early(c):
                     traj[t + 1:, by, bx] = (cy, cx)
                     break
-                wy, wx, c = step(cy, cx, c, ldsp)
+                wy, wx, c = step(cy, cx, c, ldsp, move)
                 if (wy, wx) == (0, 0):
                     traj[t + 1:, by, bx] = (cy, cx)
                     break
-                cy, cx = cy + wy, cx + wx
+                cy, cx, move = cy + wy, cx + wx, (wy, wx)
                 traj[t + 1, by, bx] = (cy, cx)
             if not early(c):
                 wy, wx, c = step(cy, cx, c, sdsp)
                 cy, cx = cy + wy, cx + wx
             mv_y[by, bx], mv_x[by, bx], cost[by, bx] = cy, cx, c
-    return mv_y, mv_x, cost, traj, evaluated
+    return mv_y, mv_x, cost, traj, evaluated, evaluations
 
 
-@pytest.mark.parametrize("metric,early,steps,blk,span,h,w", [
-    ("mse", None, None, 8, 5, 44, 70),
-    ("mse", 30.0, None, 8, 5, 44, 70),
-    ("sad", 4.0, 2, 8, 7, 44, 70),
-    ("ssim", None, 0, 8, 5, 44, 70),
-    ("ssim", 0.8, None, 16, 4, 40, 56),
-    ("mse", None, None, 24, 3, 60, 80),
-])
+MODEL_CASES = [
+    ("mse", None, None, 8, 5, 44, 70, "pair"),
+    ("mse", 30.0, None, 8, 5, 44, 70, "pair"),
+    ("sad", 4.0, 2, 8, 7, 44, 70, "pair"),
+    ("ssim", None, 0, 8, 5, 44, 70, "pair"),
+    ("ssim", 0.8, None, 16, 4, 40, 56, "pair"),
+    ("mse", None, None, 24, 3, 60, 80, "pair"),
+    ("mse", None, None, 8, 9, 44, 70, "sum+2"),
+    ("ssim", None, None, 8, 9, 44, 70, "diff+2"),
+    ("sad", None, None, 8, 5, 44, 70, "flat"),
+]
+
+
+@pytest.mark.parametrize(
+    "metric,early,steps,blk,span,h,w,content", MODEL_CASES,
+    ids=["-".join(map(str, c[:7] if c[7] == "pair" else c))
+         for c in MODEL_CASES])
 def test_walk_model_equals_plain_and_its_evaluations_are_counted(
-        metric, early, steps, blk, span, h, w):
-    """`walk_np` (the kernel's walk) equals `lazy_plain` on MVs, costs or
-    scores and trajectories; `walk_evals`, from that trajectory and
-    `walk_terminated`, counts exactly the (block, candidate) pairs it
-    evaluated, and their pixels."""
-    cur, ref = _pair(6, h, w, shift=(4, -3))
+        metric, early, steps, blk, span, h, w, content):
+    """`walk_np` (the kernel's walk, skipping the targets the previous
+    round evaluated) equals `lazy_plain` on MVs, costs or scores and
+    trajectories; `walk_evals`, from that trajectory and
+    `walk_terminated`, counts exactly the distinct (block, candidate)
+    pairs it evaluated, and their pixels; the kernel's evaluations, which
+    compute a target an older round saw again, number at least as
+    many."""
+    cur, ref = (_pair(6, h, w, shift=(4, -3)) if content == "pair"
+                else _tie_frames(content, h, w))
     steps = td.default_max_steps(span) if steps is None else steps
     kw = dict(blk_dim=blk, span=span, metric=metric, early_term=early,
               max_steps=steps)
@@ -367,7 +462,7 @@ def test_walk_model_equals_plain_and_its_evaluations_are_counted(
                                 record_trajectory=True, **kw)
     _, volume = tfs.full_search_frame(cur, ref, blk_dim=blk, span=span,
                                       metric=metric, return_cost_volume=True)
-    mv_y, mv_x, cost, m_traj, evaluated = walk_np(
+    mv_y, mv_x, cost, m_traj, evaluated, evaluations = walk_np(
         volume.numpy(), frame_height=h, frame_width=w, **kw)
     np.testing.assert_array_equal(field.mv_y.numpy(), mv_y)
     np.testing.assert_array_equal(field.mv_x.numpy(), mv_x)
@@ -386,6 +481,7 @@ def test_walk_model_equals_plain_and_its_evaluations_are_counted(
         terminated=terminated)
     assert blocks == len(evaluated)
     assert pixels == sum(count.flat[b] for b, _ in evaluated)
+    assert evaluations >= len(evaluated)
 
 
 def test_walk_bound_takes_the_larger_term():
@@ -425,6 +521,26 @@ CUDA_CASES = [
     (130, 170, 40, 6, "ssim", None, None, (3, -2)),
     (61, 77, 5, 1, "sad", None, None, (1, 1)),
     (64, 64, 7, 31, "mse", None, None, (20, -17)),
+    # Every instance and its edges: blk 1 (667 walks, not a multiple of
+    # the four one-warp walks a CUDA block), 8 (bw 5, bh 3), 9 (bw 2, bh
+    # 2), 16 (bw 7); 17 and 32 (128 threads a walk, 35 and 15 walks for
+    # two a CUDA block; bw 3 and 22), 33 and 64 (128 threads, four rows a
+    # lane; bw 18, 11), 70 and 130 (256 threads, the block read from the
+    # frame; bw 63, 30); span 0.
+    (23, 29, 1, 3, "mse", None, None, (1, -1)),
+    (23, 29, 1, 3, "ssim", None, None, (1, -1)),
+    (99, 133, 8, 9, "ssim", 0.5, None, (2, -3)),
+    (101, 137, 9, 7, "mse", None, None, (-3, 3)),
+    (90, 183, 16, 7, "sad", None, None, (4, -5)),
+    (80, 105, 17, 7, "mse", None, None, (5, 7)),
+    (80, 105, 17, 7, "ssim", None, None, (5, 7)),
+    (70, 150, 32, 9, "sad", 20.0, None, (3, -6)),
+    (100, 150, 33, 6, "mse", None, None, (3, -2)),
+    (100, 150, 33, 6, "ssim", None, None, (3, -2)),
+    (150, 203, 64, 4, "sad", None, None, (2, 3)),
+    (150, 203, 70, 4, "ssim", None, None, (2, 3)),
+    (150, 290, 130, 2, "sad", None, None, (1, 1)),
+    (61, 77, 8, 0, "mse", None, None, (1, 1)),
 ]
 
 
@@ -507,11 +623,11 @@ def test_early_check_passes_at_equality_cuda(cuda, metric, steps):
 
 
 def test_walk_memo_overflow_cuda(cuda):
-    """A walk longer than the kernel's memo of 256 evaluated candidates:
-    on a horizontal ramp moved by 104 columns, the middle block row walks
-    52 LDSP moves of (0, 2), each with 5 new valid candidates, so the memo
-    fills and later candidates are computed again. The kernel equals
-    `lazy_plain` on the card, `diamond_search_np` and JAX's lazy mode."""
+    """A long walk: on a horizontal ramp moved by 104 columns, the middle
+    block row walks 52 LDSP moves of (0, 2), each with 5 new valid
+    candidates (261 evaluations, past the 256-entry memo of an earlier
+    design). The kernel equals `lazy_plain` on the card,
+    `diamond_search_np` and JAX's lazy mode."""
     h, w, blk, span = 24, 240, 8, 104
     ref = np.tile(np.arange(w, dtype=np.uint8), (h, 1))
     cur = ref[:, np.minimum(np.arange(w) + 104, w - 1)].copy()
@@ -532,6 +648,66 @@ def test_walk_memo_overflow_cuda(cuda):
     j_field, j_traj = jd.diamond_search_frame(
         cur, ref, record_trajectory=True, volume_mode="lazy", **kw)
     _assert_matches_jax(got, got_traj, j_field, j_traj)
+
+
+@pytest.mark.parametrize("blk,metric,kind", TIE_CASES)
+def test_walk_ties_cuda(cuda, blk, metric, kind):
+    """The winner's reduction keeps the tie rule at each team shape (one
+    warp at blk 8, 128 threads at 24 and 40, 256 at 70): on tie frames the
+    kernel equals `lazy_plain` on the card bit for bit and
+    `diamond_search_np`, and a block inside the frame takes the first tied
+    candidate."""
+    cur, ref = _tie_frames(kind, 3 * blk + 5, 4 * blk + 3)
+    kw = dict(blk_dim=blk, span=5, metric=metric, early_term=None,
+              max_steps=td.default_max_steps(5))
+    cur_t, ref_t = (torch.from_numpy(a).to(cuda) for a in (cur, ref))
+    got, got_traj = dc.walk_cuda(cur_t, ref_t, record_trajectory=True, **kw)
+    want, want_traj = td.lazy_plain(cur_t, ref_t, record_trajectory=True,
+                                    **kw)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
+    assert torch.equal(got_traj, want_traj)
+    _assert_matches_np(got, got_traj, jd.diamond_search_np(cur, ref, **kw),
+                       metric)
+    assert (int(got.mv_y[1, 1]), int(got.mv_x[1, 1])) == TIE_MV[kind]
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("blk,metric", [(5, "sad"), (8, "mse"), (17, "ssim"),
+                                        (33, "mse"), (70, "sad")])
+def test_walk_unaligned_frames_cuda(cuda, offset, blk, metric):
+    """Frames that start `offset` bytes into their buffer and end at its
+    last byte (word loads at both ends of the allocation) give the result
+    of the same frames at an aligned address."""
+    h, w = 3 * blk + 3, 4 * blk + 1
+    cur, ref = _pair(13, h, w, shift=(2, -1))
+    kw = dict(blk_dim=blk, span=4, metric=metric, early_term=None,
+              max_steps=6, record_trajectory=True)
+    frames = []
+    for a in (cur, ref):
+        buf = torch.zeros(offset + h * w, dtype=torch.uint8, device=cuda)
+        buf[offset:] = torch.from_numpy(a.reshape(-1)).to(cuda)
+        frames.append(buf[offset:].view(h, w))
+    assert frames[0].data_ptr() % 4 == offset % 4
+    got, got_traj = dc.walk_cuda(*frames, **kw)
+    want, want_traj = dc.walk_cuda(
+        *(torch.from_numpy(a).to(cuda) for a in (cur, ref)), **kw)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
+    assert torch.equal(got_traj, want_traj)
+
+
+@pytest.mark.parametrize("metric", ["mse", "sad", "ssim"])
+def test_walk_occupancy_cuda(cuda, metric):
+    """The team shape the launcher picks from blk: one warp and four walks
+    a CUDA block at blk <= 16, 128 threads and two walks at 17..64, 256
+    threads and one walk above; each instance resident on the card."""
+    for blk in (1, 8, 9, 16, 17, 32, 33, 64, 70, 130):
+        occ = dc.walk_occupancy(blk, metric)
+        team, walks = ((32, 4) if blk <= 16 else (128, 2) if blk <= 64
+                       else (256, 1))
+        assert (occ["team_threads"], occ["walks_per_block"]) == (team, walks)
+        assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0, occ
 
 
 def test_lazy_mode_frame_dtypes_cuda(cuda):
