@@ -168,7 +168,10 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    (canonical and crossover), and the diamond replay alone at level 6 (MSE
    and SSIM): `me_diamond_replay` beside `replay_plain`, with its bound
    (`bench/roofline.replay_bound`: the distinct volume entries this run's
-   trajectories read, counted by `replay_reads`, and the outputs).
+   trajectories read, counted by `replay_reads`, and the outputs), the
+   instance's registers, spill and stack bytes (ptxas) and LDSP rounds a
+   trip, and the device time of an empty kernel on the same grid (the
+   floor of a launch).
 6. The bench main path, counted: `python -m motionestimation_tpu_torch.bench`
    -v 1, then -v 2, into a temp dir, with Foreman F4/F1 written from
    planes 1 and 0 of the foreman_mse_8_12 fixture (Jockey and Beauty
@@ -1231,6 +1234,30 @@ def diamond_reference(best, volume, *, span, crossover, **kw):
     return diamond._merge(esc, best, want), None, esc
 
 
+def replay_resources(log):
+    """{("int" or "float", D): "N registers, N bytes stack frame, N bytes
+    spill stores, N bytes spill loads"}: ptxas's lines for each instance of
+    `me_diamond_replay` (D: LDSP rounds a trip, 0 for a round a load) in
+    the build log of csrc/diamond.cu."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"replay_kernelI([if])Li(\d+)E", entry or "")
+        if m is None:
+            continue
+        kind = ("float" if m.group(1) == "f" else "int", int(m.group(2)))
+        if "stack frame" in line:
+            out[kind] = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[kind] = f"{regs} registers, " + out.get(kind, "")
+    return out
+
+
 def replay_checks(contents, dev, compare, seed):
     """`me_diamond_replay` against `replay_plain` on the card, bit for bit
     (fields, trajectories and escape masks): at every staged level of the
@@ -1238,8 +1265,10 @@ def replay_checks(contents, dev, compare, seed):
     adversarial content (which escalates), with and without the
     trajectory; on a tile at a nonzero origin that holds the frame's
     truncated bottom block row (the volumes of `diamond_search_tile`);
-    and on the 4K 32x32 +-31 worst case's first level. `compare` records
-    the largest difference. Returns the number of checks."""
+    at 4K 8x8 +-15 (129,600 blocks a plane, the kernel's instance that
+    walks a round a load); and on the 4K 32x32 +-31 worst case's first
+    level. `compare` records the largest difference. Returns the number of
+    checks."""
     import torch.nn.functional as F
 
     from motionestimation_tpu_torch.kernels import diamond_cuda as dc
@@ -1302,6 +1331,19 @@ def replay_checks(contents, dev, compare, seed):
                   search_span=span, metric="mse", early_term=early,
                   frame_height=h, frame_width=w, track_escape=r < span,
                   y_origin=y0, x_origin=x0)
+
+    # A plane of 129,600 blocks (4K 8x8 +-15), which the kernel walks one
+    # round a load: the first level, MSE and SSIM, and the full span.
+    cur, ref = (torch.from_numpy(a).to(dev) for a in contents["4K"])
+    for metric, r in (("mse", 6), ("ssim", 6), ("mse", 15)):
+        volume = (sc.ssim_volume_cuda(cur, ref, blk_dim=8, span=r,
+                                      device=dev) if metric == "ssim"
+                  else kc.full_search_volume_cuda(cur, ref, blk_dim=8,
+                                                  span=r, device=dev))
+        check(volume, f"4K 8x8 +-15 {metric} level {r}", blk_dim=8, span=r,
+              search_span=15, metric=metric, early_term=None,
+              frame_height=2160, frame_width=3840, track_escape=r < 15)
+        del volume
 
     # The 4K worst case's first level (bench/matrix.py diamond-worstcase-4k).
     h4, w4, blk4, span4 = 2160, 3840, 32, 31
@@ -1518,6 +1560,7 @@ def main(argv=None) -> int:
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip())
     print(f"build phase {time.perf_counter() - t0:.1f} s")
+    replay_ptxas = replay_resources(built.get("diamond", (0, ""))[1])
     occupancies = [
         (f"me_chunked_search at {label}", kc.chunked_occupancy(blk, span,
                                                                w // blk))
@@ -2387,32 +2430,59 @@ def main(argv=None) -> int:
         plain_ms = [cuda_ms(lambda: dc.replay_plain(vol, **rkw), 1)
                     for _ in range(5)]
         dc.replay_cuda(vol, **rkw)  # warm-up
-        # The wrapper's call issues ~15 small torch ops besides the kernel
-        # (outputs, block extents, the mean), which outlast it: the
-        # kernel's own time is the profiler's device time.
+        # The wrapper's call issues the outputs' allocations and the
+        # launch; the kernel's own time is the profiler's device time.
         call_ms = [cuda_ms(lambda: dc.replay_cuda(vol, **rkw), 20)
                    for _ in range(5)]
-        prof = measure.profile_pass(lambda: dc.replay_cuda(vol, **rkw), 20,
-                                    dev)
-        name = "me::diamond::replay_kernel<int>" if metric != "ssim" else (
-            "me::diamond::replay_kernel<float>")
-        kernel_ms = prof.kernels[name][1]
+        kernel_ms = kernel_turns.device_ms(
+            lambda: dc.replay_cuda(vol, **rkw), "replay_kernel", dev)
+        nby, nbx = vol.shape[1:]
+        empty_ms = kernel_turns.device_ms(
+            lambda: dc.replay_empty(nby, nbx, dev), "empty_kernel", dev)
+        if not (kernel_ms > 0 and empty_ms > 0):
+            fail(f"replay alone, {metric}: the profiler recorded no launch "
+                 f"of the replay ({kernel_ms}) or the empty kernel "
+                 f"({empty_ms}) in three passes")
+        att = dc.replay_attributes(metric, nby, nbx)
+        ptxas = replay_ptxas.get(("float" if metric == "ssim" else "int",
+                                  att["depth"]), "not built in this run")
         reads = replay_reads(traj.cpu().numpy(), span=r)
         bound_ms, bound_by = replay_bound(reads, esc.numel())
         print(f"  replay alone, {metric} level {r}: me_diamond_replay "
-              f"{kernel_ms:.4f} ms (device time, mean of 20 launches in a "
-              f"profiled pass); replay_cuda call median "
-              f"{statistics.median(call_ms):.4f} ms (runs "
+              f"{kernel_ms:.4f} ms (device time, mean of a profiled pass "
+              f"of 20 launches or more); an empty kernel on its grid "
+              f"({nby}x{nbx} blocks) {empty_ms:.4f} ms; replay_cuda call "
+              f"median {statistics.median(call_ms):.4f} ms (runs "
               f"{[round(t, 4) for t in call_ms]}, 20 calls each behind a "
               f"sleep), replay_plain median "
               f"{statistics.median(plain_ms):.4f} ms "
               f"(runs {[round(t, 4) for t in plain_ms]}; CUDA events around "
               f"host dispatch); bound {bound_ms:.6f} ms ({bound_by}: "
               f"{reads} distinct volume entries read); {rounds} LDSP rounds, "
-              f"{int(esc.sum())} blocks escape | {card}")
+              f"{int(esc.sum())} blocks escape; instance: {att['depth']} "
+              f"LDSP rounds a trip, {att['registers']} registers, "
+              f"{att['local_bytes']} bytes of local memory, ptxas: {ptxas}; "
+              f"{att['warps_per_sm']} warps resident per SM | {card}")
+        if att["local_bytes"]:
+            fail(f"me_diamond_replay {metric}: {att['local_bytes']} bytes "
+                 f"of local memory (stack or spills) per thread")
         if metric == "mse":  # the main path's first replay: the kernels line
             replay_line = (kernel_ms, statistics.median(plain_ms),
                            bound_ms, bound_by)
+    # The instances of large planes (a round a load, from 65,536 blocks).
+    for metric in ("mse", "ssim"):
+        att = dc.replay_attributes(metric, 270, 480)
+        ptxas = replay_ptxas.get(("float" if metric == "ssim" else "int",
+                                  att["depth"]), "not built in this run")
+        print(f"  me_diamond_replay {metric} at a 4K 8x8 plane (270x480 "
+              f"blocks): {att['depth']} LDSP rounds a trip (0: a round a "
+              f"load), {att['threads']} threads a CUDA block, "
+              f"{att['registers']} registers, {att['local_bytes']} bytes of "
+              f"local memory, ptxas: {ptxas}; {att['warps_per_sm']} warps "
+              f"resident per SM | {card}")
+        if att["local_bytes"]:
+            fail(f"me_diamond_replay {metric} at 270x480: "
+                 f"{att['local_bytes']} bytes of local memory per thread")
     del volumes, vol
     cur_t, halo = operands(h, w, span, args.seed)
     nyf = h // blk

@@ -92,12 +92,12 @@ def replay_reads(traj, *, span: int) -> int:
 
 def replay_bound(reads: int, nblocks: int, trajectory_rows: int = 0):
     """(bound_ms, bound_by) of a diamond replay: `reads` 4-byte volume
-    entries (`replay_reads`) read once, and per block its int32 MV pair
-    and cost and its escape byte written, plus `trajectory_rows` int32
-    (y, x) rows, over the HBM rate; the operations (a window test, a
-    compare and a select per entry read) over the float32 lane rate stay
-    well below it."""
-    nbytes = 4 * reads + nblocks * (3 * 4 + 1 + 8 * trajectory_rows)
+    entries (`replay_reads`) read once, and per block its MotionField
+    (int32 MV pair and cost or index, float32 score) and its escape byte
+    written, plus `trajectory_rows` int32 (y, x) rows, over the HBM rate;
+    the operations (a window test, a compare and a select per entry read)
+    over the float32 lane rate stay well below it."""
+    nbytes = 4 * reads + nblocks * (4 * 4 + 1 + 8 * trajectory_rows)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = 3 * reads / FP32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -4,12 +4,14 @@ csrc/diamond_walk.cu.
 `replay_cuda` launches `me_diamond_replay`, the counterpart of the jitted
 XLA program `_diamond_replay` (motionestimation_tpu/search/diamond.py:259;
 not a Pallas kernel): one CUDA thread walks one block's LDSP/SDSP
-trajectory over a [K², nby, nbx] cost volume and stops on its own, so the
-replay issues one launch and no host sync, where the lockstep loop asks the
-card after every round whether any block is still active. Beside it stands
-its plain PyTorch version, `replay_plain`: the lockstep replay of every
-block in torch ops, which the CPU runs. `search.diamond._replay` picks
-between them by the volume's device.
+trajectory over a [K², nby, nbx] cost volume, several rounds from each
+neighbourhood it loads, stops on its own and writes the whole MotionField,
+so the replay issues its outputs' allocations and one launch and no host
+sync, where the lockstep loop asks the card after every round whether any
+block is still active. Beside it stands its plain PyTorch version,
+`replay_plain`: the lockstep replay of every block in torch ops, which the
+CPU runs. `search.diamond._replay` picks between them by the volume's
+device.
 
 `walk_cuda` launches `me_diamond_walk`, the counterpart of the jitted XLA
 program `_diamond_lazy` (motionestimation_tpu/search/diamond.py:463): a
@@ -38,10 +40,10 @@ from motionestimation_tpu_torch.search.full_search import MotionField
 from motionestimation_tpu_torch.search.patterns import LDSP, SDSP
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# vol, mv_y, mv_x, cost, escaped, traj; is_float, nby, nbx, span,
-# max_steps, track_escape, has_threshold; threshold; blk, frame_h,
+# vol, mv_y, mv_x, best_i32, score, escaped, traj; is_float, nby, nbx,
+# span, max_steps, track_escape, has_threshold; threshold; blk, frame_h,
 # frame_w, y_origin, x_origin; the stream.
-_ARGTYPES = ([_PTR] * 6 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 5
+_ARGTYPES = ([_PTR] * 7 + [_INT] * 7 + [ctypes.c_float] + [_INT] * 5
              + [_PTR])
 
 
@@ -56,6 +58,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("diamond")
     lib.me_diamond_replay.argtypes = _ARGTYPES
     lib.me_diamond_replay.restype = ctypes.c_int
+    lib.me_diamond_replay_empty.argtypes = [_INT, _INT, _PTR]
+    lib.me_diamond_replay_empty.restype = ctypes.c_int
+    lib.me_diamond_replay_attributes.argtypes = [_INT, _INT, _INT, _PTR]
+    lib.me_diamond_replay_attributes.restype = ctypes.c_int
     return lib
 
 
@@ -88,8 +94,9 @@ def replay_cuda(volume, *, blk_dim: int, span: int, metric: str, early_term,
     """`me_diamond_replay` over a contiguous CUDA volume: int32 [K², nby,
     nbx] with INT32_MAX at invalid candidates for MSE/SAD, float32 with
     -inf for SSIM, K = 2 * span + 1. Arguments and results as
-    `replay_plain`'s: (field, trajectory or None, escaped). One launch, no
-    host sync."""
+    `replay_plain`'s: (field, trajectory or None, escaped); the kernel
+    writes every field. The outputs' allocations and one launch, no host
+    sync."""
     if volume.device.type != "cuda":
         raise ValueError(
             f"replay_cuda runs on CUDA tensors, got {volume.device} (the "
@@ -108,8 +115,9 @@ def replay_cuda(volume, *, blk_dim: int, span: int, metric: str, early_term,
     _, nby, nbx = volume.shape
     dev = volume.device
     cy = torch.empty((nby, nbx), dtype=torch.int32, device=dev)
-    cx = torch.empty_like(cy)
-    ccost = torch.empty((nby, nbx), dtype=want, device=dev)
+    cx = torch.empty((nby, nbx), dtype=torch.int32, device=dev)
+    best = torch.empty((nby, nbx), dtype=torch.int32, device=dev)
+    score = torch.empty((nby, nbx), dtype=torch.float32, device=dev)
     escaped = torch.empty((nby, nbx), dtype=torch.bool, device=dev)
     traj = (torch.empty((max_steps + 1, nby, nbx, 2), dtype=torch.int32,
                         device=dev) if record_trajectory else None)
@@ -118,7 +126,7 @@ def replay_cuda(volume, *, blk_dim: int, span: int, metric: str, early_term,
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = _lib().me_diamond_replay(
                 volume.data_ptr(), cy.data_ptr(), cx.data_ptr(),
-                ccost.data_ptr(), escaped.data_ptr(),
+                best.data_ptr(), score.data_ptr(), escaped.data_ptr(),
                 traj.data_ptr() if traj is not None else None,
                 int(not minimise), nby, nbx, span, max_steps,
                 int(track_escape), int(early_term is not None),
@@ -128,17 +136,44 @@ def replay_cuda(volume, *, blk_dim: int, span: int, metric: str, early_term,
             raise RuntimeError(f"me_diamond_replay launch failed: CUDA error "
                                f"{err}")
         replay_cuda.launches += 1
-    count = None
-    if minimise:  # the kernel counts its pixels itself; the mean needs them
-        _, _, blk_h, blk_w = geometry.block_extents(
-            y_origin, x_origin, nby, nbx, blk_dim, frame_height, frame_width,
-            dev)
-        count = blk_h * blk_w
-    field = _field(cy, cx, ccost, metric=metric, span=span, count=count)
-    return field, traj, escaped
+    return MotionField(cy, cx, best, score), traj, escaped
 
 
 replay_cuda.launches = 0
+
+
+def replay_empty(nby: int, nbx: int, device=None) -> None:
+    """Launch an empty kernel on the grid of a replay over nby x nbx blocks
+    (the floor of a launch, for timing beside `replay_cuda`; not counted).
+    Needs a card."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    with torch.cuda.device(dev):
+        err = _lib().me_diamond_replay_empty(
+            nby, nbx, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"me_diamond_replay_empty failed: CUDA error "
+                           f"{err}")
+
+
+def replay_attributes(metric: str, nby: int, nbx: int) -> dict:
+    """The resources of the `me_diamond_replay` instance that `replay_cuda`
+    launches for `metric` over nby x nbx blocks on the current card:
+    registers and local bytes (stack and spills) per thread, the LDSP
+    rounds a trip (`depth`: the neighbourhood's L1 radius is twice it; 0
+    for a round a load, the instance of large planes), threads a CUDA
+    block and CUDA blocks resident per SM. Needs a card."""
+    if metric not in ("mse", "sad", "ssim"):
+        raise ValueError(f"unknown metric {metric!r}")
+    out = (ctypes.c_int * 5)()
+    err = _lib().me_diamond_replay_attributes(int(metric == "ssim"), nby,
+                                              nbx, out)
+    if err:
+        raise RuntimeError(f"me_diamond_replay_attributes failed: CUDA "
+                           f"error {err}")
+    regs, local, depth, threads, blocks = out
+    return dict(registers=regs, local_bytes=local, depth=depth,
+                threads=threads, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32)
 
 
 def walk_cuda(cur, ref, *, blk_dim: int, span: int, metric: str, early_term,

@@ -16,14 +16,18 @@ mode's cases of `chip_smoke.py`, on the JAX bench's synthetic content) runs
 `me_diamond_walk` through `kernels/diamond_cuda.walk_cuda`: the call's mean
 ms over LAUNCHES calls behind a sleep, twice, the kernel's own device time
 from a profiled pass, and a digest of the result, so that two checkouts'
-runs can be seen to agree. --group times only the cells with those labels
-(e.g. "4K 7x7 +-15 sad", "lazy 4K 8x8 +-31 mse").
+runs can be seen to agree. Each cell of REPLAY_GROUPS (a staged level of
+`bench/matrix`'s diamond rows, on its content) does the same for
+`me_diamond_replay` through `kernels/diamond_cuda.replay_cuda` over the
+level's volume. --group times only the cells with those labels (e.g. "4K
+7x7 +-15 sad", "lazy 4K 8x8 +-31 mse", "replay worstcase-4k level 31").
 `chip_smoke.py` times its in-turns groups with `time_group`; the tool uses
 only the public wrappers of `kernels/full_search_cuda.py` (MSE, SAD),
-`kernels/ssim_cuda.py` (SSIM) and `kernels/diamond_cuda.py` (the walk), so
-it times any checkout's kernels: dropped into a `git archive` copy of a
-parent commit, it times the parent's, and runs of the two copies in turns
-(parent, change, change, parent) compare them on one card.
+`kernels/ssim_cuda.py` (SSIM) and `kernels/diamond_cuda.py` (the walk and
+the replay), so it times any checkout's kernels: dropped into a `git
+archive` copy of a parent commit, it times the parent's, and runs of the
+two copies in turns (parent, change, change, parent) compare them on one
+card.
 """
 from __future__ import annotations
 
@@ -153,6 +157,77 @@ def time_walk(content, blk, span, metric, early_term, seed=0, device=None):
     return runs, kernel_ms, digest
 
 
+# The staged levels of `bench/matrix`'s diamond rows, R through
+# `replay_cuda` over the level's volume with `default_max_steps(span)`
+# rounds, escape tracking below the span and no trajectory: (label,
+# content, blk, span, level radius, metric). Content as `bench/matrix`
+# makes it (`replay_content`).
+REPLAY_GROUPS = [
+    ("replay config3 mse level 6", "config3", 16, 15, 6, "mse"),
+    ("replay config3 ssim level 6", "config3", 16, 15, 6, "ssim"),
+    ("replay worstcase level 6", "adversarial", 16, 15, 6, "mse"),
+    ("replay worstcase level 15", "adversarial", 16, 15, 15, "mse"),
+    ("replay worstcase-4k level 6", "adversarial-4k", 32, 31, 6, "mse"),
+    ("replay worstcase-4k level 12", "adversarial-4k", 32, 31, 12, "mse"),
+    ("replay worstcase-4k level 31", "adversarial-4k", 32, 31, 31, "mse"),
+]
+
+
+@functools.cache
+def replay_content(name, seed):
+    """(cur, ref) uint8 numpy frames of a REPLAY_GROUPS content: the
+    synthetic frames of `bench/matrix.matrix_frames`, drawn in its order
+    from one generator (`--seed` 0 gives the matrix's)."""
+    rng = np.random.default_rng(seed)
+    frames = {"config3": matrix._synth(rng, 1080, 1920),
+              "adversarial": matrix._synth(rng, 1080, 1920, shift=(14, -14),
+                                           noise=2)}
+    if name in frames:
+        return frames[name]
+    matrix._synth(rng, 2160, 3840)  # the matrix's "4k" frames
+    return matrix._synth(rng, 2160, 3840, shift=(28, -28), noise=2)
+
+
+def time_replay(content, blk, span, r, metric, seed=0, device=None):
+    """(call ms [two runs], R's device ms, digest) of a REPLAY_GROUPS cell:
+    the `replay_cuda` call's mean ms over LAUNCHES calls behind a sleep, in
+    two runs; `me_diamond_replay`'s mean device time per launch in a
+    profiled pass of LAUNCHES calls (`device_ms`); a digest of the
+    MotionField and the escape mask."""
+    dev = resolve_device(device)
+    cur, ref = (torch.from_numpy(a).to(dev)
+                for a in replay_content(content, seed))
+    h, w = cur.shape
+    volume = (sc.ssim_volume_cuda(cur, ref, blk_dim=blk, span=r, device=dev)
+              if metric == "ssim" else kc.full_search_volume_cuda(
+                  cur, ref, blk_dim=blk, span=r, metric=metric, device=dev))
+    call = functools.partial(
+        dc.replay_cuda, volume, blk_dim=blk, span=r, metric=metric,
+        early_term=None, max_steps=diamond.default_max_steps(span),
+        record_trajectory=False, frame_height=h, frame_width=w,
+        track_escape=r < span)
+    field, _, escaped = call()  # loads the kernel
+    digest = hashlib.sha1(b"".join(
+        t.cpu().numpy().tobytes() for t in (*field, escaped))).hexdigest()[:12]
+    runs = [cuda_ms(call, LAUNCHES) for _ in range(2)]
+    return runs, device_ms(call, "replay_kernel", dev), digest
+
+
+def device_ms(call, kernel, device, n=LAUNCHES, tries=3):
+    """Mean device time per launch of the kernel whose name holds `kernel`,
+    from a profiled pass of n calls of `call`. The profiler can lose every
+    record of a short pass (PERF.md question 14): the pass is then repeated
+    with ten times the calls, up to `tries` passes; nan after that."""
+    for _ in range(tries):
+        prof = measure.profile_pass(call, n, device)
+        ms = next((ms for name, (_, ms) in prof.kernels.items()
+                   if kernel in name), None)
+        if ms is not None:
+            return ms
+        n *= 10
+    return float("nan")
+
+
 def synthetic_pair(h, w, seed):
     """A reference frame and a current frame moved by (3, -5) plus noise."""
     rng = np.random.default_rng(seed)
@@ -249,14 +324,16 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--group", nargs="+", metavar="LABEL",
-                   help="time only these cells of GROUPS, SLAB_GROUPS "
-                   "and WALK_GROUPS (default: all)")
+                   help="time only these cells of GROUPS, SLAB_GROUPS, "
+                   "WALK_GROUPS and REPLAY_GROUPS (default: all)")
     args = p.parse_args(argv)
     if args.group is None:
-        groups, walks = select(), WALK_GROUPS
+        groups, walks, replays = select(), WALK_GROUPS, REPLAY_GROUPS
     else:
         walks = [g for g in WALK_GROUPS if g[0] in args.group]
-        rest = [g for g in args.group if g not in {w[0] for w in walks}]
+        replays = [g for g in REPLAY_GROUPS if g[0] in args.group]
+        taken = {g[0] for g in walks + replays}
+        rest = [g for g in args.group if g not in taken]
         groups = select(rest) if rest else []
     dev = resolve_device()
     print(f"# {torch.cuda.get_device_name(dev)}, {LAUNCHES} launches each, "
@@ -272,6 +349,13 @@ def main(argv=None) -> int:
                                             args.seed, dev)
         print(f"{label}: W me_diamond_walk {kernel_ms:.4f} ms (device time, "
               f"profiled mean of {LAUNCHES}); walk_cuda call "
+              f"{statistics.mean(runs):.4f} ms (runs "
+              f"{[round(t, 4) for t in runs]}); result {digest}")
+    for label, content, blk, span, r, metric in replays:
+        runs, kernel_ms, digest = time_replay(content, blk, span, r, metric,
+                                              args.seed, dev)
+        print(f"{label}: R me_diamond_replay {kernel_ms:.4f} ms (device "
+              f"time, profiled mean of {LAUNCHES}); replay_cuda call "
               f"{statistics.mean(runs):.4f} ms (runs "
               f"{[round(t, 4) for t in runs]}); result {digest}")
     return 0

@@ -25,6 +25,8 @@ Tests whose names end in `_cuda` hold `me_diamond_replay` against
 `replay_plain` on the card, bit for bit, and skip where there is no card:
 `python -m pytest --noconftest tests/test_torch_diamond_replay.py -k cuda`.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,17 +110,21 @@ def replay_np(volume, *, blk_dim, span, metric, early_term, max_steps,
     return mv_y, mv_x, cost, traj, esc
 
 
-def make_volume(seed, nby, nbx, span, metric, sentinel_share=0.08):
+def make_volume(seed, nby, nbx, span, metric, sentinel_share=0.08,
+                corners=False):
     """A [K², nby, nbx] volume from `seed`: each block's costs fall toward
-    a target displacement of its own (often at or past the window's edge),
-    in coarse steps that force ties, with sentinels scattered inside the
-    window; the centre is never a sentinel."""
+    a target displacement of its own (often at or past the window's edge;
+    with `corners` one step past one of the window's four corners, so
+    every walk is long), in coarse steps that force ties, with sentinels
+    scattered inside the window; the centre is never a sentinel."""
     rng = np.random.default_rng(seed)
     k = 2 * span + 1
     d = np.arange(-span, span + 1)
     dy, dx = (a.reshape(k * k, 1, 1) for a in np.meshgrid(d, d,
                                                            indexing="ij"))
     target = rng.integers(-span - 2, span + 3, (2, 1, nby, nbx))
+    if corners:
+        target = np.where(target >= 0, span + 1, -span - 1)
     dist = np.abs(dy - target[0]) + np.abs(dx - target[1])
     noise = rng.integers(0, 3, (k * k, nby, nbx))
     hole = rng.random((k * k, nby, nbx)) < sentinel_share
@@ -133,7 +139,7 @@ def make_volume(seed, nby, nbx, span, metric, sentinel_share=0.08):
 
 
 # (id, metric, span, nby, nbx, blk, frame (h, w), origin, early_term,
-#  max_steps or None for span + 2, track_escape)
+#  max_steps or None for span + 2, track_escape[, targets at the corners])
 CASES = [
     ("mse", "mse", 4, 5, 7, 2, (10, 14), (0, 0), None, None, False),
     ("sad", "sad", 4, 5, 7, 2, (10, 14), (0, 0), None, None, False),
@@ -160,12 +166,36 @@ CASES = [
     ("max_steps 0", "ssim", 3, 4, 4, 2, (8, 8), (0, 0), None, 0, True),
     ("span 1", "sad", 1, 4, 6, 2, (8, 12), (0, 0), None, None, True),
     ("span 0", "mse", 0, 3, 3, 2, (6, 6), (0, 0), 0.5, None, False),
+    # Walks over several of the kernel's trips (a trip resolves up to its
+    # depth D of LDSP rounds, 2 or 3, from one neighbourhood): 8 and more
+    # rounds toward the window's corners, stopped by max_steps or by the
+    # early check inside a trip or at its start.
+    ("mse span 15 corners", "mse", 15, 3, 5, 4, (12, 20), (0, 0), None,
+     None, False, True),
+    ("ssim span 15 corners, escape", "ssim", 15, 3, 5, 4, (12, 20), (0, 0),
+     None, None, True, True),
+    ("sad span 31 corners, escape", "sad", 31, 2, 3, 8, (16, 24), (0, 0),
+     None, None, True, True),
+    ("mse span 31 corners, early stop mid-walk", "mse", 31, 2, 3, 8,
+     (16, 24), (0, 0), 2.0, None, False, True),
+    ("max_steps 3, rounds left", "mse", 15, 3, 5, 4, (12, 20), (0, 0), None,
+     3, True, True),
+    ("max_steps 5, rounds left", "ssim", 4, 4, 6, 2, (8, 12), (0, 0), None, 5,
+     True, True),
+    ("early stop after the first round", "mse", 4, 4, 6, 2, (8, 12), (0, 0),
+     9.0, None, False, True),
+    ("early stop after the second round", "mse", 4, 4, 6, 2, (8, 12),
+     (0, 0), 7.0, None, False, True),
+    ("plane over several CUDA blocks", "mse", 3, 2, 150, 2, (4, 300),
+     (0, 0), 1.5, None, True),
+    ("sad tile at an origin, truncated edges", "sad", 4, 4, 5, 4, (27, 38),
+     (12, 20), 2.5, None, False),
 ]
 
 
 def _case_kwargs(case):
     (_, metric, span, nby, nbx, blk, (fh, fw), (y0, x0), early, steps,
-     track) = case
+     track) = case[:11]
     return dict(blk_dim=blk, span=span, metric=metric, early_term=early,
                 max_steps=span + 2 if steps is None else steps,
                 frame_height=fh, frame_width=fw, track_escape=track,
@@ -174,7 +204,20 @@ def _case_kwargs(case):
 
 def _volume(case, seed):
     kw, (nby, nbx) = _case_kwargs(case)
-    return make_volume(seed, nby, nbx, kw["span"], kw["metric"]), kw
+    return make_volume(seed, nby, nbx, kw["span"], kw["metric"],
+                       corners=case[11:] == (True,)), kw
+
+
+def _means(cost, kw):
+    """cost / max(count, 1) in float32 per block, `count` the block's
+    in-frame pixels at the case's origin: the MSE/SAD field's score."""
+    nby, nbx = cost.shape
+    blk = kw["blk_dim"]
+    tl_y = kw["y_origin"] + blk * np.arange(nby)[:, None]
+    tl_x = kw["x_origin"] + blk * np.arange(nbx)[None, :]
+    count = (np.clip(kw["frame_height"] - tl_y, 0, blk)
+             * np.clip(kw["frame_width"] - tl_x, 0, blk))
+    return cost.astype(np.float32) / np.maximum(count, 1).astype(np.float32)
 
 
 def _numpy(t):
@@ -206,6 +249,8 @@ def test_model_plain_and_jax_agree(case, seed):
     got_cost = field.score if kw["metric"] == "ssim" else field.best_cost_i32
     assert got_cost.numpy().dtype == cost.dtype
     np.testing.assert_array_equal(got_cost.numpy(), cost)
+    if kw["metric"] != "ssim":
+        np.testing.assert_array_equal(field.score.numpy(), _means(cost, kw))
     np.testing.assert_array_equal(p_traj.numpy(), traj)
     np.testing.assert_array_equal(p_esc.numpy(), esc)
 
@@ -250,6 +295,38 @@ def test_replay_matches_real_volume():
     np.testing.assert_array_equal(field.best_cost_i32.numpy(), cost)
     np.testing.assert_array_equal(p_traj.numpy(), traj)
     assert (mv_y != 0).any()
+
+
+@pytest.mark.parametrize("count_max", [1, 64, 256, 4096, 1 << 20])
+def test_early_check_without_division(count_max):
+    """The kernel's SSD/SAD early check (`EarlyCut` in csrc/diamond.cu), in
+    numpy: x < (t + next(t)) / 2 * m in double, x and m the cost and the
+    count as float32, equals the plain version's float32 division
+    x / m <= t: on costs from 0 to INT32_MAX (large ones rounded to
+    float32), thresholds at exact quotients and one float32 step either
+    side, and at +-0, +-inf, NaN and the extremes of float32."""
+    rng = np.random.default_rng(count_max)
+    n = 20_000
+    cost = np.concatenate([
+        rng.integers(0, 1 << 12, n), rng.integers(0, INT32_MAX, n,
+                                                  endpoint=True),
+        [0, 1, INT32_MAX, INT32_MAX - 1, 1 << 24, (1 << 24) + 1]])
+    m = rng.integers(1, count_max, cost.size, endpoint=True)
+    xf, mf = cost.astype(np.float32), m.astype(np.float32)
+    exact = xf / mf  # float32 division, rounded to nearest
+    up = np.float32(np.inf)
+    specials = np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, 3.4e38,
+                           -3.4e38, 1e-45, -1e-45, 2.0 ** 31, 1.0, 0.5])
+    for thr in (exact, np.nextafter(exact, up),
+                np.nextafter(exact, -up), np.roll(exact, 1),
+                *(np.full(cost.size, t) for t in specials)):
+        thr = thr.astype(np.float32)
+        with np.errstate(invalid="ignore", over="ignore"):
+            um = ((thr.astype(np.float64)
+                   + np.nextafter(thr, up).astype(np.float64)) * 0.5
+                  * mf.astype(np.float64))
+            model = xf.astype(np.float64) < um
+        np.testing.assert_array_equal(model, exact <= thr)
 
 
 # --- the dispatch --------------------------------------------------------
@@ -388,6 +465,28 @@ def test_kernel_matches_plain_cuda(cuda, case, record):
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("metric,early,track", [
+    ("mse", None, True), ("sad", 2.0, False), ("ssim", 0.8, True)])
+def test_kernel_matches_plain_large_plane_cuda(cuda, metric, early, track):
+    """From 65,536 blocks a plane the kernel walks one round a load (its
+    instance for large planes): == replay_plain bit for bit, at a plane of
+    256 x 300 blocks, truncated edges and an origin."""
+    nby, nbx, span = 256, 300, 3
+    vol = make_volume(17, nby, nbx, span, metric)
+    assert dc.replay_attributes(metric, nby, nbx)["depth"] == 0
+    kw = dict(blk_dim=4, span=span, metric=metric, early_term=early,
+              max_steps=span + 2, frame_height=4 * nby - 3,
+              frame_width=4 * nbx - 2, track_escape=track, y_origin=8,
+              x_origin=4)
+    v = torch.from_numpy(vol).to(cuda)
+    for record in (True, False):
+        got = dc.replay_cuda(v, record_trajectory=record, **kw)
+        want = dc.replay_plain(v, record_trajectory=record, **kw)
+        if not record:
+            got, want = ((f, torch.zeros(1), e) for f, _, e in (got, want))
+        _assert_same(got, want)
+
+
 def test_dispatch_launches_kernel_cuda(cuda):
     """_replay on a CUDA volume launches the kernel once and runs no
     replay_plain; it syncs the host with the card nowhere."""
@@ -405,6 +504,97 @@ def test_dispatch_launches_kernel_cuda(cuda):
         dc.replay_plain = real
     assert dc.replay_cuda.launches == before + 1
     _assert_same(got, real(v, record_trajectory=True, **kw))
+
+
+def test_replay_cuda_writes_the_field_cuda(cuda, monkeypatch):
+    """replay_cuda takes its whole field from the kernel: with
+    geometry.block_extents raising, it still equals replay_plain field for
+    field, dtypes included, at a tile's origin with truncated blocks (MSE,
+    SAD: the mean over each block's pixels) and for SSIM (the flat
+    index)."""
+    from motionestimation_tpu_torch.core import geometry
+
+    def no_extents(*a, **kw):
+        raise AssertionError("replay_cuda computed block extents")
+
+    for case in (CASES[8], CASES[10], CASES[-1]):
+        vol, kw = _volume(case, 3)
+        v = torch.from_numpy(vol).to(cuda)
+        with monkeypatch.context() as m:
+            m.setattr(geometry, "block_extents", no_extents)
+            got = dc.replay_cuda(v, record_trajectory=True, **kw)
+        _assert_same(got, dc.replay_plain(v, record_trajectory=True, **kw))
+
+
+def test_replay_cuda_issues_allocations_and_one_launch_cuda(cuda):
+    """replay_cuda's torch operations are its outputs' allocations alone
+    (five, and the trajectory's), beside one launch of the kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    vol, kw = _volume(CASES[3], 1)
+    v = torch.from_numpy(vol).to(cuda)
+    dc.replay_cuda(v, record_trajectory=False, **kw)  # loads the kernel
+    for record in (False, True):
+        before = dc.replay_cuda.launches
+        with Ops() as ops:
+            dc.replay_cuda(v, record_trajectory=record, **kw)
+        assert dc.replay_cuda.launches == before + 1
+        assert ops.names == ["aten.empty.memory_format"] * (5 + record)
+
+
+def test_replay_instances_cuda(cuda):
+    """Every instance of the kernel (SSD/SAD and SSIM, a config3 plane and
+    a 4K 8x8 one) keeps its values in registers: no local memory (stack
+    or spills); the empty kernel on each grid launches."""
+    for nby, nbx, depths in ((68, 120, (2, 3)), (270, 480, (0,))):
+        for metric in ("mse", "ssim"):
+            att = dc.replay_attributes(metric, nby, nbx)
+            assert att["local_bytes"] == 0, (metric, nby, nbx, att)
+            assert att["depth"] in depths, att
+            assert att["blocks_per_sm"] >= 1, att
+        dc.replay_empty(nby, nbx, cuda)
+    torch.cuda.synchronize()
+
+
+def test_replay_attributes_reject_an_unknown_metric():
+    with pytest.raises(ValueError, match="unknown metric"):
+        dc.replay_attributes("psnr", 68, 120)
+
+
+def test_kernel_turns_replay_groups(tmp_path):
+    """tools/kernel_turns.py's replay cells are staged levels of
+    `bench/matrix`'s diamond rows, on the matrix's frames (`--seed` 0);
+    --group takes their labels and a replay cell asks for the card."""
+    from motionestimation_tpu_torch.bench import matrix
+    from motionestimation_tpu_torch.tools import kernel_turns
+
+    planes = np.fromfile(os.path.join(
+        os.path.dirname(__file__), "fixtures", "foreman_mse_8_12",
+        "output.yuv"), np.uint8).reshape(5, 288, 352)
+    planes[1].tofile(tmp_path / "ForemanYF4.yuv")
+    planes[0].tofile(tmp_path / "ForemanYF1.yuv")
+    frames = matrix.matrix_frames(str(tmp_path))
+    rows = {(r.frames, r.blk, r.span, r.metric) for r in matrix.ROWS
+            if r.entry == "staged"}
+    for label, content, blk, span, r, metric in kernel_turns.REPLAY_GROUPS:
+        assert (content, blk, span, metric) in rows, label
+        assert r in td._staged_levels(span), label
+        got = kernel_turns.replay_content(content, 0)
+        for a, b in zip(got, frames[content]):
+            np.testing.assert_array_equal(a, b, err_msg=label)
+    with pytest.raises(ValueError, match="unknown groups"):
+        kernel_turns.main(["--group", "replay config3 mse level 6", "nope"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_turns.main(["--group", "replay config3 mse level 6"])
 
 
 def test_replay_cuda_checks_volume_cuda(cuda):
