@@ -100,7 +100,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    per pair, a (2, 1, 1) mesh ("dp" batching) and, after
    `distributed_init` of a NCCL process group of one, pipelined again:
    one phase-kernel launch a tile and pair, every dump equal to
-   `run_gop`'s on every key, and a second call rewriting nothing; the
+   `run_gop`'s on every key, and a second call rewriting nothing; in that
+   group also `sharded_full_search` at 4K 8x8 +-12, equal to the frame
+   entry. Each sharded run prints the torch.distributed calls it issued
+   (`parallel.halo.COLLECTIVES`, set to 0 before it, beside the launch
+   counts): none on the slot meshes of one process, and in the group one
+   gather to rank 0 and two all-reduces a GOP chunk, one all-gather and
+   two all-reduces for the single pair. The
    diamond steps launch one replay a tile and level and no plain replay,
    each replay under the sync check, as the GOP's diamond run. Timed
    (tiling overhead on one card, not scaling): `sharded_full_search` at 4K
@@ -926,7 +932,7 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
     from motionestimation_tpu_torch.bench.measure import EMIT
     from motionestimation_tpu_torch.kernels import full_search_cuda as kc
     from motionestimation_tpu_torch.kernels import ssim_cuda as sc
-    from motionestimation_tpu_torch.parallel import ingest, make_mesh
+    from motionestimation_tpu_torch.parallel import halo, ingest, make_mesh
     from motionestimation_tpu_torch.parallel import sharded
     from motionestimation_tpu_torch.pipeline import runner
     from motionestimation_tpu_torch.search import diamond
@@ -935,11 +941,25 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
     def mesh_of(shape):
         return make_mesh(*shape, devices=[dev] * int(np.prod(shape)))
 
+    @contextlib.contextmanager
+    def collectives(expected, what):
+        """Counts the torch.distributed calls of the block (`halo.COLLECTIVES`,
+        set to 0 before it), prints them and fails unless they equal
+        `expected` ({}: one process, whose slots exchange and gather by
+        copies)."""
+        halo.COLLECTIVES.clear()
+        yield
+        got = dict(halo.COLLECTIVES)
+        print(f"{what} collectives: {got or 'none (one process: copies)'}")
+        if got != expected:
+            fail(f"{what}: collectives {got}, expected {expected}")
+
     def same(got, want, what):
         for name, a, b in zip(("mv_y", "mv_x", "cost", "comp"), got, want):
             if a.dtype != b.dtype or not torch.equal(a, b):
                 fail(f"{what}: {name} differs from the unsharded path")
 
+    frame_wants = {}
     for label, shape, h, w, blk, span, metric, per_frame in SHARDED_RUNS:
         if label.startswith("multi-hop"):
             rng = np.random.default_rng(h + w + span)
@@ -953,7 +973,8 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
         print(f"== main path (sharded {label}): sharded_full_search on a "
               f"{shape} mesh of {dev} slots")
         with counted(per_frame, f"sharded {label}"), \
-                no_plain_path(f"sharded {label}"):
+                no_plain_path(f"sharded {label}"), \
+                collectives({}, f"sharded {label}"):
             got = sharded.sharded_full_search(cur, ref, mesh=mesh,
                                               blk_dim=blk, span=span,
                                               metric=metric)
@@ -973,6 +994,7 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
         same(got, (want.mv_y, want.mv_x, cost, comp), f"sharded {label}")
         print(f"sharded {label}: MVs, costs and compensated frame equal the "
               f"unsharded frame entry's")
+        frame_wants[label] = (want.mv_y, want.mv_x, cost, comp)
 
     h, w, blk, span = DIAMOND
     cur, ref = diamond_pair
@@ -984,11 +1006,12 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
         kernels = ("me_phase_search", "me_int_search")
         reset_counts()
         with no_plain_path(f"sharded {label}"), \
-                replay_without_sync(sync_errors):
-            res = sharded.sharded_motion_step(
+                replay_without_sync(sync_errors), \
+                collectives({}, f"sharded {label}"):
+            res = sharded.gather(sharded.sharded_motion_step(
                 cur[None], ref[None], mesh=mesh_of((1, 2, 2)), blk_dim=blk,
                 span=span, frame_height=h, frame_width=w,
-                algorithm="diamond", early_term=early_term)
+                algorithm="diamond", early_term=early_term))
             torch.cuda.synchronize()
         got = counts()
         print(f"sharded {label} launches: {got}")
@@ -1032,9 +1055,15 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
             mesh = mesh_of(shape)
             out_dir = os.path.join(work, "sharded_" + re.sub(r"\W+", "_",
                                                               label))
+            # A chunk: 8 pairs pipelined, a "dp" batch per pair; under the
+            # process group each gathers its grids to rank 0 in one
+            # collective and reduces its stats in two.
+            chunks = -(-pairs_n // (8 if pipelined else shape[0]))
             with counted({"me_phase_search": per_pair * pairs_n},
                          f"sharded GOP {label}"), \
-                    no_plain_path(f"sharded GOP {label}"):
+                    no_plain_path(f"sharded GOP {label}"), \
+                    collectives({"gather": chunks, "all_reduce": 2 * chunks}
+                                if backend else {}, f"sharded GOP {label}"):
                 got = runner.run_gop_sharded(paths, config, mesh=mesh,
                                              output_dir=out_dir,
                                              pipelined=pipelined)
@@ -1046,6 +1075,25 @@ def sharded_phase(work, gop, pairs, diamond_pair, dev, card, counted,
                                        pipelined=pipelined)
             if [os.stat(p).st_mtime_ns for p in got] != mtimes:
                 fail(f"sharded GOP {label}: a second call rewrote a dump")
+            if backend:
+                # The single pair's gather: to every rank, the compensated
+                # frame included, in one collective.
+                flabel, fshape, h, w, blk, span, metric, per_frame = (
+                    SHARDED_RUNS[0])
+                cur, ref = pairs[h, w]
+                with counted(per_frame, f"sharded {flabel}, {backend}"), \
+                        collectives({"all_gather_into_tensor": 1,
+                                     "all_reduce": 2},
+                                    f"sharded {flabel}, {backend}"):
+                    fgot = sharded.sharded_full_search(
+                        cur, ref, mesh=mesh_of(fshape), blk_dim=blk,
+                        span=span, metric=metric)
+                    torch.cuda.synchronize()
+                same(fgot, frame_wants[flabel], f"sharded {flabel}, "
+                     f"{backend}")
+                print(f"sharded {flabel} in the {backend} process group of "
+                      f"one: MVs, costs and compensated frame equal the "
+                      f"unsharded frame entry's")
         finally:
             if backend:
                 torch.distributed.destroy_process_group()

@@ -30,7 +30,10 @@ from motionestimation_tpu_torch.kernels.full_search_cuda import (
 )
 from motionestimation_tpu_torch.kernels.ssim_cuda import ssim_search_frame_cuda
 from motionestimation_tpu_torch.parallel.mesh import make_mesh
-from motionestimation_tpu_torch.parallel.sharded import sharded_motion_step
+from motionestimation_tpu_torch.parallel.sharded import (
+    gather,
+    sharded_motion_step,
+)
 from motionestimation_tpu_torch.search import diamond
 from motionestimation_tpu_torch.search import full_search as fs
 
@@ -101,8 +104,9 @@ def dryrun_multichip(n_devices: int, device=None,
     """Run the sharded step on an n-slot ("dp", "ty", "tx") mesh at hard
     shapes and hold it against the unsharded port; returns a summary line
     and raises RuntimeError on the first difference. `around_sharded`, a
-    context manager, is entered around the three sharded steps alone (not
-    the unsharded runs they are held against), to count what they launch.
+    context manager, is entered around the three sharded steps and their
+    gathers alone (not the unsharded runs they are held against), to count
+    what they launch.
 
     The frame is 8*ty-3 x 8*tx-3 at blk 8 (truncated bottom row and right
     column, searched by the truncated-extent kernels inside their tiles)
@@ -133,10 +137,11 @@ def dryrun_multichip(n_devices: int, device=None,
         return t.cpu().numpy()
 
     with around_sharded or contextlib.nullcontext():
-        res = sharded_motion_step(curs, refs, metric="mse", **kw)
-        res_d = sharded_motion_step(curs, refs, metric="mse",
-                                    algorithm="diamond", **kw)
-        res_s = sharded_motion_step(curs, refs, metric="ssim", **kw)
+        res, res_d, res_s = (
+            gather(sharded_motion_step(curs, refs, **kw, **step))
+            for step in (dict(metric="mse"),
+                         dict(metric="mse", algorithm="diamond"),
+                         dict(metric="ssim")))
     _require(tuple(res.mv_y.shape[:1]) == (batch,)
              and res.comp.shape[0] == batch,
              f"result batch {tuple(res.mv_y.shape)}, expected {batch}")

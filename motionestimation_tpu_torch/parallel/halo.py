@@ -21,14 +21,31 @@ one-card mesh, copies on that card). Slots of different ranks exchange
 through `torch.distributed.batch_isend_irecv`: gloo with CPU tensors, NCCL
 with CUDA tensors (`comm_device`). Every rank walks the same list of
 transfers in the same order, so each send meets its receive.
+
+`start_halo_exchange_2d` issues the whole exchange, both sweeps, before it
+returns. Under NCCL it runs on a side stream of the card (the "ty" sweep's
+strips wait there on the "tx" sweep's), so that work enqueued on the
+current stream after it overlaps every transfer; its `wait()` makes the
+current stream wait on the side stream. Under gloo the "tx" sweep is
+finished on the host before the "ty" sweep is issued.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.distributed as dist
 
 from motionestimation_tpu_torch.core import geometry
 from motionestimation_tpu_torch.parallel.mesh import AXES, Mesh
+
+# The torch.distributed calls this process has issued on the sharded path,
+# by name: the halo's "batch_isend_irecv", the results' "gather" or
+# "all_gather_into_tensor", the stats' "all_reduce". Read, and set to 0, by
+# whoever counts them (chip_smoke.py, beside the kernels' launch counts).
+COLLECTIVES: collections.Counter = collections.Counter()
+# card -> the side stream its exchanges run on under NCCL.
+_SIDE_STREAMS: dict = {}
 
 
 def comm_device() -> torch.device:
@@ -104,6 +121,8 @@ def _halo_1d(tiles: dict, span: int, mesh: Mesh, axis: str):
                     ops.append(dist.P2POp(dist.irecv, buf,
                                           int(mesh.ranks[src]), tag=order))
                     recvs.append((dst, (side, k), buf))
+    if ops:
+        COLLECTIVES["batch_isend_irecv"] += 1
     reqs = dist.batch_isend_irecv(ops) if ops else []
 
     def finish() -> dict:
@@ -122,16 +141,57 @@ def _halo_1d(tiles: dict, span: int, mesh: Mesh, axis: str):
     return finish
 
 
-def start_halo_exchange_2d(tiles: dict, span: int, mesh: Mesh):
-    """`halo_exchange_2d` issued now and waited on later: the "tx" sweep's
-    transfers leave before the call returns; the returned `wait()`
-    completes them, runs the "ty" sweep on the widened tiles and returns
-    the halos. Every rank of the mesh calls both together and issues no
-    other transfer between them."""
+def _side_stream(tiles: dict):
+    """The side stream of NCCL's card when every tile lies on that card,
+    else None (gloo, or no process group: the exchange runs where the
+    caller's work does)."""
+    if not (dist.is_initialized() and dist.get_backend() == "nccl"):
+        return None
+    comm = comm_device()
+    if not tiles or any(t.device != comm for t in tiles.values()):
+        return None
+    if comm not in _SIDE_STREAMS:
+        _SIDE_STREAMS[comm] = torch.cuda.Stream(comm)
+    return _SIDE_STREAMS[comm]
+
+
+def start_halo_exchange_2d(tiles: dict, span: int, mesh: Mesh, *,
+                           ready=None):
+    """`halo_exchange_2d` issued now and waited on later: when the call
+    returns, every transfer of both sweeps has been issued (module
+    docstring); the returned `wait()` completes them and returns the
+    halos, ready on the caller's current stream. Every rank of the mesh
+    calls both together and issues no other transfer between them.
+
+    `ready`: a CUDA event after which the tiles may be read. On the side
+    stream the exchange waits on it, or by default on all the work queued
+    on the current stream so far."""
     if span == 0:
         return lambda: dict(tiles)
-    finish_tx = _halo_1d(tiles, span, mesh, "tx")
-    return lambda: _halo_1d(finish_tx(), span, mesh, "ty")()
+    side = _side_stream(tiles)
+    if side is None:
+        return _halo_1d(_halo_1d(tiles, span, mesh, "tx")(), span, mesh,
+                        "ty")
+    if ready is None:
+        side.wait_stream(torch.cuda.current_stream(side.device))
+    else:
+        side.wait_event(ready)
+    for t in tiles.values():
+        t.record_stream(side)  # read there; the caller may drop it
+    with torch.cuda.stream(side):
+        finish = _halo_1d(_halo_1d(tiles, span, mesh, "tx")(), span, mesh,
+                          "ty")
+
+    def wait() -> dict:
+        with torch.cuda.stream(side):
+            out = finish()
+        current = torch.cuda.current_stream(side.device)
+        current.wait_stream(side)
+        for t in out.values():
+            t.record_stream(current)  # made on the side stream
+        return out
+
+    return wait
 
 
 def halo_exchange_2d(tiles: dict, span: int, mesh: Mesh) -> dict:

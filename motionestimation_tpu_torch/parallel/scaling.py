@@ -20,17 +20,26 @@ the arrays the port's step moves, one process per card:
   stats   = `sharded._reduce_stats`: two latency-bound all-reduces (SUM,
             then MAX), each a log2 tree over the cards of a host and then
             over the hosts.
-  gather  = `sharded._assemble`: every slot's mv_y, mv_x and cost grids and
-            its int32 compensated tile are broadcast to every rank, so each
-            card receives the other N-1 slots' results; one collective per
-            slot and grid. Reported apart (`gather_bytes`, `gather_s`). The
-            JAX step leaves its results sharded and has no such term.
+  gather  = `sharded.gather`: one collective a call. Each rank sends its
+            slot's mv_y, mv_x and cost grids, and where the caller reads it
+            (`with_comp`) its int32 compensated tile; the receiving card
+            takes the other N-1 shares over its own link. For one pair
+            (`sharded_full_search`) every card receives, with the
+            compensated frame (`all_gather_into_tensor`); in a GOP
+            (`run_gop_sharded`) rank 0 alone receives, without it
+            (`dist.gather`). Either way the receiving card's link carries
+            the same bytes, so the two cost the same time; the gather is
+            charged one collective's latency. Reported apart
+            (`gather_bytes`, `gather_s`).
   ingest  = (GOP model) one new uint8 frame per pair per host at a
             measured host-to-card rate, overlapped with compute:
             max(ingest, step + sync).
 
-The halo is not overlapped with the search: the step exchanges, then
-searches. `dtype_bytes` defaults to 1: the port's tiles are uint8.
+For one pair the halo is not overlapped with the search: the step
+exchanges, then searches. The pipelined GOP (`sharded_gop_pipelined`)
+issues each next frame's whole exchange before the search and waits on it
+after (`spatial_gop_overlap_efficiency`). `dtype_bytes` defaults to 1: the
+port's tiles are uint8.
 
 The model leaves out the host's issue of each tile's launches, which on
 one card costs more than the kernels (PERF.md §5).
@@ -68,8 +77,11 @@ IB_BYTES_PER_S = 25e9
 IB_LATENCY_S = 10e-6
 CHIPS_PER_HOST = 8
 HOST_TY, HOST_TX = 2, 4
-# Result grids `_assemble` gathers besides the compensated frame (mv_y,
-# mv_x, cost), each int32 or float32.
+# Pairs a pipelined GOP chunk holds: `run_gop_sharded`'s default
+# chunk_pairs.
+GOP_CHUNK_PAIRS = 8
+# Result grids `sharded.gather` collects besides the compensated frame
+# (mv_y, mv_x, cost), each int32 or float32.
 _GRIDS = 3
 _RESULT_BYTES = 4
 
@@ -85,7 +97,8 @@ class ShardedStepModel:
     halo_bytes: int          # bytes the busiest card sends for its halo
     halo_s: float
     stats_s: float
-    gather_bytes: int        # bytes each card receives in `_assemble`
+    gather_bytes: int        # bytes the receiving card receives in the
+                             # gather (every card, or rank 0)
     gather_s: float
     crosses_hosts: bool
 
@@ -174,20 +187,20 @@ def _slot_result_bytes(tile_h: int, tile_w: int, blk_dim: int, *,
 
 def _gather(frame_height, frame_width, blk_dim, ty, tx, *,
             with_comp: bool = True) -> tuple[int, float]:
-    """(bytes each card receives, seconds) for `_assemble` of one pair's
-    results on a (ty, tx) mesh, one rank a card."""
+    """(bytes the receiving card receives, seconds) for one
+    `sharded.gather` of one pair's results on a (ty, tx) mesh, one rank a
+    card: one collective, the other N-1 slots' shares over the receiving
+    card's links."""
     n = ty * tx
     if n == 1:
         return 0, 0.0
     tile_h, tile_w = _tiles(frame_height, frame_width, blk_dim, ty, tx)
     slot = _slot_result_bytes(tile_h, tile_w, blk_dim, with_comp=with_comp)
     hosts_ty, hosts_tx = _hosts(ty, tx)
-    n_hosts = hosts_ty * hosts_tx
     in_host = min(n, CHIPS_PER_HOST)
-    collectives = (_GRIDS + with_comp) * n
     seconds = ((in_host - 1) * slot / NVLINK_BYTES_PER_S
                + (n - in_host) * slot / IB_BYTES_PER_S
-               + collectives * _collective_latency_s(n, n_hosts))
+               + _collective_latency_s(n, hosts_ty * hosts_tx))
     return (n - 1) * slot, seconds
 
 
@@ -201,9 +214,12 @@ def model_step(
     tx: int,
     measured_mblocks_per_s: float,
     dtype_bytes: int = 1,
+    with_comp: bool = True,
 ) -> ShardedStepModel:
     """Model one sharded frame-pair step on a ty*tx spatial mesh, one card a
-    rank."""
+    rank: with `with_comp`, `sharded_full_search`'s (the results and the
+    compensated frame gathered to every card); without, a GOP pair's (the
+    grids gathered to rank 0)."""
     n_chips = ty * tx
     tile_h, tile_w = _tiles(frame_height, frame_width, blk_dim, ty, tx)
     nby, nbx = cdiv(frame_height, blk_dim), cdiv(frame_width, blk_dim)
@@ -233,7 +249,7 @@ def model_step(
     stats_s = (2 * _collective_latency_s(n_chips, n_hosts)
                if n_chips > 1 else 0.0)
     gather_bytes, gather_s = _gather(frame_height, frame_width, blk_dim,
-                                     ty, tx)
+                                     ty, tx, with_comp=with_comp)
     return ShardedStepModel(
         mesh_ty=ty,
         mesh_tx=tx,
@@ -265,9 +281,10 @@ def gop_scaling_efficiency(
 
     What does cross hosts, per pair and host: the two stats all-reduces'
     inter-host steps (`sync`, 2 * IB_LATENCY_S * log2 tree, the JAX
-    module's sync term), and `_assemble`'s broadcast of every other host's
-    results to every card, N-1 hosts' slots over each card's InfiniBand
-    port, one more inter-host tree step per collective.
+    module's sync term), and the gather's share of the other hosts: rank 0
+    receives their slots' grids (no compensated frame: no dump holds it)
+    over its InfiniBand port, in the same one collective, which takes one
+    more inter-host tree step.
 
     `host_ingest_mb_s` charges one new uint8 frame per pair per host at a
     measured host-to-card rate, overlapped with the step: the per-pair time
@@ -281,7 +298,7 @@ def gop_scaling_efficiency(
         frame_height=frame_height, frame_width=frame_width,
         blk_dim=blk_dim, span=span, ty=ty, tx=tx,
         measured_mblocks_per_s=measured_mblocks_per_s,
-        dtype_bytes=dtype_bytes,
+        dtype_bytes=dtype_bytes, with_comp=False,
     )
     ingest_s = (
         frame_height * frame_width / (host_ingest_mb_s * 1e6)
@@ -289,13 +306,13 @@ def gop_scaling_efficiency(
         else 0.0
     )
     tile_h, tile_w = _tiles(frame_height, frame_width, blk_dim, ty, tx)
-    slot = _slot_result_bytes(tile_h, tile_w, blk_dim)
+    slot = _slot_result_bytes(tile_h, tile_w, blk_dim, with_comp=False)
     out = {}
     for n in n_hosts:
         hops = max(0, n - 1).bit_length()
         sync = 2 * IB_LATENCY_S * hops
         cross_gather = ((n - 1) * ty * tx * slot / IB_BYTES_PER_S
-                        + (_GRIDS + 1) * n * ty * tx * IB_LATENCY_S * hops)
+                        + IB_LATENCY_S * hops)
         t1 = max(ingest_s, base.step_s)
         out[n] = t1 / max(ingest_s, base.step_s + sync + cross_gather)
     return out
@@ -311,16 +328,17 @@ def spatial_gop_overlap_efficiency(
     measured_mblocks_per_s: float,
     dtype_bytes: int = 1,
 ) -> dict[int, float]:
-    """Spatial-tiling efficiency of `sharded_gop_pipelined`'s schedule with
-    the next pair's halo exchange hidden behind this pair's search:
+    """Spatial-tiling efficiency of `run_gop_sharded`'s pipelined schedule
+    (`sharded_gop_pipelined` over chunks of GOP_CHUNK_PAIRS pairs): each next
+    frame's whole halo exchange is issued before this pair's search and
+    waited on after it, and each chunk exchanges its first frame's halo
+    alone, reduces its stats once and gathers its grids to rank 0 in one
+    collective (no compensated frame):
 
-        T_pair = max(compute, halo) + stats + gather
+        T_pair = max(compute, halo) + gather bytes
+                 + (halo + stats + gather latency) / GOP_CHUNK_PAIRS
 
-    where the gather holds the three result grids and no compensated frame
-    (the pipelined step returns none). The port issues the next exchange
-    before the search but waits for it there, so on the card the two do
-    not overlap yet: this is the bound that schedule would reach. Returns
-    {n_chips: efficiency} against the same one-card baseline as
+    Returns {n_chips: efficiency} against the same one-card baseline as
     `scaling_efficiency`.
     """
     kw = dict(frame_height=frame_height, frame_width=frame_width,
@@ -330,11 +348,13 @@ def spatial_gop_overlap_efficiency(
     base = model_step(ty=1, tx=1, **kw)
     out = {}
     for ty, tx in meshes:
-        m = model_step(ty=ty, tx=tx, **kw)
-        _, gather_s = _gather(frame_height, frame_width, blk_dim, ty, tx,
-                              with_comp=False)
+        m = model_step(ty=ty, tx=tx, with_comp=False, **kw)
         n = ty * tx
-        t_pair = max(m.compute_s, m.halo_s) + m.stats_s + gather_s
+        hosts_ty, hosts_tx = _hosts(ty, tx)
+        latency = (_collective_latency_s(n, hosts_ty * hosts_tx)
+                   if n > 1 else 0.0)
+        t_pair = (max(m.compute_s, m.halo_s) + m.gather_s - latency
+                  + (m.halo_s + m.stats_s + latency) / GOP_CHUNK_PAIRS)
         out[n] = base.step_s / (n * t_pair)
     return out
 

@@ -22,13 +22,22 @@ Backends:
   or the golden tile volume for diamond), only when the caller asks.
 * "auto": "cuda" on a CUDA mesh, for every config; "golden" on a CPU mesh.
 
+The steps leave their results on the slots that computed them, as the
+JAX step's `shard_map` outputs stay sharded (sharded.py:222, :451);
+`gather` assembles them, in one collective, on the rank or ranks that read
+them. Only the stats are reduced inside a step (two all-reduces, the JAX
+`psum` and `pmax`).
+
 The JAX package carries the sum of squared errors as two int32 halves, a
 TPU workaround; here it is one int64 per batch entry.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -47,8 +56,10 @@ BACKENDS = ("auto", "cuda", "golden")
 
 
 class ShardedStepResult(NamedTuple):
-    """The results of one step for a batch of frame pairs, every tensor on
-    this process's first slot's device (every rank receives all of them).
+    """The results of one step for a batch of frame pairs as `gather`
+    assembles them on a receiving rank, every tensor on that process's
+    first slot's device (ranks that `gather` does not send to receive
+    none).
 
     mv_y / mv_x: [B, nby_p, nbx_p] int32 on the mesh-padded block grid
       (only [:, :nby, :nbx] is contract);
@@ -65,6 +76,30 @@ class ShardedStepResult(NamedTuple):
     mv_x: torch.Tensor
     best_cost: torch.Tensor
     comp: torch.Tensor
+    sum_sq: torch.Tensor
+    frame_max: torch.Tensor
+
+
+class SlotResults(NamedTuple):
+    """A step's results where they were computed, before any gather.
+
+    mesh:       the mesh the step ran on;
+    tiles:      this process's slot (d, iy, ix) -> its [B/dp, nby_p/ty,
+      nbx_p/tx] mv_y, mv_x and cost tiles and, where `frame` is set, its
+      [B/dp, Hp/ty, Wp/tx] int32 compensated tile, on the slot's device;
+    grid:       (B, nby_p, nbx_p);
+    frame:      (B, Hp, Wp) where the step kept the compensated frame, else
+      None;
+    cost_dtype: torch.int32 (SSD/SAD) or torch.float32 (SSIM score);
+    sum_sq, frame_max: the stats, already reduced over the mesh, on this
+      process's first slot's device (every rank holds them).
+    """
+
+    mesh: Mesh
+    tiles: dict
+    grid: tuple
+    frame: tuple | None
+    cost_dtype: torch.dtype
     sum_sq: torch.Tensor
     frame_max: torch.Tensor
 
@@ -169,26 +204,100 @@ def _step_slot(cur_tiles, halo_tiles, y0, x0, **kw):
     return [torch.stack(kind) for kind in zip(*outs)]
 
 
-def _assemble(local: dict, mesh: Mesh, shape, dtype, home):
-    """The global [B, ty*a, tx*b] tensor on `home` from each slot's [B/dp,
-    a, b] tile (`local`: this process's slots), every rank receiving the
-    tiles of the others by a broadcast from their owner."""
-    out = torch.empty(shape, dtype=dtype, device=home)
-    bl = shape[0] // mesh.shape["dp"]
-    a, b = shape[1] // mesh.shape["ty"], shape[2] // mesh.shape["tx"]
-    multi = dist.is_initialized()
-    comm = halo_lib.comm_device() if multi else None
-    for slot in mesh.slots():
-        d, iy, ix = slot
-        tile = local.get(slot)  # every slot's, outside a process group
-        if multi:
-            buf = (tile.to(comm).contiguous() if tile is not None else
-                   torch.empty((bl, a, b), dtype=dtype, device=comm))
-            dist.broadcast(buf, src=int(mesh.ranks[slot]))
-            tile = buf
-        out[d * bl : (d + 1) * bl, iy * a : (iy + 1) * a,
-            ix * b : (ix + 1) * b] = tile.to(home)
-    return out
+def _kinds(results: SlotResults):
+    """(global shape, dtype) of each kind of result tile, in tile order."""
+    grid = results.grid
+    kinds = [(grid, torch.int32), (grid, torch.int32),
+             (grid, results.cost_dtype)]
+    if results.frame is not None:
+        kinds.append((results.frame, torch.int32))
+    return kinds
+
+
+def _tile_shape(shape, mesh: Mesh):
+    return (shape[0] // mesh.shape["dp"], shape[1] // mesh.shape["ty"],
+            shape[2] // mesh.shape["tx"])
+
+
+def _place(out: torch.Tensor, slot, tile: torch.Tensor, mesh: Mesh):
+    """Copy `slot`'s tile into its place in the global `out`."""
+    d, iy, ix = slot
+    bl, a, b = _tile_shape(out.shape, mesh)
+    out[d * bl : (d + 1) * bl, iy * a : (iy + 1) * a,
+        ix * b : (ix + 1) * b] = tile
+
+
+def gather(results: SlotResults, dst: int | None = None):
+    """A step's results assembled where they are read: the counterpart of
+    the JAX caller's `fetch` (`process_allgather`, runner.py:670).
+
+    Returns a ShardedStepResult on rank `dst`, or on every rank when `dst`
+    is None, and None on the ranks it does not send to. Under a process
+    group it is one collective for every result of every slot: each rank
+    packs its slots' tiles (the compensated ones too where the step kept
+    them) into one int32 buffer, the SSIM score as its bits, padded to the
+    largest rank's share; `dist.gather` sends the buffers to `dst` (the
+    other ranks receive no result bytes) and `dist.all_gather_into_tensor`
+    to every rank. Outside a process group every slot is this process's,
+    and the gather is a local copy. Every rank of the mesh calls it
+    together.
+    """
+    mesh = results.mesh
+    home = _home(mesh)
+    kinds = _kinds(results)
+
+    def empty_outs():
+        return [torch.empty(shape, dtype=dtype, device=home)
+                for shape, dtype in kinds]
+
+    if not dist.is_initialized():
+        outs = empty_outs()
+        for slot, tiles in results.tiles.items():
+            for out, tile in zip(outs, tiles):
+                _place(out, slot, tile.to(home), mesh)
+        return _result(outs, results.sum_sq, results.frame_max)
+    world = dist.get_world_size()
+    tile_shapes = [_tile_shape(shape, mesh) for shape, _ in kinds]
+    sizes = [math.prod(t) for t in tile_shapes]
+    slot_words = sum(sizes)
+    per_rank = int(max(np.bincount(mesh.ranks.ravel(), minlength=world)))
+    comm = halo_lib.comm_device()
+    send = torch.empty((per_rank, slot_words), dtype=torch.int32,
+                       device=comm)
+    for k, slot in enumerate(mesh.local_slots()):
+        for piece, tile, t_shape, (_, dtype) in zip(
+                send[k].split(sizes), results.tiles[slot], tile_shapes,
+                kinds):
+            piece.view(dtype).view(t_shape).copy_(tile)
+    halo_lib.COLLECTIVES["gather" if dst is not None
+                         else "all_gather_into_tensor"] += 1
+    if dst is None:
+        recv = torch.empty((world, per_rank, slot_words), dtype=torch.int32,
+                           device=comm)
+        dist.all_gather_into_tensor(recv.view(-1), send.view(-1))
+    else:
+        recv = (torch.empty((world, per_rank, slot_words),
+                            dtype=torch.int32, device=comm)
+                if mesh.rank == dst else None)
+        dist.gather(send, None if recv is None else list(recv.unbind(0)),
+                    dst=dst)
+        if recv is None:
+            return None
+    outs = empty_outs()
+    taken = {}
+    for slot in mesh.slots():  # a rank's k-th slot in mesh order: share k
+        r = int(mesh.ranks[slot])
+        k = taken[r] = taken.get(r, -1) + 1
+        for out, piece, t_shape, (_, dtype) in zip(
+                outs, recv[r, k].split(sizes), tile_shapes, kinds):
+            _place(out, slot, piece.view(dtype).view(t_shape), mesh)
+    return _result(outs, results.sum_sq.to(home), results.frame_max.to(home))
+
+
+def _result(outs, sum_sq, frame_max) -> ShardedStepResult:
+    mv_y, mv_x, cost, *comp = outs
+    return ShardedStepResult(mv_y, mv_x, cost, comp[0] if comp else None,
+                             sum_sq, frame_max)
 
 
 def _reduce_stats(local_sq: dict, local_max: dict, mesh: Mesh, batch: int,
@@ -206,6 +315,7 @@ def _reduce_stats(local_sq: dict, local_max: dict, mesh: Mesh, batch: int,
     if dist.is_initialized():
         comm = halo_lib.comm_device()
         sq_c, max_c = sq.to(comm), fmax.to(comm)
+        halo_lib.COLLECTIVES["all_reduce"] += 2
         dist.all_reduce(sq_c, op=dist.ReduceOp.SUM)
         dist.all_reduce(max_c, op=dist.ReduceOp.MAX)
         sq, fmax = sq_c.to(home), max_c.to(home)
@@ -229,10 +339,11 @@ def sharded_motion_step(cur_batch, ref_batch, *, mesh: Mesh, blk_dim: int,
     algorithm: "full" (exhaustive) or "diamond" (per-tile staged diamond,
     `search.diamond.diamond_search_tile`, with `early_term`; its
     candidates reach at most +-span, so the same halo serves). backend:
-    "auto", "cuda" or "golden" (module docstring). Returns a
-    ShardedStepResult; sharded == unsharded holds exactly. Without
-    `with_comp`, each slot still compensates its tile for the stats but
-    the compensated frame is not gathered, and `comp` is None.
+    "auto", "cuda" or "golden" (module docstring). Returns the
+    `SlotResults`, left on their slots and the stats reduced over the mesh;
+    `gather` assembles a ShardedStepResult, and sharded == unsharded holds
+    exactly. Without `with_comp`, each slot still compensates its tile for
+    the stats but keeps no compensated tile, and a gather's `comp` is None.
     """
     if algorithm not in ("full", "diamond"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
@@ -254,40 +365,36 @@ def sharded_motion_step(cur_batch, ref_batch, *, mesh: Mesh, blk_dim: int,
     parts = {slot: _step_slot(cur.tiles[slot], halos[slot], slot[1] * tile_h,
                               slot[2] * tile_w, **kw)
              for slot in mesh.local_slots()}
-    home = _home(mesh)
-    grid = (batch, hp // blk_dim, wp // blk_dim)
-    cost_dtype = torch.float32 if metric == "ssim" else torch.int32
-    gathered = [(0, grid, torch.int32), (1, grid, torch.int32),
-                (2, grid, cost_dtype)]
-    if with_comp:
-        gathered.append((3, (batch, hp, wp), torch.int32))
-    mv_y, mv_x, cost, *comp = (
-        _assemble({s: p[i] for s, p in parts.items()}, mesh, shape, dtype,
-                  home)
-        for i, shape, dtype in gathered)
     sq, fmax = _reduce_stats({s: p[4] for s, p in parts.items()},
                              {s: p[5] for s, p in parts.items()}, mesh,
-                             batch, home)
-    return ShardedStepResult(mv_y, mv_x, cost, comp[0] if comp else None,
-                             sq, fmax)
+                             batch, _home(mesh))
+    return SlotResults(
+        mesh, {s: p[:4] if with_comp else p[:3] for s, p in parts.items()},
+        (batch, hp // blk_dim, wp // blk_dim),
+        (batch, hp, wp) if with_comp else None,
+        torch.float32 if metric == "ssim" else torch.int32, sq, fmax)
 
 
 def sharded_gop_pipelined(frames, *, mesh: Mesh, blk_dim: int, span: int,
                           metric: str = "mse", frame_height: int,
-                          frame_width: int, backend: str = "auto"):
+                          frame_width: int, backend: str = "auto",
+                          phase=None) -> SlotResults:
     """Full search over the consecutive pairs of a [P+1, H, W] frame stack
     on a spatial mesh (dp = 1), carrying the exchanged halo (the port of
     `sharded_gop_pipelined`, sharded.py:318): step i searches pair
     (frames[i+1], frames[i]) against the carried halo of frames[i], and
-    frames[i+1]'s halo, exchanged before that search, is carried to step
-    i+1. Each frame's halo is exchanged once, where per-pair steps
-    exchange every reference anew.
+    frames[i+1]'s halo, whose exchange is issued whole before that search
+    (`halo.start_halo_exchange_2d`), is carried to step i+1. Each frame's
+    halo is exchanged once, where per-pair steps exchange every reference
+    anew, and under NCCL its transfers overlap the search.
 
     frames: [P+1, H, W] integer frames, or `FrameShards` of the padded
-    stack (dp = 1: every slot holds every frame's tile). Returns (mv_y,
-    mv_x, cost, sum_sq, frame_max): [P, nby_p, nbx_p] each of the first
-    three, [P] the stats; equal to `sharded_motion_step` run per pair
-    (the compensated frames stay per tile and are not returned).
+    stack (dp = 1: every slot holds every frame's tile). Returns the
+    `SlotResults` of the P pairs without compensated tiles; `gather` gives
+    what `sharded_motion_step` gives per pair. `phase(name)`, a context
+    manager factory, is entered around each part of the schedule ("halo"
+    for the first frame's exchange, then per pair "halo issue", "search"
+    and "halo wait", and "stats" once), for timing.
     """
     if mesh.shape["dp"] != 1:
         raise ValueError(
@@ -305,38 +412,47 @@ def sharded_gop_pipelined(frames, *, mesh: Mesh, blk_dim: int, span: int,
     kw = dict(backend=backend, algorithm="full", blk_dim=blk_dim, span=span,
               metric=metric, frame_height=frame_height,
               frame_width=frame_width, early_term=None)
+    phase = phase or (lambda name: contextlib.nullcontext())
     local = mesh.local_slots()
     outs = {slot: [] for slot in local}
 
+    # Every frame's tiles can be read once the work queued so far is done,
+    # so an exchange need not wait for the searches queued after this.
+    ready = None
+    if any(t.is_cuda for t in stack.tiles.values()):
+        ready = torch.cuda.Event()
+        ready.record()
+
     def exchange(i):
         return halo_lib.start_halo_exchange_2d(
-            {s: t[i] for s, t in stack.tiles.items()}, span, mesh)
+            {s: t[i] for s, t in stack.tiles.items()}, span, mesh,
+            ready=ready)
 
-    carried = exchange(0)()
+    with phase("halo"):
+        carried = exchange(0)()
     for i in range(1, pairs + 1):
         # The next pair's reference halo does not depend on this pair's
-        # search: its "tx" sweep is issued first; the wait before the next
-        # pair's search finishes it and runs the "ty" sweep.
-        nxt = exchange(i)
-        for slot in local:
-            outs[slot].append(_step_slot(
-                stack.tiles[slot][i : i + 1], [carried[slot]],
-                slot[1] * tile_h, slot[2] * tile_w, **kw))
-        carried = nxt()
+        # search: every transfer of its exchange is issued before the
+        # search, and waited on before the next pair's.
+        with phase("halo issue"):
+            nxt = exchange(i)
+        with phase("search"):
+            for slot in local:
+                outs[slot].append(_step_slot(
+                    stack.tiles[slot][i : i + 1], [carried[slot]],
+                    slot[1] * tile_h, slot[2] * tile_w, **kw))
+        with phase("halo wait"):
+            carried = nxt()
     parts = {s: [torch.cat(kind) for kind in zip(*o)]
              for s, o in outs.items()}
-    home = _home(mesh)
-    grid = (pairs, hp // blk_dim, wp // blk_dim)
-    cost_dtype = torch.float32 if metric == "ssim" else torch.int32
-    mv_y, mv_x, cost = (
-        _assemble({s: p[i] for s, p in parts.items()}, mesh, grid, dtype,
-                  home)
-        for i, dtype in ((0, torch.int32), (1, torch.int32),
-                         (2, cost_dtype)))
-    sq, fmax = _reduce_stats({s: p[4] for s, p in parts.items()},
-                             {s: p[5] for s, p in parts.items()}, mesh,
-                             pairs, home)
-    return mv_y, mv_x, cost, sq, fmax
+    with phase("stats"):
+        sq, fmax = _reduce_stats({s: p[4] for s, p in parts.items()},
+                                 {s: p[5] for s, p in parts.items()}, mesh,
+                                 pairs, _home(mesh))
+    return SlotResults(mesh, {s: p[:3] for s, p in parts.items()},
+                       (pairs, hp // blk_dim, wp // blk_dim), None,
+                       torch.float32 if metric == "ssim" else torch.int32,
+                       sq, fmax)
 
 
 def sharded_full_search(cur, ref, *, mesh: Mesh, blk_dim: int, span: int,
@@ -345,13 +461,13 @@ def sharded_full_search(cur, ref, *, mesh: Mesh, blk_dim: int, span: int,
                         early_term: float | None = None):
     """One frame pair (a batch of 1) on the mesh (the port of
     `sharded_full_search`, sharded.py:456): (mv_y, mv_x, cost, comp)
-    cropped to the frame's block grid and pixels."""
+    cropped to the frame's block grid and pixels, gathered to every rank."""
     frame_height, frame_width = cur.shape
-    res = sharded_motion_step(
+    res = gather(sharded_motion_step(
         to_tensor(cur)[None], to_tensor(ref)[None], mesh=mesh,
         blk_dim=blk_dim, span=span, metric=metric,
         frame_height=frame_height, frame_width=frame_width, backend=backend,
-        algorithm=algorithm, early_term=early_term)
+        algorithm=algorithm, early_term=early_term))
     nby, nbx = geometry.grid_shape(frame_height, frame_width, blk_dim)
     return (res.mv_y[0, :nby, :nbx], res.mv_x[0, :nby, :nbx],
             res.best_cost[0, :nby, :nbx],

@@ -538,7 +538,7 @@ def run_gop_sharded(
     Consecutive pairs are batched along the mesh's "dp" axis, each batch
     one `parallel.sharded.sharded_motion_step` (halo exchange, search on
     the ported kernels' tile entries on a CUDA mesh, compensation, exact
-    stats; the compensated frame, which no dump holds, is not gathered),
+    stats; no compensated tile is kept, since no dump holds it),
     frame tiles over ("ty", "tx"); the next batch is staged while
     the current one computes (`parallel.ingest.ShardedPrefetcher`). On a
     dp = 1 mesh, full search runs `sharded_gop_pipelined` over runs of
@@ -557,10 +557,12 @@ def run_gop_sharded(
 
     Under a process group every rank calls it with the same arguments.
     Each reads only its own frame rows from disk
-    (`ingest.local_row_range`, `frames.load_yuv_rows`); every rank
-    receives the results (`sharded.ShardedStepResult`) and rank 0 writes
-    the dumps. Resume needs every rank to see the same `output_dir`.
-    Returns the dump paths, one per pair, skipped ones included.
+    (`ingest.local_row_range`, `frames.load_yuv_rows`). Each chunk's MV
+    and cost grids and stats go to rank 0 alone, in one collective
+    (`sharded.gather(..., dst=0)`); rank 0 reads them back and writes the
+    dumps, and the other ranks read nothing back. Resume needs every rank
+    to see the same `output_dir`. Returns the dump paths, one per pair,
+    skipped ones included.
     """
     if config.escape_policy != "canonical":
         raise ValueError(
@@ -605,20 +607,30 @@ def run_gop_sharded(
                 rows, ((0, (row_hi - row_lo) - (r1 - r0)), (0, wp - w)))
         return frames_cache[i]
 
-    def readback(idxs, mv_y, mv_x, cost, sq, fmax):
-        """Enqueue a chunk's results' copies to (pinned) host memory: its
-        MV and cost grids cut to the frame's blocks, and the stats."""
-        outs = tuple(t[:, :nby, :nbx] for t in (mv_y, mv_x, cost))
-        home = mv_y.device
+    def readback(idxs, res):
+        """Enqueue a chunk's gathered results' copies to (pinned) host
+        memory on rank 0: its MV and cost grids cut to the frame's blocks,
+        and the stats. Ranks that received no result (None) copy nothing;
+        on the card they record an event at the chunk's end, which paces
+        their host as rank 0's readback paces its."""
+        if res is None:
+            done = None
+            if mesh.platform == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+            return idxs, None, done
+        outs = tuple(t[:, :nby, :nbx]
+                     for t in (res.mv_y, res.mv_x, res.best_cost))
+        home = res.mv_y.device
         with (torch.cuda.device(home) if home.type == "cuda"
               else contextlib.nullcontext()):
-            host, done = _to_host(outs + (sq, fmax), home)
+            host, done = _to_host(outs + (res.sum_sq, res.frame_max), home)
         return idxs, host, done
 
     def dump(idxs, host, done):
         if done is not None:
             done.synchronize()
-        if not is_lead:
+        if host is None:
             return
         mv_y, mv_x, cost, sq, fmax = (t.numpy() for t in host)
         for slot, i in enumerate(idxs):
@@ -631,8 +643,9 @@ def run_gop_sharded(
             "pipelined=True requires a dp = 1 mesh and algorithm='full'")
 
     def chunk_results():
-        """(pair indices, results) of each chunk, its device work enqueued,
-        the next chunk's frames staged meanwhile."""
+        """(pair indices, results gathered to rank 0, None on the other
+        ranks) of each chunk, its device work enqueued, the next chunk's
+        frames staged meanwhile."""
         if can_pipeline and pipelined in (True, "auto"):
             work = []
             for run in _runs(todo):
@@ -643,7 +656,8 @@ def run_gop_sharded(
                 (np.stack([frame_local(j) for j in frames_i])
                  for _, frames_i in work), mesh)
             for (idxs, frames_i), stack in zip(work, stacks):
-                yield idxs, sharded.sharded_gop_pipelined(stack, **step_kw)
+                yield idxs, sharded.gather(
+                    sharded.sharded_gop_pipelined(stack, **step_kw), dst=0)
                 for j in frames_i[:-1]:
                     frames_cache.pop(j, None)
             return
@@ -658,18 +672,17 @@ def run_gop_sharded(
         cur_stream = ingest.ShardedPrefetcher(host_batches("cur"), mesh)
         ref_stream = ingest.ShardedPrefetcher(host_batches("ref"), mesh)
         for chunk, cur_b, ref_b in zip(chunks, cur_stream, ref_stream):
-            res = sharded.sharded_motion_step(
+            yield chunk, sharded.gather(sharded.sharded_motion_step(
                 cur_b, ref_b, algorithm=config.algorithm,
-                early_term=config.early_term, with_comp=False, **step_kw)
-            yield chunk, (res.mv_y, res.mv_x, res.best_cost, res.sum_sq,
-                          res.frame_max)
+                early_term=config.early_term, with_comp=False, **step_kw),
+                dst=0)
             for i in chunk:
                 frames_cache.pop(i, None)
 
     # Chunk k's dumps are written while chunk k+1 runs on the card.
     pending = None
-    for idxs, outs in chunk_results():
-        staged = readback(idxs, *outs)
+    for idxs, res in chunk_results():
+        staged = readback(idxs, res)
         if pending is not None:
             dump(*pending)
         pending = staged

@@ -5,9 +5,9 @@ The port of the JAX package's `tools/record_scaling.py`. It evaluates the
 model of `parallel/scaling.py` at the measured rates and writes its curves:
 the GOP over hosts (pairs batched over hosts, the (2, 4) spatial mesh in
 each), kernel-bound and at the measured host-to-card rate, at 4K 8x8 +-12
-and 16x16 +-15; one frame tiled over (1, 2) to (4, 8) meshes; the same
-with the next pair's halo hidden; and the per-term split of the (2, 2),
-(2, 4) and (4, 8) steps. Every rate is an argument (no default): a card's
+and 16x16 +-15; one frame tiled over (1, 2) to (4, 8) meshes; the
+pipelined GOP on the same meshes; and the per-term split of the (2, 2),
+(2, 4) and (4, 8) single-pair steps. Every rate is an argument (no default): a card's
 M blocks/s at the two cells (its frame time over the frame's blocks) and
 its pinned host-to-card MB/s. The card's name and power limit stand beside
 every number.
@@ -63,9 +63,11 @@ def report(headline: float, north: float, ingest_mb_s: float,
         "# Compute from the measured single-card rate below; halo, stats "
         "and gather bytes from the arrays",
         "# the port's step moves (mesh-padded uint8 tiles, the busiest "
-        "card; _assemble broadcasts every",
-        "# slot's mv_y, mv_x, cost and int32 comp to every rank); no "
-        "halo/compute overlap; host issue",
+        "card). The gather is one collective:",
+        "# a GOP's grids to rank 0 (no compensated frame); a single pair's "
+        "grids and int32 comp to every card.",
+        "# The pipelined GOP hides each next frame's halo behind the "
+        "search, in chunks of 8 pairs; host issue",
         "# of each tile's launches left out. Written by "
         "motionestimation_tpu_torch/tools/record_scaling.py.",
         f"# Measured on {card}: {headline} M blocks/s at 4K 8x8 +-12, "
@@ -86,25 +88,28 @@ def report(headline: float, north: float, ingest_mb_s: float,
     lines.append(f"[ GOP over hosts, 4K 16x16 +-15, {north} M blocks/s/card, "
                  f"kernel-bound {at} ]")
     lines += [f"hosts {n:3d}  efficiency {gop_n[n]:.4f} {at}" for n in HOSTS]
-    lines.append(f"[ spatial tiling, 4K 8x8 +-12, single pair {at} ]")
+    lines.append(f"[ spatial tiling, 4K 8x8 +-12, single pair "
+                 f"(sharded_full_search) {at} ]")
     lines += [f"chips {ty * tx:3d} ({ty}x{tx})  efficiency "
               f"{spatial[ty * tx]:.4f} {at}" for ty, tx in MESHES]
-    lines.append(f"[ spatial tiling, 4K 8x8 +-12, GOP with the next pair's "
-                 f"halo hidden (no compensated frame gathered) {at} ]")
+    lines.append(f"[ spatial tiling, 4K 8x8 +-12, pipelined GOP "
+                 f"(run_gop_sharded: next halo under the search, grids to "
+                 f"rank 0) {at} ]")
     lines += [f"chips {ty * tx:3d} ({ty}x{tx})  efficiency "
               f"{overlap[ty * tx]:.4f} {at}" for ty, tx in MESHES]
     for ty, tx in SPLITS:
         m = scaling.model_step(**cell, ty=ty, tx=tx,
                                measured_mblocks_per_s=headline)
-        lines.append(f"[ step split, 4K 8x8 +-12, ({ty}, {tx}) mesh"
-                     f"{', crosses hosts' if m.crosses_hosts else ''} {at} ]")
+        lines.append(f"[ step split, 4K 8x8 +-12, ({ty}, {tx}) mesh, single "
+                     f"pair{', crosses hosts' if m.crosses_hosts else ''} "
+                     f"{at} ]")
         lines += [
             f"compute {m.compute_s * 1e3:.6f} ms {at}",
             f"halo    {m.halo_s * 1e3:.6f} ms ({m.halo_bytes} B sent by the "
             f"busiest card) {at}",
             f"stats   {m.stats_s * 1e3:.6f} ms (two all-reduces) {at}",
             f"gather  {m.gather_s * 1e3:.6f} ms ({m.gather_bytes} B "
-            f"received by each card) {at}",
+            f"received by each card, one all-gather) {at}",
             f"step    {m.step_s * 1e3:.6f} ms {at}",
         ]
     return "\n".join(lines) + "\n"

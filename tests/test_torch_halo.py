@@ -5,8 +5,12 @@ against the JAX package's exchange on its virtual CPU mesh.
 Every slot's exchanged halo must equal the window of the zero-padded
 reference that `make_ref_halo` builds, bit for bit: single hops, halos
 wider than a tile (several hops, tests/test_sharded.py:111-118), span 0,
-and frames whose mesh padding leaves whole tiles outside the frame.
+and frames whose mesh padding leaves whole tiles outside the frame. A
+started exchange has issued every transfer of both sweeps before its
+`wait()`, counted with `torch.distributed` replaced by a recorder.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +23,7 @@ from motionestimation_tpu.parallel import halo as jax_halo
 from motionestimation_tpu.parallel import make_mesh as jax_make_mesh
 from motionestimation_tpu_torch.parallel import halo, ingest, make_mesh
 from motionestimation_tpu_torch.parallel import sharded
+from motionestimation_tpu_torch.parallel.mesh import Mesh
 from motionestimation_tpu_torch.search import full_search as fs
 
 torch.set_num_threads(1)
@@ -125,3 +130,79 @@ def test_started_exchange_equals_exchange(dp, ty, tx, h, w, blk, span):
     assert sorted(got) == sorted(want)
     for slot, t in got.items():
         assert torch.equal(t, want[slot]), slot
+
+
+class _P2PRecorder:
+    """Stands in for `torch.distributed` in `parallel.halo` for one rank:
+    records the shape of every send and receive each `batch_isend_irecv`
+    issues; the receive buffers stay as allocated."""
+
+    isend, irecv = "isend", "irecv"
+
+    def __init__(self):
+        self.issued = []
+
+    def is_initialized(self):
+        return True
+
+    def get_backend(self):
+        return "gloo"
+
+    def P2POp(self, op, tensor, peer, tag=0):  # noqa: N802 - torch's name
+        return op, tuple(tensor.shape)
+
+    def batch_isend_irecv(self, ops):
+        self.issued += ops
+        return [types.SimpleNamespace(wait=lambda: None) for _ in ops]
+
+
+# (ty, tx, h, w, blk, span): one hop, and two hops on either axis.
+SWEEP_CASES = [
+    (2, 2, 64, 64, 8, 5),
+    (1, 4, 32, 128, 8, 31),
+    (4, 1, 128, 48, 8, 4),
+    (4, 2, 64, 32, 8, 20),
+    (2, 4, 32, 64, 8, 20),
+]
+
+
+@pytest.mark.parametrize("ty,tx,h,w,blk,span", SWEEP_CASES)
+def test_started_exchange_has_issued_both_sweeps(monkeypatch, ty, tx, h, w,
+                                                 blk, span):
+    """When `start_halo_exchange_2d` returns, every rank (one slot each)
+    has issued every send and receive of both sweeps: the "tx" strips
+    ([1, tile_h, k] columns) and the "ty" strips of the widened tile ([1,
+    k, tile_w + 2*span] rows), one send and one receive a neighbour and
+    hop; `wait()` issues none."""
+    n = ty * tx
+    devices = np.empty(n, dtype=object)
+    devices[:] = [CPU] * n
+    mesh = Mesh(devices.reshape(1, ty, tx), np.arange(n).reshape(1, ty, tx))
+    hp, wp = sharded.padded_dims_for_mesh(h, w, blk, mesh)
+    th, tw = hp // ty, wp // tx
+    for rank, (_, iy, ix) in enumerate(mesh.slots()):
+        rec = _P2PRecorder()
+        monkeypatch.setattr(halo, "dist", rec)
+        mesh.rank = rank
+        tiles = {(0, iy, ix): torch.zeros((1, th, tw), dtype=torch.uint8)}
+        wait = halo.start_halo_exchange_2d(tiles, span, mesh)
+        issued = list(rec.issued)
+        got = wait()
+        assert rec.issued == issued, "wait() issued a transfer"
+        assert tuple(got[0, iy, ix].shape) == (1, th + 2 * span,
+                                               tw + 2 * span)
+
+        def neighbours(p, size, axis_n):
+            """Hops k with a neighbour before and after position p."""
+            hops = -(-span // size)
+            return sum((p - k >= 0) + (p + k < axis_n)
+                       for k in range(1, hops + 1))
+
+        want_tx, want_ty = neighbours(ix, tw, tx), neighbours(iy, th, ty)
+        tx_ops = [o for o in issued if o[1][1] == th and o[1][2] != tw + 2
+                  * span]
+        ty_ops = [o for o in issued if o[1][2] == tw + 2 * span]
+        assert len(issued) == 2 * (want_tx + want_ty)
+        for ops, want in ((tx_ops, want_tx), (ty_ops, want_ty)):
+            assert [op for op, _ in ops].count("isend") == want
+            assert [op for op, _ in ops].count("irecv") == want

@@ -216,9 +216,10 @@ def test_presharded_input_matches_host_input():
     curs = np.clip(refs.astype(np.int32) + rng.integers(-6, 7, refs.shape),
                    0, 255).astype(np.uint8)
     kw = dict(mesh=mesh, blk_dim=8, span=4, frame_height=64, frame_width=64)
-    a = sharded.sharded_motion_step(curs, refs, **kw)
-    b = sharded.sharded_motion_step(ingest.put_frame_batch(curs, mesh),
-                                    ingest.put_frame_batch(refs, mesh), **kw)
+    a = sharded.gather(sharded.sharded_motion_step(curs, refs, **kw))
+    b = sharded.gather(sharded.sharded_motion_step(
+        ingest.put_frame_batch(curs, mesh), ingest.put_frame_batch(refs, mesh),
+        **kw))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

@@ -2,11 +2,14 @@
 sharded step moves in a run, and against the JAX package's model.
 
 * Bytes counted in a run: each rank of a mesh of one slot a rank runs
-  `sharded_motion_step` alone, with `torch.distributed` replaced by a
-  recorder. The busiest rank's `isend` bytes must equal
-  `halo_bytes_per_chip`, and every rank's received `broadcast` bytes
-  `model_step(...).gather_bytes`; `_reduce_stats` must run two
-  all-reduces. Exact equality (integers).
+  `sharded_motion_step` and `sharded.gather` alone, with
+  `torch.distributed` replaced by a recorder. The busiest rank's `isend`
+  bytes must equal `halo_bytes_per_chip`; the gather must be one
+  collective, whose receiving ranks (every rank for an all-gather with
+  the compensated frame, rank 0 alone for a GOP's gather without it) get
+  `model_step(...).gather_bytes` and the others 0; `_reduce_stats` must
+  run two all-reduces and the step no other collective. Exact equality
+  (integers).
 * Against JAX's `scaling.py`, with the port's link constants patched to
   the JAX module's values, dtype_bytes=4 and frames the mesh divides:
   compute, halo bytes, halo seconds and host crossing equal JAX's, and
@@ -19,6 +22,8 @@ sharded step moves in a run, and against the JAX package's model.
 * Efficiencies lie in (0, 1]; `record_scaling` writes the card beside
   every number and has no default rate.
 """
+import collections
+import inspect
 import types
 
 import numpy as np
@@ -29,6 +34,7 @@ from motionestimation_tpu.parallel import scaling as jax_scaling
 from motionestimation_tpu_torch.parallel import halo, ingest, scaling
 from motionestimation_tpu_torch.parallel import sharded
 from motionestimation_tpu_torch.parallel.mesh import Mesh
+from motionestimation_tpu_torch.pipeline import runner
 from motionestimation_tpu_torch.tools import record_scaling
 
 torch.set_num_threads(1)
@@ -37,20 +43,23 @@ CPU = torch.device("cpu")
 
 class _Recorder:
     """Stands in for `torch.distributed` in `parallel.halo` and
-    `parallel.sharded` for one rank: records the bytes of each `isend`,
-    of each `broadcast` from another rank, and the all-reduces; the
-    receive buffers stay as allocated."""
+    `parallel.sharded` for one rank of `world`: records the bytes of each
+    `isend`, the result bytes this rank receives in a `gather` or
+    `all_gather_into_tensor`, and every collective by name; the receive
+    buffers stay as allocated."""
 
     isend, irecv = "isend", "irecv"
 
     class ReduceOp:
         SUM, MAX = "sum", "max"
 
-    def __init__(self, rank):
+    def __init__(self, rank, world):
         self.rank = rank
+        self.world = world
         self.sent = 0
         self.received = 0
         self.all_reduces = []
+        self.calls = []
 
     def is_initialized(self):
         return True
@@ -58,26 +67,44 @@ class _Recorder:
     def get_backend(self):
         return "gloo"
 
+    def get_world_size(self):
+        return self.world
+
     def P2POp(self, op, tensor, peer, tag=0):  # noqa: N802 - torch's name
         if op == self.isend:
             self.sent += tensor.numel() * tensor.element_size()
         return op
 
     def batch_isend_irecv(self, ops):
+        self.calls.append("batch_isend_irecv")
         return [types.SimpleNamespace(wait=lambda: None) for _ in ops]
 
-    def broadcast(self, tensor, src):
-        if src != self.rank:
-            self.received += tensor.numel() * tensor.element_size()
+    def gather(self, tensor, gather_list=None, dst=0):
+        self.calls.append("gather")
+        assert (gather_list is not None) == (self.rank == dst)
+        if gather_list is not None:
+            assert len(gather_list) == self.world
+            self.received += sum(t.numel() * t.element_size()
+                                 for r, t in enumerate(gather_list)
+                                 if r != self.rank)
+
+    def all_gather_into_tensor(self, output, tensor):
+        self.calls.append("all_gather_into_tensor")
+        assert output.numel() == self.world * tensor.numel()
+        self.received += (self.world - 1) * tensor.numel() * \
+            tensor.element_size()
 
     def all_reduce(self, tensor, op):
+        self.calls.append("all_reduce")
         self.all_reduces.append(op)
 
 
-def _run_rank(monkeypatch, rank, ty, tx, h, w, blk, span):
-    """One rank's sharded step on a (1, ty, tx) mesh of one CPU slot a rank;
-    returns its recorder."""
-    rec = _Recorder(rank)
+def _run_rank(monkeypatch, rank, ty, tx, h, w, blk, span, dst=None,
+              with_comp=True):
+    """One rank's sharded step and gather (to `dst`, every rank when None)
+    on a (1, ty, tx) mesh of one CPU slot a rank; returns its recorder,
+    the calls the step made, and the gather's result."""
+    rec = _Recorder(rank, ty * tx)
     monkeypatch.setattr(halo, "dist", rec)
     monkeypatch.setattr(sharded, "dist", rec)
     n = ty * tx
@@ -92,9 +119,12 @@ def _run_rank(monkeypatch, rank, ty, tx, h, w, blk, span):
     cur, ref = (ingest.FrameShards((1, hp, wp), {slot: torch.from_numpy(
         rng.integers(0, 256, (1, th, tw), dtype=np.uint8))})
         for _ in range(2))
-    sharded.sharded_motion_step(cur, ref, mesh=mesh, blk_dim=blk, span=span,
-                                frame_height=h, frame_width=w)
-    return rec
+    local = sharded.sharded_motion_step(
+        cur, ref, mesh=mesh, blk_dim=blk, span=span, frame_height=h,
+        frame_width=w, with_comp=with_comp)
+    step_calls = list(rec.calls)
+    got = sharded.gather(local, dst=dst)
+    return rec, step_calls, got
 
 
 # (ty, tx, span) on a 30x37 frame at blk 4: tiles of 8 to 40 rows and
@@ -106,19 +136,44 @@ RUN_CASES = [
 ]
 
 
+@pytest.mark.parametrize("dst", [None, 0], ids=["to-every-rank", "to-rank-0"])
 @pytest.mark.parametrize("ty,tx,span", RUN_CASES)
-def test_model_bytes_equal_bytes_counted_in_a_run(monkeypatch, ty, tx, span):
+def test_model_bytes_equal_bytes_counted_in_a_run(monkeypatch, ty, tx, span,
+                                                  dst):
+    """Every rank (`sharded_full_search`'s gather, with the compensated
+    frame) or rank 0 alone (`run_gop_sharded`'s, without it) receives the
+    model's gather bytes, in one collective; the other ranks receive no
+    result byte and get no result."""
     h, w, blk = 30, 37, 4
-    recs = [_run_rank(monkeypatch, r, ty, tx, h, w, blk, span)
-            for r in range(ty * tx)]
+    with_comp = dst is None
+    halo.COLLECTIVES.clear()
+    runs = [_run_rank(monkeypatch, r, ty, tx, h, w, blk, span, dst=dst,
+                      with_comp=with_comp) for r in range(ty * tx)]
+    recs = [rec for rec, _, _ in runs]
+    # The counter chip_smoke.py prints counts every call the ranks made.
+    assert halo.COLLECTIVES == sum(
+        (collections.Counter(rec.calls) for rec in recs),
+        collections.Counter())
     model = scaling.model_step(frame_height=h, frame_width=w, blk_dim=blk,
                                span=span, ty=ty, tx=tx,
-                               measured_mblocks_per_s=1.0)
+                               measured_mblocks_per_s=1.0,
+                               with_comp=with_comp)
     assert max(r.sent for r in recs) == model.halo_bytes
     assert scaling.halo_bytes_per_chip(h, w, span, ty, tx,
                                        blk_dim=blk) == model.halo_bytes
-    assert all(r.received == model.gather_bytes for r in recs)
-    assert all(r.all_reduces == ["sum", "max"] for r in recs)
+    want_calls = "all_gather_into_tensor" if dst is None else "gather"
+    for rank, (rec, step_calls, got) in enumerate(runs):
+        assert rec.all_reduces == ["sum", "max"]
+        # The step's collectives: the halo's batches and the stats, no
+        # result collective.
+        assert set(step_calls) <= {"batch_isend_irecv", "all_reduce"}
+        assert step_calls.count("all_reduce") == 2
+        assert rec.calls[len(step_calls):] == [want_calls]
+        receives = dst is None or rank == dst
+        assert rec.received == (model.gather_bytes if receives else 0)
+        assert (got is not None) == receives
+        if receives:
+            assert (got.comp is not None) == with_comp
     assert model.halo_bytes > 0 and model.gather_bytes > 0
 
 
@@ -217,19 +272,55 @@ def test_efficiencies_in_unit_interval(blk, span, rate):
 
 
 def test_gop_charges_the_gather_across_hosts():
-    """Pairs over hosts: each card receives the other hosts' results
-    through its InfiniBand port, which the per-pair time carries."""
+    """Pairs over hosts: rank 0 receives the other hosts' grids through its
+    InfiniBand port, in the one gather collective, which the per-pair time
+    carries."""
     kw = dict(frame_height=2160, frame_width=3840, blk_dim=8, span=12,
               measured_mblocks_per_s=424.0)
-    base = scaling.model_step(ty=2, tx=4, **kw)
+    base = scaling.model_step(ty=2, tx=4, with_comp=False, **kw)
     eff = scaling.gop_scaling_efficiency(n_hosts=[2], **kw)[2]
     tile = (2160 // 2) * (3840 // 4)
-    slot = 4 * (3 * tile // 64 + tile)
+    slot = 4 * 3 * tile // 64
     hops = 1
     t2 = (base.step_s + 2 * scaling.IB_LATENCY_S * hops
-          + 8 * slot / scaling.IB_BYTES_PER_S
-          + 4 * 2 * 8 * scaling.IB_LATENCY_S * hops)
+          + 8 * slot / scaling.IB_BYTES_PER_S + scaling.IB_LATENCY_S * hops)
     assert eff == pytest.approx(base.step_s / t2, rel=1e-12)
+
+
+@pytest.mark.parametrize("model", ["hosts", "pipelined"])
+def test_gop_models_charge_no_compensated_frame(monkeypatch, model):
+    """Neither GOP model gathers a compensated frame (no dump holds one):
+    every gather term they ask for leaves it out, and the pipelined
+    model's gather time equals the grids' bytes over NVLink, the chunk's
+    one latency shared by its pairs (a chunk: `run_gop_sharded`'s
+    default chunk_pairs)."""
+    asked = []
+    real = scaling._gather
+
+    def recording(*args, **kwargs):
+        asked.append(kwargs.get("with_comp", True))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(scaling, "_gather", recording)
+    kw = dict(frame_height=2160, frame_width=3840, blk_dim=8, span=12,
+              measured_mblocks_per_s=424.0)
+    if model == "hosts":
+        scaling.gop_scaling_efficiency(n_hosts=[1, 2, 4], **kw)
+        assert asked == [False]
+        return
+    assert scaling.GOP_CHUNK_PAIRS == inspect.signature(
+        runner.run_gop_sharded).parameters["chunk_pairs"].default == 8
+    eff = scaling.spatial_gop_overlap_efficiency(meshes=[(2, 2)], **kw)[4]
+    assert asked and not any(asked[1:])  # the first: the one-card baseline
+    m = scaling.model_step(ty=2, tx=2, with_comp=False, **kw)
+    grids = 3 * 4 * (1080 // 8) * (1920 // 8)
+    assert m.gather_bytes == 3 * grids
+    latency = scaling._collective_latency_s(4, 1)
+    t_pair = (max(m.compute_s, m.halo_s) + 3 * grids
+              / scaling.NVLINK_BYTES_PER_S
+              + (m.halo_s + m.stats_s + latency) / 8)
+    base = scaling.model_step(ty=1, tx=1, **kw).step_s
+    assert eff == pytest.approx(base / (4 * t_pair), rel=1e-12)
 
 
 def test_record_scaling_writes_the_card_beside_every_number(tmp_path,

@@ -47,6 +47,11 @@ def _mesh(dp, ty, tx):
     return make_mesh(dp, ty, tx, devices=[CPU] * (dp * ty * tx))
 
 
+def _step(*args, **kw):
+    """`sharded_motion_step`'s results, gathered in this process."""
+    return sharded.gather(sharded.sharded_motion_step(*args, **kw))
+
+
 def _pair(rng, h, w):
     """As tests/test_sharded.py makes them: a random reference, the
     current frame moved and noised."""
@@ -137,7 +142,7 @@ def test_sharded_step_matches_jax_and_unsharded(dp, ty, tx, h, w, blk, span,
     refs = np.stack([_pair(rng, h, w)[1] for _ in range(dp)])
     curs = np.clip(refs.astype(np.int32) + rng.integers(-8, 9, refs.shape),
                    0, 255).astype(np.uint8)
-    res = sharded.sharded_motion_step(
+    res = _step(
         curs, refs, mesh=_mesh(dp, ty, tx), blk_dim=blk, span=span,
         frame_height=h, frame_width=w, backend=backend)
     jres = jax_sharded.sharded_motion_step(
@@ -166,7 +171,7 @@ def test_multihop_halo_matches_jax_and_unsharded(ty, tx, h, w, blk, span,
     ref = rng.integers(0, 256, (h, w), dtype=np.uint8)
     cur = np.clip(np.roll(ref, (2, -3), (0, 1)).astype(np.int32)
                   + rng.integers(-5, 6, (h, w)), 0, 255).astype(np.uint8)
-    res = sharded.sharded_motion_step(
+    res = _step(
         cur[None], ref[None], mesh=_mesh(1, ty, tx), blk_dim=blk, span=span,
         frame_height=h, frame_width=w, backend=backend)
     jres = jax_sharded.sharded_motion_step(
@@ -200,7 +205,7 @@ def test_sharded_metrics_match_jax_and_unsharded(ty, tx, h, w, blk, span,
     reference fault 1): the JAX side here is its golden tile search."""
     rng = np.random.default_rng(blk * 10 + span + h)
     cur, ref = _pair(rng, h, w)
-    res = sharded.sharded_motion_step(
+    res = _step(
         cur[None], ref[None], mesh=_mesh(1, ty, tx), blk_dim=blk, span=span,
         metric=metric, frame_height=h, frame_width=w, backend=backend)
     jres = jax_sharded.sharded_motion_step(
@@ -269,7 +274,7 @@ def test_sharded_diamond_matches_jax_and_numpy(ty, tx, h, w, blk, span,
     cur, ref = _smooth(rng, h, w, (2, -3))
     kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
               frame_width=w, algorithm="diamond")
-    res = sharded.sharded_motion_step(cur[None], ref[None],
+    res = _step(cur[None], ref[None],
                                       mesh=_mesh(1, ty, tx), backend=backend,
                                       **kw)
     jres = jax_sharded.sharded_motion_step(
@@ -285,14 +290,14 @@ def test_sharded_diamond_early_term_matches_jax_and_numpy(backend):
     cur, ref = _smooth(rng, h, w, (3, -4), noise=6)
     kw = dict(blk_dim=blk, span=span, metric="mse", frame_height=h,
               frame_width=w, algorithm="diamond", early_term=early)
-    res = sharded.sharded_motion_step(cur[None], ref[None],
+    res = _step(cur[None], ref[None],
                                       mesh=_mesh(1, 2, 2), backend=backend,
                                       **kw)
     jres = jax_sharded.sharded_motion_step(
         cur[None], ref[None], mesh=jax_make_mesh(1, 2, 2), backend="golden",
         **kw)
     _assert_diamond(res, cur, ref, blk, span, "mse", early, jres)
-    plain = sharded.sharded_motion_step(
+    plain = _step(
         cur[None], ref[None], mesh=_mesh(1, 2, 2), backend=backend,
         **dict(kw, early_term=None))
     assert not torch.equal(res.mv_y, plain.mv_y) or not torch.equal(
@@ -343,13 +348,16 @@ def test_sharded_gop_pipelined_matches_per_pair_and_jax(h, w, metric,
     stack = np.stack(stack)
     kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
               frame_width=w)
-    mv_y, mv_x, cost, sq, fmax = sharded.sharded_gop_pipelined(
-        stack, mesh=_mesh(1, 2, 2), backend=backend, **kw)
+    got = sharded.gather(sharded.sharded_gop_pipelined(
+        stack, mesh=_mesh(1, 2, 2), backend=backend, **kw))
+    assert got.comp is None
+    mv_y, mv_x, cost, sq, fmax = (got.mv_y, got.mv_x, got.best_cost,
+                                  got.sum_sq, got.frame_max)
     j = jax_sharded.sharded_gop_pipelined(
         stack, mesh=jax_make_mesh(1, 2, 2), backend="golden", **kw)
     nby, nbx = _grid(h, w, blk)
     for i in range(npairs):
-        res = sharded.sharded_motion_step(
+        res = _step(
             stack[i + 1][None], stack[i][None], mesh=_mesh(1, 2, 2),
             backend=backend, **kw)
         for got, want in ((mv_y, res.mv_y), (mv_x, res.mv_x),
@@ -383,7 +391,7 @@ def test_sharded_psnr_stats_bit_exact():
     h, w, blk, span = 70, 100, 8, 5
     cur, ref = _pair(rng, h, w)
     for backend in BACKENDS:
-        res = sharded.sharded_motion_step(
+        res = _step(
             cur[None], ref[None], mesh=_mesh(1, 2, 2), blk_dim=blk,
             span=span, frame_height=h, frame_width=w, backend=backend)
         comp = _np(res.comp)[0, :h, :w]
@@ -614,10 +622,10 @@ def test_sharded_on_one_card_matches_frame_entries_cuda(cuda, ty, tx, h, w,
 
 @pytest.mark.parametrize("backend", BACKENDS, ids=BACKEND_IDS)
 @pytest.mark.parametrize("algorithm", ["full", "diamond"])
-def test_step_without_comp_gathers_no_frame(backend, algorithm, monkeypatch):
+def test_step_without_comp_gathers_no_frame(backend, algorithm):
     """`with_comp=False` (run_gop_sharded's per-pair path): MVs, costs and
-    stats equal the full step's, `comp` is None, and the compensated frame
-    is never assembled."""
+    stats equal the full step's, `comp` is None, and no slot keeps a
+    compensated tile for the gather to assemble."""
     rng = np.random.default_rng(31)
     h, w, blk, span = 40, 56, 8, 5
     refs = np.stack([_pair(rng, h, w)[1] for _ in range(2)])
@@ -625,18 +633,12 @@ def test_step_without_comp_gathers_no_frame(backend, algorithm, monkeypatch):
                    0, 255).astype(np.uint8)
     kw = dict(mesh=_mesh(2, 2, 2), blk_dim=blk, span=span, frame_height=h,
               frame_width=w, backend=backend, algorithm=algorithm)
-    want = sharded.sharded_motion_step(curs, refs, **kw)
-    shapes = []
-    real = sharded._assemble
-
-    def recording(local, mesh, shape, dtype, home):
-        shapes.append(tuple(shape))
-        return real(local, mesh, shape, dtype, home)
-
-    monkeypatch.setattr(sharded, "_assemble", recording)
-    got = sharded.sharded_motion_step(curs, refs, with_comp=False, **kw)
+    want = _step(curs, refs, **kw)
+    local = sharded.sharded_motion_step(curs, refs, with_comp=False, **kw)
+    assert local.frame is None
+    assert all(len(tiles) == 3 for tiles in local.tiles.values())
+    got = sharded.gather(local)
     assert got.comp is None and want.comp is not None
-    assert len(shapes) == 3 and want.comp.shape not in shapes
     for name in ("mv_y", "mv_x", "best_cost", "sum_sq", "frame_max"):
         a, b = getattr(got, name), getattr(want, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name

@@ -8,10 +8,11 @@ card `rank` on NCCL (one card a rank); together they form a (1, 2 *
 world, 2) mesh whose "ty" axis spans the ranks, so halos cross the rank
 boundaries. Each rank feeds only its own frame rows
 (`ingest.local_row_range`), runs `sharded_motion_step` (full search on both
-backends, SSIM, diamond) and checks the results, which every rank receives
-whole, against the unsharded port on the same frames; then a
-`run_gop_sharded` GOP that each rank reads row by row from disk, whose
-dumps rank 0 holds against the port's `run_gop`. Prints
+backends, SSIM, diamond), gathers the results to every rank and checks
+them against the unsharded port on the same frames, then gathers them to
+rank 0 alone (the others must get None, and rank 0 the same results);
+then a `run_gop_sharded` GOP that each rank reads row by row from disk,
+whose dumps rank 0 holds against the port's `run_gop`. Prints
 "TORCH_MULTIHOST_OK rank=<rank>" when every check passed.
 """
 import os
@@ -86,10 +87,16 @@ for h, w, blk, span in [(64, 64, 8, 4), (60, 52, 8, 5)]:
                                        ("mse", "full", "cuda"),
                                        ("ssim", "full", "cuda"),
                                        ("mse", "diamond", "cuda")]:
-        res = sharded.sharded_motion_step(
+        local = sharded.sharded_motion_step(
             cur_s, ref_s, mesh=mesh, blk_dim=blk, span=span, metric=metric,
             frame_height=h, frame_width=w, backend=backend,
             algorithm=algorithm)
+        res = sharded.gather(local)
+        to_lead = sharded.gather(local, dst=0)
+        assert (to_lead is None) == (rank != 0), (rank, to_lead)
+        for a, b in zip(to_lead or (), res):
+            check(f"{h}x{w} {metric} {algorithm} {backend} gathered to rank "
+                  f"0", a, b.cpu())
         if algorithm == "diamond":
             want = diamond.diamond_search_frame(
                 cur, ref, blk_dim=blk, span=span, metric=metric,
