@@ -207,7 +207,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    each L2/L4 variant exactly and, decoded, against K1's cost and index on
    the same frames; T elem-ops/s at the tool's shapes and at card-filling
    sizes beside the FP32-lane floor (a rate above it fails: the compiler
-   dropped work), and L2/L4 timed in turns beside K1.
+   dropped work; roll by the adds it executes, `vpu_peak.roll_adds`, with
+   the tool's count beside it), and L2/L4 timed in turns beside K1. L1's
+   six variants are held exactly against their plain versions at tile_h
+   64 and 128, L0, M1 and M2 against K1 on the blocks whose window lies
+   inside the frame, each beside the bound its arithmetic sets; the
+   registers, spills and resident warps of L1's and the roll's instances
+   are printed.
 8. One JSON line listing the kernels and emit modes, the nvidia-smi
    name/power-limit line, and as the last line {"ok": true, "device":
    {...}}.
@@ -435,6 +441,14 @@ LAB_KERNELS = ("me_lab_peak", "me_lab_chain", "me_lab_phase", "me_lab_diff",
                "me_lab_p7")
 FILL_ROWS = 512
 FILL_CH_W = 65536
+# The instructions a block-candidate of each L1 variant's arithmetic
+# needs, and the lanes per SM and clock that issue them: a __dp4a (L0, M1)
+# or a vabsdiff4 (M2) a word of four pixels on the 64 int32 lanes; a
+# bf16x2 FMA and an FADD a pixel (M3), or one product ("L1"), on the 128
+# FP32 lanes; none (NOP). The kernels line and PERF.md bound L1 by its
+# first variant's, L0's.
+PAD_OPS = {"NOP": (0, 128), "L0": (16, 64), "L1": (1, 128), "M1": (16, 64),
+           "M2": (16, 64), "M3": (128, 128)}
 
 
 def fail(message: str):
@@ -2585,6 +2599,17 @@ def main(argv=None) -> int:
     floor = (f"FP32-lane floor {lane_ops_s / 1e12:.2f} T ops/s ({sms} SMs x "
              f"128 lanes x {max_clock_mhz:.0f} MHz)")
     print(floor)
+    for what, occ in [
+            *((f"me_lab_padded \"{v}\"", lab.lab_occupancy(v))
+              for v in lab.PADDED_VARIANTS),
+            *((f"me_lab_peak {k} at {c} columns",
+               lab.lab_occupancy(k, cols=c, inner=vpu_peak.INNER))
+              for k in lab.ROLL_INSTANCES for c in (32, 1024))]:
+        print(f"{what}: {occ['registers']} registers and "
+              f"{occ['local_bytes']} bytes of local memory (spills) per "
+              f"thread, {occ['threads']} threads and {occ['smem_bytes']} B "
+              f"of shared memory per CUDA block, {occ['blocks_per_sm']} CUDA "
+              f"blocks ({occ['warps_per_sm']} warps) resident per SM")
 
     def timed(fn):
         """(fn(), device ms of that one call)."""
@@ -2635,26 +2660,43 @@ def main(argv=None) -> int:
     rows, cols = a.shape
     _, plain_ms = timed(lambda: lab.peak_plain(a, "fma", inner=inner,
                                                outer=vpu_peak.OUTER))
+    # The lane-ops each mix executes: the tool's count for fma and mix (an
+    # FMA, or a sub and an FMA, per op of INNER); for roll only its adds,
+    # half the tool's count, which takes a roll + add pair as two.
+    def executed(mix, rows):
+        return (vpu_peak.roll_adds(rows) if mix == "roll"
+                else vpu_peak.peak_ops(rows))
+
     peak_ops = vpu_peak.peak_ops()
+    peak_extra = {}  # the roll's and mix's ms and bound on the kernels line
     for mix in vpu_peak.MIXES:
         ms = cuda_ms(lambda: lab.lab_peak(a, mix=mix, inner=inner,
                                           outer=vpu_peak.OUTER), 10)
-        t = rate(peak_ops, ms, f"P1 {mix}")
-        print(f"  P1 {mix} {rows}x{cols}: {ms:.4f} ms, {t:.3f} T elem-ops/s, "
-              f"{t * 1e12 / lane_ops_s:.1%} of the {floor}"
+        ops = executed(mix, rows)
+        t = rate(ops, ms, f"P1 {mix}")
+        bound_ms = ops / lane_ops_s * 1e3
+        print(f"  P1 {mix} {rows}x{cols}: {ms:.4f} ms, {t:.3f} T "
+              f"{'adds' if mix == 'roll' else 'elem-ops'}/s executed, "
+              f"{t * 1e12 / lane_ops_s:.1%} of the {floor}; bound "
+              f"{bound_ms:.4f} ms; {peak_ops / ms / 1e9:.3f} T elem-ops/s "
+              f"by the JAX tool's count"
               f"{f' (plain {plain_ms:.1f} ms)' if mix == 'fma' else ''} | "
               f"{card}")
         if mix == "fma":
-            lab_times["me_lab_peak"] = (ms, plain_ms,
-                                        peak_ops / lane_ops_s * 1e3,
-                                        "operations")
+            lab_times["me_lab_peak"] = (ms, plain_ms, bound_ms, "operations")
+        else:
+            peak_extra.update({f"{mix}_ms": ms, f"{mix}_bound_ms": bound_ms})
     fill_ops = vpu_peak.peak_ops(rows=FILL_ROWS)
     for mix in vpu_peak.MIXES:
         t = vpu_peak.measure(mix, rows=FILL_ROWS)
-        rate(fill_ops, fill_ops / t / 1e9, f"P1 {mix} {FILL_ROWS} rows")
-        print(f"  P1 {mix} {FILL_ROWS}x{cols}: {fill_ops / t / 1e9:.4f} ms, "
-              f"{t:.3f} T elem-ops/s, {t * 1e12 / lane_ops_s:.1%} of the "
-              f"floor | {card}")
+        ms = fill_ops / t / 1e9
+        ops = executed(mix, FILL_ROWS)
+        te = rate(ops, ms, f"P1 {mix} {FILL_ROWS} rows")
+        print(f"  P1 {mix} {FILL_ROWS}x{cols}: {ms:.4f} ms, {te:.3f} T "
+              f"{'adds' if mix == 'roll' else 'elem-ops'}/s executed, "
+              f"{te * 1e12 / lane_ops_s:.1%} of the floor; bound "
+              f"{ops / lane_ops_s * 1e3:.4f} ms; {t:.3f} T elem-ops/s by the "
+              f"JAX tool's count | {card}")
 
     c, e = (t.to(dev) for t in vpu_peak.chain_inputs())
     want, plain_ms = timed(lambda: lab.chain_plain(c, e, ch_g=vpu_peak.CH_G))
@@ -2789,6 +2831,13 @@ def main(argv=None) -> int:
                   f"{where}")
         fns[f"{name} \"{variant}\":128"] = (
             lambda run=run: run(cur, ref_p))
+    # L1 at tile_h 64 too: it changes only "L1"'s function.
+    for variant, name, plain, _ in NEW_LAB:
+        if name == "me_lab_padded":
+            want = (lab.raw_plain(cur, ref_p, tile_h=64) if plain == "raw"
+                    else plains[plain][0])
+            compare([name], kern_lab.variant_fn(f"{variant}:64")[0](
+                cur, ref_p), want, f"{name} \"{variant}\" {w}x{h} tile_h 64")
     for fn in fns.values():
         fn()  # warm-up
     times = {n: [] for n in fns}
@@ -2801,10 +2850,30 @@ def main(argv=None) -> int:
               f"{[round(t, 4) for t in ts]}) | {card}")
     for plain, (_, ms) in plains.items():
         print(f"  plain {plain} {ms:.2f} ms | {card}")
+    # L1's bounds: the larger of its arithmetic (PAD_OPS) at the rate of
+    # the lanes that issue it and its float32 operands read once (cur, the
+    # [h + 24, w + 24] window) and outputs written once, at 3.35 TB/s.
+    nblk = (h // blk) * (w // blk)
+    pad_bytes_ms = (4 * (h * w + (h + 2 * span) * (w + 2 * span))
+                    + 8 * nblk) / 3.35e12 * 1e3
+    pad_bounds = {}
+    for v, (ops, lanes) in PAD_OPS.items():
+        ops_ms = (nblk * (2 * span + 1) ** 2 * ops
+                  / (sms * lanes * max_clock_mhz * 1e6) * 1e3)
+        pad_bounds[v] = ((ops_ms, "operations") if ops_ms > pad_bytes_ms
+                         else (pad_bytes_ms, "bytes"))
+        ms = statistics.mean(times[f"me_lab_padded \"{v}\":128"])
+        print(f"  me_lab_padded \"{v}\": {ms:.4f} ms, bound "
+              f"{pad_bounds[v][0]:.6f} ms ({pad_bounds[v][1]}: {ops} "
+              f"instructions a block-candidate on {lanes} lanes an SM, "
+              f"{ops_ms:.6f} ms, or {pad_bytes_ms:.6f} ms of bytes), "
+              f"{pad_bounds[v][0] / ms:.1%} of it | {card}")
     for variant, name, plain, _ in NEW_LAB:
         if name not in lab_times:  # each kernel's first variant
             lab_times[name] = (statistics.mean(times[
-                f"{name} \"{variant}\":128"]), plains[plain][1], *lab_bound)
+                f"{name} \"{variant}\":128"]), plains[plain][1],
+                *(pad_bounds[variant] if name == "me_lab_padded"
+                  else lab_bound))
     del cur, ref_p, cur_u8, halo_u8, plains, k1
     print(f"speed-of-light tools phase: "
           f"{time.perf_counter() - t_tools:.1f} s")
@@ -2843,6 +2912,7 @@ def main(argv=None) -> int:
             "replaces": REPLACES[name], "launches": main_launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            **(peak_extra if name == "me_lab_peak" else {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

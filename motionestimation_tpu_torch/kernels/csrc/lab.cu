@@ -28,8 +28,9 @@
 //   `pallas_call` :241): no candidate masked, all 625 read the zero-padded
 //   reference; the first minimum of (cost, flat) from the start pair (3e8,
 //   312). NOP: the start pair; L0: SSD (Qcur - X) + (Qref - X); M1: L0
-//   with each product a bfloat16 hi + lo pair (exact); M2: SAD over
-//   bfloat16 |c - e| (exact); M3: L0 with each product rounded to bfloat16
+//   with each product a bfloat16 hi + lo pair on the TPU (exact: L0's
+//   function, and here L0's instance); M2: SAD over bfloat16 |c - e|
+//   (exact); M3: L0 with each product rounded to bfloat16
 //   (round to nearest even; the TPU's DEFAULT-precision matmul, as the port
 //   defines it); "L1": X the raw product cur[y0 + R][c] * ref[y0 + R + oy]
 //   [c + ox] at the stripe's row R (no block sum, no slide: an ablation).
@@ -52,48 +53,53 @@
 // reference pixel (y, x) at [y + 12, x + 12]. Blocks 8x8, span 12 (K = 25),
 // flat = (dy + 12) * 25 + (dx + 12). A candidate is valid iff its window
 // lies inside the frame (kern_lab.py:405-410; L1 and P3B mask nothing).
-// Every partial sum is an
-// integer below 2^24 (at most 64 * 255^2), so float32 is exact in any
-// order, and cost * 625 + flat < 2^32: the unsigned key orders as the TPU's
-// wrapped int32 key does. Outputs are [frame_h / 8, frame_w / 8], block
-// starts only (the TPU kernels write every lane and the tool reads [:, ::8]).
+// Every partial sum is an integer below 2^24 (at most 64 * 255^2), so
+// float32 is exact in any order (L1 sums L0's and M2's in 32-bit integers
+// of bytes, exact too), and cost * 625 + flat < 2^32: the unsigned key
+// orders as the TPU's wrapped int32 key does. Outputs are [frame_h / 8,
+// frame_w / 8], block starts only (the TPU kernels write every lane and the
+// tool reads [:, ::8]).
 //
-// Design. P1: one thread per element with the four streams in registers.
-// Each iteration reads `a` through an XOR with (iteration & mask), where
-// the launcher passes mask 0: the value is unchanged, but no compiler pass
-// (ptxas optimises the PTX too, and sees through an empty asm statement)
-// can prove the restarted streams loop-invariant and hoist their chains
-// out of the loop; the TPU kernel recomputes them too. The roll mix runs
-// one CUDA block per row (cols <= 1024 threads): a step takes the right
-// neighbour by a
-// warp shuffle, and lane 31 takes the next warp's lane 0 from shared memory
-// (double-buffered, one barrier per step); the last column wraps to the
-// first. P2: one thread per (g, x) holding its 8 C and 32 E values in
-// registers; each repetition reads the C values through the same XOR and
-// feeds a minimum carried across repetitions, so the `reps` repetitions
-// are neither folded into one nor dead. L2/L4: one CUDA block
-// per `tile_h` pixel rows (the TPU stripe height) and `tbx` macroblocks,
-// staging the current tile and its reference window as float32 in shared
-// memory (L2 SSD also the Qref box-sum plane, column sums then row sums,
-// once per CUDA block); 128 threads split each macroblock's 625 candidates
-// and keep the best as a 64-bit key, reduced by common.cuh. The TPU
-// choreography (phase-plane permutation matmuls, lane rolls of E, the
-// static min tree) is not carried over. L3 and L5-L7 are template axes of
-// the same kernel: the cost form, the key, the ablation, and bfloat16
-// staging, whose window is kept in two copies shifted by one column so
-// that a candidate at any column offset reads aligned pairs. L1 is its own
-// kernel: a product stage writes each group of five candidates' products
-// for the whole tile to a shared-memory scratch (the TPU's `p_ref`), and a
-// compaction stage reads them back for the block sums.
+// Design. P1 fma and mix: one thread per element with the four streams in
+// registers. Each iteration reads `a` through an XOR with (iteration & mask),
+// where the launcher passes mask 0: the value is unchanged, but no compiler
+// pass (ptxas optimises the PTX too, and sees through an empty asm statement)
+// can prove the restarted streams loop-invariant and hoist their chains out
+// of the loop; the TPU kernel recomputes them too. P1 roll: one CUDA block
+// per row, a thread holding KC neighbouring columns of each stream and a halo
+// of the next 8 (peak_roll_kernel below): a step updates them in ascending
+// order, so each add reads its right neighbour's old value, and the halo,
+// recomputed, stands in for the neighbours' columns: no shuffle and no
+// barrier a step; the threads exchange x once per iteration, through shared
+// memory, behind one barrier. P2: one thread per (g, x) holding its 8 C and
+// 32 E values in registers; each repetition reads the C values through the
+// same XOR and feeds a minimum carried across repetitions, so the `reps`
+// repetitions are neither folded into one nor dead. L2/L4: one CUDA block per
+// `tile_h` pixel rows (the TPU stripe height) and `tbx` macroblocks, staging
+// the current tile and its reference window as float32 in shared memory (L2
+// SSD also the Qref box-sum plane, column sums then row sums, once per CUDA
+// block); 128 threads split each macroblock's 625 candidates and keep the
+// best as a 64-bit key, reduced by common.cuh. The TPU choreography (phase-
+// plane permutation matmuls, lane rolls of E, the static min tree) is not
+// carried over. L3 and L5-L7 are template axes of the same kernel: the cost
+// form, the key, the ablation, and bfloat16 staging, whose window is kept in
+// two copies shifted by one column so that a candidate at any column offset
+// reads aligned pairs. L1 is its own kernel (lab_padded_kernel below): no
+// product scratch and no atomic; the window is staged as bytes, and a thread
+// keeps 8 offset rows x 5 offset columns of sums in registers and feeds them
+// from each window row it loads once.
 //
-// What bounds it. P1 and P2 are FP32-lane issue: one FMA (or sub) per lane
-// per clock, 128 lanes per SM. L2-L7: one shared-memory load and one FMA per
-// pixel-candidate (2.62 G at 2048x2048); the load, 32 lanes per SM per
-// clock, comes first; bfloat16 pairs halve the loads. L1 adds a shared store
-// and a load per pixel-candidate for the product scratch, and its 161 KB of
-// shared memory at tile_h 128 leaves one CUDA block of 8 warps per SM, too
-// few to hide the latency of the scratch's loads and stores (on an H100 the
-// product stage alone, variant "L1", takes ~4.6x L4's whole search).
+// What bounds it. P1 fma and mix and P2 are FP32-lane issue: one FMA (or sub)
+// per lane per clock, 128 lanes per SM. P1 roll: its adds (one a stream,
+// column and step) at that rate, and the halo's, 28 a stream and iteration
+// beside a thread's 8 * KC; a row is one CUDA block, so at 64 rows 64 SMs
+// work, with 4 warps each. L2-L7: one shared-memory load and one FMA per
+// pixel-candidate (2.62 G at 2048x2048); the load, 32 lanes per SM per clock,
+// comes first; bfloat16 pairs halve the loads. L1: its arithmetic, a __dp4a
+// (L0, M1) or a vabsdiff4 (M2) a word of four pixel-candidates on the 64
+// int32 lanes of an SM, a bf16x2 FMA and an FADD a pixel-candidate (M3) on
+// the 128 FP32 lanes; four shared loads and nine funnel shifts a window row
+// feed 320 pixel-candidates.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,40 +166,132 @@ peak_kernel(const float* __restrict__ a_in, float* __restrict__ out, int n,
   out[i] = x;
 }
 
-// P1, roll: one CUDA block per row, blockDim.x == cols (a multiple of 32,
-// at most 1024). hand: [2][4][cols / 32] floats, each warp's lane-0 values.
-__global__ void __launch_bounds__(1024)
+// P1, roll: s[c] += s[(c + 1) % cols] for steps = inner / 8 steps on each
+// of the four streams; one CUDA block per row, cols / KC threads. Thread t
+// owns the KC columns from c0 = t * KC and holds kRollHalo more, columns
+// (c0 + j) mod cols for j < N = KC + kRollHalo, of every stream in
+// registers. A step adds each held column's right neighbour in ascending
+// order, so each add reads the old value; the last held column has no
+// neighbour and drops out, so after h <= kRollHalo steps the first N - h
+// columns, the owned ones among them, are exact: the halo is recomputed,
+// the same adds in the same order as its owner's. No shuffle and no
+// barrier a step. Streams 1-3 restart from a at every held column; stream
+// 0's halo, the next thread's first kRollHalo columns (KC >= kRollHalo),
+// comes from it once per iteration: at its end each thread writes those
+// columns of x to xrow (two buffers, so one barrier an iteration suffices;
+// laid out [column][thread], so a warp's stores and loads fall on 32
+// banks) and the next iteration reads the halo after that barrier. Steps
+// beyond kRollHalo (inner above 64; the MANY instances) exchange every
+// stream's halo through `mid` between chunks of kRollHalo steps.
+constexpr int kRollHalo = 8;
+
+template <int N>
+__device__ __forceinline__ void roll_chunk(float (&x)[N], float (&s1)[N],
+                                           float (&s2)[N], float (&s3)[N],
+                                           int n) {
+#pragma unroll
+  for (int k = 0; k < kRollHalo; ++k) {
+    if (k < n) {
+#pragma unroll
+      for (int j = 0; j + 1 + k < N; ++j) {
+        x[j] += x[j + 1];
+        s1[j] += s1[j + 1];
+        s2[j] += s2[j + 1];
+        s3[j] += s3[j + 1];
+      }
+    }
+  }
+}
+
+template <int KC, bool MANY>
+__global__ void __launch_bounds__(1024 / KC)
 peak_roll_kernel(const float* __restrict__ a_in, float* __restrict__ out,
                  int cols, int inner, int outer, int mask) {
-  extern __shared__ float hand[];
-  const int c = threadIdx.x, lane = c & 31, warp = c >> 5;
-  const int nw = cols >> 5;
-  const int next = warp + 1 == nw ? 0 : warp + 1;
-  const size_t i = static_cast<size_t>(blockIdx.x) * cols + c;
-  const float a_i = a_in[i];
-  float x = a_i;
-  int buf = 0;
-  for (int it = 0; it < outer; ++it) {
-    const float a = flipped(a_i, it & mask);
-    float s[4] = {x, a * 0.5f, a * 0.25f, a * 0.125f};
-    for (int k = 0; k < inner / 8; ++k) {
-      float* h = hand + buf * 4 * nw;
-      if (lane == 0) {
+  constexpr int N = KC + kRollHalo;
+  static_assert(KC >= kRollHalo, "the halo is the next thread's columns");
+  extern __shared__ float xrow[];  // [2][kRollHalo][nt], then mid [4][..]
+  const int nt = blockDim.x, t = threadIdx.x, next = t + 1 < nt ? t + 1 : 0;
+  float* mid = xrow + 2 * kRollHalo * nt;
+  const int c0 = t * KC, steps = inner / 8;
+  const size_t row = static_cast<size_t>(blockIdx.x) * cols;
+  float av[N], x[N];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) h[j * nw + warp] = s[j];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float nb = __shfl_down_sync(0xffffffffu, s[j], 1);
-        if (lane == 31) nb = h[j * nw + next];
-        s[j] += nb;
-      }
-      buf ^= 1;
-    }
-    x = (s[0] + s[1]) + (s[2] + s[3]);
+  for (int j = 0; j < N; ++j) {
+    av[j] = a_in[row + (c0 + j < cols ? c0 + j : c0 + j - cols)];
+    x[j] = av[j];  // stream 0 starts from a
   }
-  out[i] = x;
+  // The first kRollHalo columns of v to buffer b; the halo of v from it.
+  auto put = [&](float* b, const float(&v)[N]) {
+#pragma unroll
+    for (int j = 0; j < kRollHalo; ++j) b[j * nt + t] = v[j];
+  };
+  auto get = [&](const float* b, float(&v)[N]) {
+#pragma unroll
+    for (int j = 0; j < kRollHalo; ++j) v[KC + j] = b[j * nt + next];
+  };
+  for (int it = 0; it < outer; ++it) {
+    if (it > 0) {
+      __syncthreads();  // every thread's x of the last iteration is in xrow
+      get(xrow + ((it - 1) & 1) * kRollHalo * nt, x);
+    }
+    float s1[N], s2[N], s3[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float a = flipped(av[j], it & mask);
+      s1[j] = a * 0.5f;
+      s2[j] = a * 0.25f;
+      s3[j] = a * 0.125f;
+    }
+    roll_chunk<N>(x, s1, s2, s3, min(steps, kRollHalo));
+    for (int k0 = kRollHalo; MANY && k0 < steps; k0 += kRollHalo) {
+      __syncthreads();  // mid is free
+      const int q = kRollHalo * nt;  // floats a stream
+      put(mid, x);
+      put(mid + q, s1);
+      put(mid + 2 * q, s2);
+      put(mid + 3 * q, s3);
+      __syncthreads();
+      get(mid, x);
+      get(mid + q, s1);
+      get(mid + 2 * q, s2);
+      get(mid + 3 * q, s3);
+      roll_chunk<N>(x, s1, s2, s3, min(steps - k0, kRollHalo));
+    }
+#pragma unroll
+    for (int j = 0; j < KC; ++j) x[j] = (x[j] + s1[j]) + (s2[j] + s3[j]);
+    put(xrow + (it & 1) * kRollHalo * nt, x);
+  }
+#pragma unroll
+  for (int j = 0; j < KC; ++j) out[row + c0 + j] = x[j];
+}
+
+// The roll's columns a thread for a row of `cols` columns (0: no launch
+// takes the shape): 8, or 16 from two rows an SM, where fewer halo adds
+// outweigh fewer threads. Bytes of shared memory: xrow, and mid where
+// inner / 8 exceeds the halo (kRollHalo floats a thread and buffer, at
+// most cols / 8 threads).
+bool roll_cols_ok(int cols) {
+  return cols > 0 && cols % 32 == 0 && cols <= 1024;
+}
+int roll_columns(int rows, int cols) {
+  if (!roll_cols_ok(cols)) return 0;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return rows >= 2 * sms ? 16 : 8;
+}
+size_t roll_smem(int cols, int inner) {
+  return sizeof(float) * cols * (inner / 8 > kRollHalo ? 6 : 2);
+}
+// The instance for `kc` columns a thread at `inner`.
+using RollKernel = void (*)(const float*, float*, int, int, int, int);
+RollKernel roll_kernel(int kc, int inner) {
+  const bool many = inner / 8 > kRollHalo;
+  if (kc == 8)
+    return many ? peak_roll_kernel<8, true> : peak_roll_kernel<8, false>;
+  return many ? peak_roll_kernel<16, true> : peak_roll_kernel<16, false>;
 }
 
 // ---------------------------------------------------------------------------
@@ -519,75 +617,62 @@ int launch_lab(const void* cur, const void* ref, void* out_cost,
 }
 
 // ---------------------------------------------------------------------------
-// L1: the unmasked search over the zero-padded reference through a product
-// scratch. VAR (PadVariant) picks the TPU variant; the scratch holds, per
-// candidate of a group of kGroup, the [tile_h, tw] products: float32 (L0,
-// "L1"), a bfloat16 hi/lo pair (M1), bfloat16 |c - e| (M2) or the product
-// rounded to bfloat16 (M3). Each group is one product stage, a barrier, one
-// compaction stage (the 8x8 block sums of the scratch, or for "L1" the raw
-// product at the stripe's row R and the block's first column), the cost,
-// and a shared 64-bit atomic minimum of (cost ordered as int32, flat) per
-// block, which is the first minimum in raster order whatever the order of
-// the threads. grid = (ceil(nbx / tbx), frame_h / tile_h).
+// L1: the unmasked search over the zero-padded reference. VAR (PadVariant)
+// picks the variant: NOP the start pair after staging; L0 (and M1, its
+// instance) X = sum c * e by one __dp4a a word of four pixel-candidates; M2
+// the SAD by one vabsdiff4 with accumulate a word; M3 X as the sum of c * e
+// each rounded to bfloat16 (bf16_term, on pixels back in float32); "L1" X one
+// product a candidate, cur[py][gx] * ref_p[py + oy][gx + ox] at py the
+// stripe's row R (tile_h / 8 block rows a stripe), read from global memory.
+// Cost (Qcur - X) + (Qref - X), or the SAD; the first minimum of (cost, flat)
+// from the start pair (3e8, 312).
+//
+// A CUDA block takes kPadBy x kPadBx macroblocks and kPadThreads threads, one
+// per (macroblock, group of kPadG offset columns). It stages the window (its
+// macroblocks plus the span on each side; zero where no valid macroblock
+// reaches) as bytes, four to a word (the contract makes every pixel an
+// integer 0..255), and for the cross term the Qref plane (row sums of ref^2
+// by __dp4a, then column sums sliding down) in shared memory; each thread
+// loads its macroblock's 64 pixels into registers as 16 words (M3: as
+// float32) and sums Qcur from them. A thread then walks the 32 window rows
+// its candidates reach: it loads the four words that hold a row's 12 columns
+// once, shifts them in registers to the nine byte offsets its columns start
+// at, and they feed its 5 offset columns at each of the 8 offset rows the row
+// reaches (window row j adds cur row r = j - oy to offset row oy), kept as a
+// ring of 8 x 5 sums in registers; which offset rows exist is known at
+// compile time in each of the four 8-row chunks. Offset row oy is whole at r
+// = 7 and its five costs go into the thread's best key: cost * 625 + flat in
+// 32 bits for L0 and M2 (costs 0..64 * 255^2), pad_key for M3 and "L1", whose
+// costs can be negative. The five threads of a macroblock meet once at the
+// end, through shared memory. A __dp4a of bytes and a vabsdiff4 are exact in
+// 32 bits, and every cost is an integer below 2^24 in magnitude, exact in
+// float32 in any order. grid = (ceil(nbx / kPadBx), ceil(nby / kPadBy)).
+// tile_h changes only "L1"'s function.
 enum PadVariant { kNop = 0, kL0 = 1, kRaw = 2, kM1 = 3, kM2 = 4, kM3 = 5 };
-constexpr int kGroup = 5;  // candidates per product stage: the tool's chunk
-constexpr int kPadThreads = 256;
-static_assert(kK % kGroup == 0, "groups cover the offset row");
+constexpr int kPadBy = 4, kPadBx = 8;  // macroblocks a CUDA block
+constexpr int kPadG = 5;               // offset columns a thread
+constexpr int kPadThreads = kPadBy * kPadBx * (kK / kPadG);  // 160
+constexpr int kPadRows = kBlk + 2 * kSpan;  // window rows a macroblock reaches
+constexpr int kPadWinH = kPadBy * kBlk + 2 * kSpan;  // 56
+constexpr int kPadWinW = kPadBx * kBlk + 2 * kSpan;  // 88 bytes
+// Words a window row: 22, a zero word the last offset group's fourth load
+// reads, odd so that block rows fall on other banks.
+constexpr int kPadWs = kPadWinW / 4 + 1;
+constexpr int kPadQh = kPadWinH - kBlk + 1, kPadQw = kPadWinW - kBlk + 1;
+constexpr int kPadRq = 4 * ((kPadQw + 3) / 4);  // columns a row sum row holds
+constexpr float kMagic = 8388608.0f;  // 2^23: v + 2^23 holds v in its low bits
+static_assert(kK % kPadG == 0 && kPadWinW % 4 == 0, "the layout's shapes");
 
-__host__ __device__ constexpr bool pad_qsums(int var) { return var != kNop && var != kM2; }
-__host__ __device__ constexpr size_t pad_prod_bytes(int var) {
-  return var == kM2 || var == kM3 ? 2 : 4;
+__host__ __device__ constexpr bool pad_qsums(int var) {
+  return var == kL0 || var == kRaw || var == kM3;
 }
-
-struct PadLayout : LabLayout {
-  using LabLayout::LabLayout;
-  // Bytes: a key and a Qcur per block, window, current tile, the Qref
-  // plane, and one region that first holds the Qref column sums and then
-  // the product scratch.
-  __host__ __device__ size_t scratch_bytes(int var) const {
-    const size_t prod = kGroup * pad_prod_bytes(var) * tile_h * tw;
-    const size_t cols = sizeof(float) * q_h * win_w;
-    return var == kNop ? 0 : (pad_qsums(var) && cols > prod ? cols : prod);
-  }
-  __host__ __device__ size_t bytes(int var) const {
-    size_t b = (sizeof(unsigned long long) + sizeof(float)) * nblk +
-               sizeof(float) * (static_cast<size_t>(win_h) * win_w +
-                                static_cast<size_t>(tile_h) * tw);
-    if (pad_qsums(var)) b += sizeof(float) * q_h * q_w;
-    return b + scratch_bytes(var);
-  }
-};
-
-template <int VAR>
-using PadProd = std::conditional_t<
-    VAR == kM1, __nv_bfloat162,
-    std::conditional_t<VAR == kM2 || VAR == kM3, __nv_bfloat16, float>>;
-
-template <int VAR>
-__device__ __forceinline__ void pad_store(PadProd<VAR>* p, float c, float e) {
-  if constexpr (VAR == kM1) {
-    const float prod = c * e;  // exact: an integer <= 65025
-    const __nv_bfloat16 hi = __float2bfloat16_rn(prod);
-    *p = __halves2bfloat162(hi,
-                            __float2bfloat16_rn(prod - __bfloat162float(hi)));
-  } else if constexpr (VAR == kM2) {
-    *p = __float2bfloat16_rn(fabsf(c - e));
-  } else if constexpr (VAR == kM3) {
-    *p = __float2bfloat16_rn(c * e);
-  } else {
-    *p = c * e;
-  }
-}
-
-template <int VAR>
-__device__ __forceinline__ float pad_load(const PadProd<VAR>* p) {
-  if constexpr (VAR == kM1) {
-    return __low2float(*p) + __high2float(*p);
-  } else if constexpr (VAR == kM2 || VAR == kM3) {
-    return __bfloat162float(*p);
-  } else {
-    return *p;
-  }
+// Bytes: a key slot per thread, the window, and for the cross term the
+// Qref plane and the row sums it is built from.
+__host__ __device__ constexpr size_t pad_smem_bytes(int var) {
+  return sizeof(unsigned long long) * kPadThreads +
+         sizeof(uint32_t) *
+             (kPadWinH * kPadWs +
+              (pad_qsums(var) ? kPadQh * kPadQw + kPadWinH * kPadRq : 0));
 }
 
 // A cost (an integer in float32, possibly negative for M3 and "L1") and a
@@ -599,160 +684,279 @@ __device__ __forceinline__ unsigned long long pad_key(float cost, int flat) {
          static_cast<uint32_t>(flat);
 }
 
+// The byte of a pixel (an integer 0..255 in float32), and the float32 of
+// byte k of w.
+__device__ __forceinline__ uint32_t pixel_byte(float v) {
+  return __float_as_uint(v + kMagic) & 0xffu;
+}
+__device__ __forceinline__ float byte_float(uint32_t w, int k) {
+  return __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7650u | k)) - kMagic;
+}
+
+// acc + the SAD of the four bytes: one VABSDIFF4.U8.ACC on sm_90a.
+__device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
+                                         uint32_t acc) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(acc));
+  return d;
+}
+
+// M3's term: acc plus c * e rounded to bfloat16. An integer pixel's
+// float32 has its low 16 bits zero, so it is the bfloat16 pair (p, 0); the
+// pair FMA with -0 gives c * e rounded to bfloat16 (to nearest even) in
+// the high half and +0 in the low half, which as a float32 is that rounded
+// product.
+__device__ __forceinline__ float bf16_term(float c, float e, float acc) {
+  uint32_t p;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(p)
+      : "r"(__float_as_uint(c)), "r"(__float_as_uint(e)), "r"(0x80008000u));
+  return acc + __uint_as_float(p);
+}
+
+// The sums of an offset row: 32-bit integers of bytes (L0, M2) or float32
+// of rounded products (M3).
 template <int VAR>
-__global__ void __launch_bounds__(kPadThreads)
+using PadSum = std::conditional_t<VAR == kM3, float, uint32_t>;
+
+template <int VAR>
+__global__ void __launch_bounds__(kPadThreads, VAR == kM3 ? 3 : 4)
 lab_padded_kernel(const float* __restrict__ cur, int cur_ld,
                   const float* __restrict__ ref, int ref_ld,
                   float* __restrict__ out_cost, int32_t* __restrict__ out_idx,
-                  int out_ld, int frame_w, int tile_h, int tbx, int flip) {
-  using P = PadProd<VAR>;
+                  int out_ld, int frame_h, int frame_w, int tile_h, int flip) {
   constexpr bool kQ = pad_qsums(VAR);
   extern __shared__ unsigned long long smem[];
-  const PadLayout L(tile_h, tbx);
-  const int nbx = frame_w / kBlk;
-  const int bx0 = blockIdx.x * tbx;
-  const int ntile = min(tbx, nbx - bx0);
-  const int y0 = blockIdx.y * tile_h, x0 = bx0 * kBlk;
-  const int plane = L.tile_h * L.tw;  // products per candidate
+  unsigned long long* red = smem;                              // [kPadThreads]
+  uint32_t* win = reinterpret_cast<uint32_t*>(red + kPadThreads);  // [WinH][Ws]
+  uint32_t* qref = win + kPadWinH * kPadWs;  // [Qh][Qw]
+  uint32_t* rowsq = qref + kPadQh * kPadQw;  // [WinH][Rq]
+  const int by0 = blockIdx.y * kPadBy, bx0 = blockIdx.x * kPadBx;
+  const int nvy = min(kPadBy, frame_h / kBlk - by0);
+  const int nvx = min(kPadBx, frame_w / kBlk - bx0);
+  const int t = threadIdx.x, m = t / kPadG, g = t - m * kPadG;
+  const int R = m / kPadBx, bm = m - R * kPadBx;
+  const bool valid = R < nvy && bm < nvx;
+  const int ox0 = g * kPadG;
+  const int gy = (by0 + R) * kBlk, gx = (bx0 + bm) * kBlk;
 
-  unsigned long long* best = smem;                              // [nblk]
-  float* qcur = reinterpret_cast<float*>(best + L.nblk);        // [nblk]
-  float* win = qcur + L.nblk;                                   // [win_h*win_w]
-  float* cblk = win + L.win_h * L.win_w;                        // [tile_h*tw]
-  float* qref = cblk + plane;                                   // [q_h*q_w]
-  float* colsq = qref + (kQ ? L.q_h * L.q_w : 0);               // [q_h*win_w]
-  P* prod = reinterpret_cast<P*>(colsq);                        // [kGroup*plane]
-
-  // Stage the window and the tile. No candidate is masked: all 625 read
-  // the zero-padded reference. Columns past the frame's last macroblock of
-  // this CUDA block are zero and reach no output.
-  const int used_w = ntile * kBlk + 2 * kSpan;
+  // Stage the window as bytes. Nothing is masked: the reference is
+  // zero-padded, and what no valid macroblock reaches is zero and reaches
+  // no output.
+  if (VAR == kNop && t == 0) *reinterpret_cast<uint32_t*>(red) = 0;
+  const int used_h = nvy * kBlk + 2 * kSpan, used_w = nvx * kBlk + 2 * kSpan;
+  const float* rp = ref + static_cast<size_t>(by0) * kBlk * ref_ld + bx0 * kBlk;
   uint32_t live = 0;
-  if (VAR == kNop && threadIdx.x == 0) *reinterpret_cast<uint32_t*>(best) = 0;
-  for (int i = threadIdx.x; i < L.win_h * L.win_w; i += kPadThreads) {
-    const int r = i / L.win_w, c = i - r * L.win_w;
-    const float v = c < used_w
-                        ? ref[static_cast<size_t>(y0 + r) * ref_ld + x0 + c]
-                        : 0.0f;
-    win[i] = v;
-    live |= __float_as_uint(v);
+  for (int i = t; i < kPadWinH * kPadWs; i += kPadThreads) {
+    const int r = i / kPadWs, c0 = 4 * (i - r * kPadWs);
+    uint32_t word = 0;
+    if (r < used_h) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c0 + k < used_w)
+          word |= pixel_byte(rp[static_cast<size_t>(r) * ref_ld + c0 + k])
+                  << (8 * k);
+    }
+    win[i] = word;
+    live |= word;
   }
-  for (int i = threadIdx.x; i < plane; i += kPadThreads) {
-    const int r = i / L.tw, c = i - r * L.tw;
-    const float v = c < ntile * kBlk
-                        ? cur[static_cast<size_t>(y0 + r) * cur_ld + x0 + c]
-                        : 0.0f;
-    cblk[i] = v;
-    live |= __float_as_uint(v);
+  // The macroblock's pixels, four to a word, and (M3) as float32.
+  uint32_t cw[kBlk * kBlk / 4];
+  float cf[kBlk * kBlk];
+  float qcur = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kBlk * kBlk; ++i) {
+    const float v =
+        valid ? cur[static_cast<size_t>(gy + i / kBlk) * cur_ld + gx + i % kBlk]
+              : 0.0f;
+    cf[i] = v;
+    qcur = fmaf(v, v, qcur);
+    cw[i / 4] = (i % 4 ? cw[i / 4] : 0u) | pixel_byte(v) << (8 * (i % 4));
   }
   __syncthreads();
 
   if constexpr (VAR == kNop) {
     // The start pair only. Every staged value reaches the cost through
     // (live & flip), flip being 0, so the staging is not dead code.
+#pragma unroll
+    for (int i = 0; i < kBlk * kBlk / 4; ++i) live |= cw[i];
     live = __reduce_or_sync(0xffffffffu, live);
-    if ((threadIdx.x & 31) == 0)
-      atomicOr(reinterpret_cast<uint32_t*>(best), live);
+    if ((t & 31) == 0) atomicOr(reinterpret_cast<uint32_t*>(red), live);
     __syncthreads();
-    const uint32_t all = *reinterpret_cast<uint32_t*>(best) &
-                         static_cast<uint32_t>(flip);
-    for (int m = threadIdx.x; m < L.nblk; m += kPadThreads) {
-      const int R = m / tbx, bm = m - R * tbx;
-      if (bm >= ntile) continue;
-      const size_t o = static_cast<size_t>(blockIdx.y * (tile_h / kBlk) + R) *
-                           out_ld + bx0 + bm;
-      out_cost[o] = __uint_as_float(__float_as_uint(static_cast<float>(kBig)) ^ all);
+    const uint32_t all =
+        *reinterpret_cast<uint32_t*>(red) & static_cast<uint32_t>(flip);
+    if (valid && g == 0) {
+      const size_t o = static_cast<size_t>(by0 + R) * out_ld + bx0 + bm;
+      out_cost[o] =
+          __uint_as_float(__float_as_uint(static_cast<float>(kBig)) ^ all);
       out_idx[o] = kSpan * kK + kSpan;
     }
-    return;
   } else {
     if constexpr (kQ) {
-      for (int m = threadIdx.x; m < L.nblk; m += kPadThreads) {
-        const int R = m / tbx, bm = m - R * tbx;
-        float s = 0.0f;
-        for (int r = 0; r < kBlk; ++r)
-          for (int k = 0; k < kBlk; ++k) {
-            const float v = cblk[(R * kBlk + r) * L.tw + bm * kBlk + k];
-            s = fmaf(v, v, s);
-          }
-        qcur[m] = s;
-      }
-      for (int i = threadIdx.x; i < L.q_h * L.win_w; i += kPadThreads) {
-        const int r = i / L.win_w, c = i - r * L.win_w;
-        float s = 0.0f;
+      // Qref[y][x] = sum over the 8x8 box at window (y, x) of ref^2. Row
+      // sums first, four columns an item: rowsq[y][x] = sum_{b<8}
+      // ref(y, x + b)^2, a __dp4a of each byte word with itself.
+      for (int i = t; i < kPadWinH * (kPadRq / 4); i += kPadThreads) {
+        const int y = i / (kPadRq / 4), x4 = i - y * (kPadRq / 4);
+        const uint32_t* wp = win + y * kPadWs + x4;
+        const uint32_t w[3] = {wp[0], wp[1], wp[2]};
+        uint32_t e[8];  // e[o]: bytes 4 * x4 + o .. + 3
 #pragma unroll
-        for (int a = 0; a < kBlk; ++a) {
-          const float v = win[(r + a) * L.win_w + c];
-          s = fmaf(v, v, s);
-        }
-        colsq[i] = s;
+        for (int o = 0; o < 8; ++o)
+          e[o] = o % 4 ? __funnelshift_r(w[o / 4], w[o / 4 + 1], 8 * (o % 4))
+                       : w[o / 4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          rowsq[y * kPadRq + 4 * x4 + q] =
+              __dp4a(e[q], e[q], __dp4a(e[q + 4], e[q + 4], 0u));
       }
       __syncthreads();
-      for (int i = threadIdx.x; i < L.q_h * L.q_w; i += kPadThreads) {
-        const int r = i / L.q_w, c = i - r * L.q_w;
-        float s = 0.0f;
+      // Then the sums of 8 rows, sliding down half a column an item.
+      constexpr int kHalf = (kPadQh + 1) / 2;
+      for (int i = t; i < 2 * kPadQw; i += kPadThreads) {
+        const int x = i % kPadQw, y0 = i / kPadQw * kHalf;
+        const int y1 = min(kPadQh, y0 + kHalf);
+        uint32_t s = 0;
 #pragma unroll
-        for (int b = 0; b < kBlk; ++b) s += colsq[r * L.win_w + c + b];
-        qref[i] = s;
+        for (int a = 0; a < kBlk; ++a) s += rowsq[(y0 + a) * kPadRq + x];
+        qref[y0 * kPadQw + x] = s;
+        for (int y = y0 + 1; y < y1; ++y) {
+          s += rowsq[(y + kBlk - 1) * kPadRq + x] - rowsq[(y - 1) * kPadRq + x];
+          qref[y * kPadQw + x] = s;
+        }
       }
+      __syncthreads();
     }
     // The tool's start pair (3e8, centre): no cost reaches 3e8.
-    for (int m = threadIdx.x; m < L.nblk; m += kPadThreads)
-      best[m] = pad_key(static_cast<float>(kBig), kSpan * kK + kSpan);
-    __syncthreads();  // also: the column sums are read before reuse
-
-    // Product stage mapping: a thread keeps one column and every rstep-th
-    // row, so the stage's addresses need no division.
-    const int rstep = kPadThreads / L.tw;
-    const int pc = threadIdx.x % L.tw, pr = threadIdx.x / L.tw;
-    for (int oy = 0; oy < kK; ++oy) {
-      for (int ox0 = 0; ox0 < kK; ox0 += kGroup) {
-        // Product stage: every pixel of the tile against each candidate.
-        if (pr < rstep) {
+    unsigned long long best =
+        pad_key(static_cast<float>(kBig), kSpan * kK + kSpan);
+    if (valid) {
+      const uint32_t* qrow = qref + R * kBlk * kPadQw + bm * kBlk + ox0;
+      if constexpr (VAR == kRaw) {
+        // X one product, costs possibly negative: keys as pad_key.
+        const int rg = by0 + R, nbr = tile_h / kBlk;
+        const int py = rg / nbr * tile_h + rg % nbr;
+        const float c0 = cur[static_cast<size_t>(py) * cur_ld + gx];
+        const float* e = ref + static_cast<size_t>(py) * ref_ld + gx + ox0;
+        for (int oy = 0; oy < kK; ++oy) {
 #pragma unroll
-          for (int t = 0; t < kGroup; ++t) {
-            const float* e = win + oy * L.win_w + pc + ox0 + t;
-            for (int r = pr; r < L.tile_h; r += rstep)
-              pad_store<VAR>(prod + t * plane + r * L.tw + pc,
-                             cblk[r * L.tw + pc], e[r * L.win_w]);
+          for (int q = 0; q < kPadG; ++q) {
+            const float x = c0 * e[static_cast<size_t>(oy) * ref_ld + q];
+            const float cost =
+                (qcur - x) + (static_cast<float>(qrow[oy * kPadQw + q]) - x);
+            const unsigned long long key = pad_key(cost, oy * kK + ox0 + q);
+            best = key < best ? key : best;
           }
         }
-        __syncthreads();
-        // Compaction stage: per (candidate, block), from the scratch.
-        for (int i = threadIdx.x; i < kGroup * L.nblk; i += kPadThreads) {
-          const int t = i / L.nblk, m = i - t * L.nblk;
-          const int R = m / tbx, bm = m - R * tbx;
-          if (bm >= ntile) continue;
-          const P* p = prod + t * plane + bm * kBlk;
-          float x;
-          if constexpr (VAR == kRaw) {
-            x = pad_load<VAR>(p + R * L.tw);  // the stripe's row R, not 8R
-          } else {
-            x = 0.0f;
+      } else {
+        // L0 and M2 keep the least cost * 625 + flat in 32 bits (their
+        // costs are integers 0 <= cost <= 64 * 255^2, the key below 2^32);
+        // M3, whose costs can be negative, keeps pad_key's.
+        uint32_t best32 = 0xffffffffu;
+        const uint32_t qc = static_cast<uint32_t>(qcur);  // exact
+        // The five costs of offset row oy from their sums into the key.
+        auto finish = [&](int oy, const PadSum<VAR>(&x)[kPadG]) {
 #pragma unroll
-            for (int a = 0; a < kBlk; ++a)
-#pragma unroll
-              for (int b = 0; b < kBlk; ++b)
-                x += pad_load<VAR>(p + (R * kBlk + a) * L.tw + b);
+          for (int q = 0; q < kPadG; ++q) {
+            const int flat = oy * kK + ox0 + q;
+            if constexpr (VAR == kM3) {
+              const float cost =
+                  (qcur - x[q]) +
+                  (static_cast<float>(qrow[oy * kPadQw + q]) - x[q]);
+              const unsigned long long key = pad_key(cost, flat);
+              best = key < best ? key : best;
+            } else {
+              const uint32_t cost =
+                  VAR == kM2 ? x[q] : qc + qrow[oy * kPadQw + q] - 2 * x[q];
+              best32 = min(best32, cost * (kK * kK) + flat);
+            }
           }
-          const int ox = ox0 + t;
-          float cost = x;
-          if constexpr (kQ)
-            cost = (qcur[m] - x) +
-                   (qref[(R * kBlk + oy) * L.q_w + bm * kBlk + ox] - x);
-          atomicMin(best + m, pad_key(cost, oy * kK + ox));
+        };
+        // The thread's 12 columns start at byte 8 * bm + ox0 of a window
+        // row: word 2 * bm + ox0 / 4, byte ox0 % 4 of it.
+        const uint32_t* wrow = win + R * kBlk * kPadWs + 2 * bm + ox0 / 4;
+        const int shift = 8 * (ox0 & 3);
+        PadSum<VAR> acc[kBlk][kPadG] = {};  // offset row oy's in slot oy % 8
+        // Window rows j0..j0 + 7: cur row r adds to offset row j - r, which
+        // exists for r <= j in the first eight rows (phase 0) and for
+        // j - r <= 24 in the last eight (phase 2), so the tests fold away.
+        auto rows8 = [&](auto phase, int j0) {
+          constexpr int kPhase = decltype(phase)::value;
+#pragma unroll
+          for (int jj = 0; jj < kBlk; ++jj) {
+            const int j = j0 + jj;  // window row, relative to the macroblock
+            uint32_t w[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) w[i] = wrow[j * kPadWs + i];
+            uint32_t e[kPadG + 4];  // e[o]: the columns' bytes o..o+3
+#pragma unroll
+            for (int i = 0; i < 3; ++i)
+              e[4 * i] = __funnelshift_r(w[i], w[i + 1], shift);
+#pragma unroll
+            for (int o = 1; o < kPadG + 4; ++o)
+              if (o % 4)
+                e[o] = __funnelshift_r(e[o & ~3], e[(o & ~3) + 4], 8 * (o % 4));
+            float ef[kPadG + kBlk - 1];  // M3: the 12 columns as float32
+            if constexpr (VAR == kM3) {
+#pragma unroll
+              for (int i = 0; i < kPadG + kBlk - 1; ++i)
+                ef[i] = byte_float(e[i & ~3], i % 4);
+            }
+#pragma unroll
+            for (int r = 0; r < kBlk; ++r) {
+              if ((kPhase == 0 && r > jj) || (kPhase == 2 && r < jj)) continue;
+              PadSum<VAR>(&a)[kPadG] = acc[(jj - r) & (kBlk - 1)];
+#pragma unroll
+              for (int q = 0; q < kPadG; ++q) {
+                PadSum<VAR> v = r == 0 ? PadSum<VAR>(0) : a[q];
+                if constexpr (VAR == kM3) {
+#pragma unroll
+                  for (int k = 0; k < kBlk; ++k)
+                    v = bf16_term(cf[r * kBlk + k], ef[q + k], v);
+                } else if constexpr (VAR == kM2) {
+                  v = sad4(cw[2 * r], e[q], v);
+                  v = sad4(cw[2 * r + 1], e[q + 4], v);
+                } else {
+                  v = __dp4a(cw[2 * r], e[q], v);
+                  v = __dp4a(cw[2 * r + 1], e[q + 4], v);
+                }
+                a[q] = v;
+              }
+              if (r == kBlk - 1) finish(j - r, a);
+            }
+          }
+        };
+        static_assert(kPadRows == 4 * kBlk, "phases 0, 1, 1, 2");
+        rows8(std::integral_constant<int, 0>(), 0);
+#pragma unroll 1
+        for (int j0 = kBlk; j0 < kPadRows - kBlk; j0 += kBlk)
+          rows8(std::integral_constant<int, 1>(), j0);
+        rows8(std::integral_constant<int, 2>(), kPadRows - kBlk);
+        if constexpr (VAR != kM3) {
+          const unsigned long long key = pad_key(
+              static_cast<float>(best32 / (kK * kK)), best32 % (kK * kK));
+          best = key < best ? key : best;
         }
-        __syncthreads();
       }
     }
-    for (int m = threadIdx.x; m < L.nblk; m += kPadThreads) {
-      const int R = m / tbx, bm = m - R * tbx;
-      if (bm >= ntile) continue;
-      const size_t o = static_cast<size_t>(blockIdx.y * (tile_h / kBlk) + R) *
-                           out_ld + bx0 + bm;
-      out_cost[o] = static_cast<float>(static_cast<int32_t>(
-          static_cast<uint32_t>(best[m] >> 32) ^ 0x80000000u));
-      out_idx[o] = static_cast<int32_t>(best[m] & 0xffffffffu);
+    red[t] = best;
+    __syncthreads();
+    if (t < kPadBy * kPadBx) {
+      const int R2 = t / kPadBx, b2 = t - R2 * kPadBx;
+      if (R2 < nvy && b2 < nvx) {
+        unsigned long long k = red[t * kPadG];
+#pragma unroll
+        for (int i = 1; i < kPadG; ++i) {
+          const unsigned long long v = red[t * kPadG + i];
+          k = v < k ? v : k;
+        }
+        const size_t o = static_cast<size_t>(by0 + R2) * out_ld + bx0 + b2;
+        out_cost[o] = static_cast<float>(
+            static_cast<int32_t>(static_cast<uint32_t>(k >> 32) ^ 0x80000000u));
+        out_idx[o] = static_cast<int32_t>(k & 0xffffffffu);
+      }
     }
   }
 }
@@ -764,18 +968,36 @@ int launch_padded(const void* cur, const void* ref, void* out_cost,
   if (!lab_shape_ok(tile_h, frame_h, frame_w))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = lab_padded_kernel<VAR>;
-  const int nbx = frame_w / kBlk;
-  int tbx = nbx < 4 ? nbx : 4;  // 32 pixels of macroblocks per CUDA block
-  while (!reserve_smem(kernel, PadLayout(tile_h, tbx).bytes(VAR)) && tbx > 1)
-    tbx /= 2;
-  const size_t smem = PadLayout(tile_h, tbx).bytes(VAR);
+  const size_t smem = pad_smem_bytes(VAR);
   if (!reserve_smem(kernel, smem)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((nbx + tbx - 1) / tbx, frame_h / tile_h);
+  const dim3 grid((frame_w / kBlk + kPadBx - 1) / kPadBx,
+                  (frame_h / kBlk + kPadBy - 1) / kPadBy);
   kernel<<<grid, kPadThreads, smem, stream>>>(
       static_cast<const float*>(cur), cur_ld, static_cast<const float*>(ref),
       ref_ld, static_cast<float*>(out_cost), static_cast<int32_t*>(out_idx),
-      out_ld, frame_w, tile_h, tbx, 0);
+      out_ld, frame_h, frame_w, tile_h, 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A kernel's resources on the current card into out[0..4]: registers and
+// local (spill) bytes per thread, threads a CUDA block, dynamic shared
+// bytes, CUDA blocks resident per SM.
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
+  if (!reserve_smem(kernel, smem)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = threads;
+  out[3] = static_cast<int>(smem);
+  out[4] = blocks;
+  return 0;
 }
 
 }  // namespace
@@ -790,9 +1012,11 @@ extern "C" int me_lab_peak(const void* a, void* out, int rows, int cols,
   float* op = static_cast<float*>(out);
   if (rows <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (mix == 2) {
-    if (cols % 32 || cols > 1024) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = sizeof(float) * 2 * 4 * (cols / 32);
-    peak_roll_kernel<<<rows, cols, smem, s>>>(ap, op, cols, inner, outer, 0);
+    const size_t smem = roll_smem(cols, inner);
+    const int kc = roll_columns(rows, cols);
+    if (kc == 0) return static_cast<int>(cudaErrorInvalidValue);
+    roll_kernel(kc, inner)<<<rows, cols / kc, smem, s>>>(ap, op, cols, inner,
+                                                         outer, 0);
     return static_cast<int>(cudaGetLastError());
   }
   const int n = rows * cols;
@@ -863,7 +1087,9 @@ extern "C" int me_lab_padded(const void* cur, const void* ref, void* out_cost,
     ME_PADDED(kNop)
     ME_PADDED(kL0)
     ME_PADDED(kRaw)
-    ME_PADDED(kM1)
+    case kM1:  // the same function as L0: L0's instance
+      return launch_padded<kL0>(cur, ref, out_cost, out_idx, cur_ld, ref_ld,
+                                out_ld, frame_h, frame_w, tile_h, s);
     ME_PADDED(kM2)
     ME_PADDED(kM3)
   }
@@ -915,3 +1141,30 @@ extern "C" int me_lab_p7(const void* cur, const void* ref, void* out_key,
   return sad ? ME_KEY(2, 0, true) : ME_KEY(1, 0, true);
 }
 #undef ME_KEY
+
+// The resources of an instance into out[0..4]: registers and local (spill)
+// bytes per thread, threads a CUDA block, dynamic shared bytes, CUDA blocks
+// resident per SM. kind: 0-5 the me_lab_padded variant of that code; 6 and
+// 7 the roll mix's instances of 8 and 16 columns a thread for a row of
+// `cols` columns at `inner`. Returns a cudaError_t.
+extern "C" int me_lab_occupancy(int kind, int cols, int inner, int* out) {
+#define ME_PADDED_OCC(V) \
+  occupancy(lab_padded_kernel<V>, kPadThreads, pad_smem_bytes(V), out)
+  switch (kind) {
+    case kNop: return ME_PADDED_OCC(kNop);
+    case kL0:
+    case kM1: return ME_PADDED_OCC(kL0);
+    case kRaw: return ME_PADDED_OCC(kRaw);
+    case kM2: return ME_PADDED_OCC(kM2);
+    case kM3: return ME_PADDED_OCC(kM3);
+    case 6:
+    case 7: {
+      const int kc = kind == 6 ? 8 : 16;
+      if (roll_cols_ok(cols))
+        return occupancy(roll_kernel(kc, inner), cols / kc,
+                         roll_smem(cols, inner), out);
+    }
+  }
+#undef ME_PADDED_OCC
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -6,7 +6,8 @@ The PyTorch counterparts of the Pallas kernels of the JAX repo's
 
 * `lab_peak` launches `me_lab_peak` (P1), the port of `make_kernel`
   (vpu_peak.py:44): four accumulator streams per element under the fma,
-  mix or roll instruction mix.
+  mix or roll instruction mix (roll: a row a CUDA block, neighbouring
+  columns a thread, their halo recomputed, no barrier a step).
 * `lab_chain` launches `me_lab_chain` (P2), the port of `run_chain`'s kernel
   (vpu_peak.py:99): the phase kernel's difference chain and dy minimum in
   isolation.
@@ -17,8 +18,9 @@ The PyTorch counterparts of the Pallas kernels of the JAX repo's
   (kern_lab.py:657): SSD by the diff form, or SAD, as the packed int32 key
   cost * 625 + flat - 2^31 (wrapping), INT32_MAX where invalid.
 * `lab_padded` launches `me_lab_padded` (L1), the port of `make_kernel`
-  (kern_lab.py:74): the unmasked search over the zero-padded reference
-  through a product scratch, variants "NOP", "L0", "L1", "M1", "M2", "M3".
+  (kern_lab.py:74): the unmasked search over the zero-padded reference,
+  variants "NOP", "L0", "L1", "M1", "M2", "M3", each (macroblock, offset)
+  cost summed in registers (no product scratch).
 * `lab_p3` launches `me_lab_p3` (L3), the port of `make_p3_kernel`
   (kern_lab.py:504): L4's key by the cross term (Qcur + Qref) - 2X, or
   SAD, and the `nochain` / `nofold` ablations.
@@ -81,6 +83,7 @@ _SIGNATURES = {
     "me_lab_p5": [_PTR] * 3 + [_INT] * 8 + [_PTR],
     "me_lab_p6": [_PTR] * 3 + [_INT] * 7 + [_PTR],
     "me_lab_p7": [_PTR] * 3 + [_INT] * 7 + [_PTR],
+    "me_lab_occupancy": [_INT] * 3 + [_PTR],
 }
 
 
@@ -454,6 +457,33 @@ def lab_padded(cur, ref_p, *, tile_h: int, variant: str):
 
 
 lab_padded.launches = 0
+
+
+# The roll mix's instances, by columns a thread: 8, or 16 where a launch
+# has at least two rows an SM.
+ROLL_INSTANCES = {"roll 8": 6, "roll 16": 7}
+
+
+def lab_occupancy(kernel: str, *, cols: int = 1024,
+                  inner: int = 64) -> dict:
+    """The resources on the current card of the instance that `lab_padded`
+    launches for variant `kernel` ("NOP", "L0", "L1", "M1", "M2", "M3"), or
+    of the roll mix's instance `kernel` ("roll 8", "roll 16") on rows of
+    `cols` columns at `inner`: registers and local (spill) bytes per
+    thread, threads and dynamic shared bytes per CUDA block, CUDA blocks
+    and warps resident per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a card."""
+    if kernel not in ROLL_INSTANCES:
+        check_padded_variant(kernel)
+    code = ROLL_INSTANCES.get(kernel, PADDED_VARIANTS.get(kernel))
+    out = (ctypes.c_int * 5)()
+    err = _lib().me_lab_occupancy(code, cols, inner, out)
+    if err != 0:
+        raise RuntimeError(f"me_lab_occupancy failed with CUDA error {err}")
+    regs, local, threads, smem, blocks = out
+    return dict(registers=regs, local_bytes=local, threads=threads,
+                smem_bytes=smem, blocks_per_sm=blocks,
+                warps_per_sm=blocks * -(-threads // 32))
 
 
 # -- L3, L5, L6, L7 ------------------------------------------------------------

@@ -6,7 +6,7 @@ the reference zero-padded by the span), timed per variant:
 
   NOP  - the start pair (3e8, 312) only, after staging (L1)
   L0   - exact SSD (Qcur - X) + (Qref - X) over all 625 offsets of the
-         zero-padded reference, unmasked, through a product scratch (L1)
+         zero-padded reference, unmasked (L1)
   L1   - L0 without the block sum: X is the raw product at the stripe's
          pixel row R (a deliberate ablation) (L1)
   M1   - L0 with each product split into bfloat16 hi and lo parts (exact)
@@ -27,12 +27,15 @@ the reference zero-padded by the span), timed per variant:
   P7   - the diff form over bfloat16 planes as L4's key (L7); "S" in the
          name: SAD (P7S)
 
-Variant spec: NAME[:tile_h[:chunk]], tile_h the pixel rows one CUDA block
-covers (the TPU stripe height; default 128): a multiple of 8 dividing H.
-chunk (default 5) schedules only the TPU's L1 kernel and changes no result;
-it is accepted and must be positive for L1's variants, and is otherwise
-unused. Names route as the JAX tool's `main` routes them; an unknown name
-that reaches L1 prints FAILED with ValueError, as the JAX tool does.
+Variant spec: NAME[:tile_h[:chunk]], tile_h the TPU stripe height
+(default 128): a multiple of 8 dividing H; for L2-L7 the pixel rows one
+CUDA block covers, for L1 only the "L1" ablation's stripe (its CUDA blocks
+take 32 x 64 pixels whatever tile_h is). chunk (default 5) schedules only
+the TPU's L1 kernel (its product scratch, which the card's kernel does not
+have) and changes no result or kernel; it is accepted and must be
+positive for L1's variants, and is otherwise unused. Names route as the
+JAX tool's `main` routes them; an unknown name that reaches L1 prints
+FAILED with ValueError, as the JAX tool does.
 
 Usage: python -m motionestimation_tpu_torch.tools.kern_lab NOP L0 P3:64 P6B
 

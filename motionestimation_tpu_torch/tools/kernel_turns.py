@@ -19,8 +19,12 @@ from a profiled pass, and a digest of the result, so that two checkouts'
 runs can be seen to agree. Each cell of REPLAY_GROUPS (a staged level of
 `bench/matrix`'s diamond rows, on its content) does the same for
 `me_diamond_replay` through `kernels/diamond_cuda.replay_cuda` over the
-level's volume. --group times only the cells with those labels (e.g. "4K
-7x7 +-15 sad", "lazy 4K 8x8 +-31 mse", "replay worstcase-4k level 31").
+level's volume. Each cell of LAB_GROUPS (the speed-of-light tools' L1 and
+P1 on their tools' inputs, `kern_lab.make_inputs` and `vpu_peak.peak_input`)
+times its entries through `kernels/lab_cuda.lab_padded` or `lab_peak` in
+turns, as GROUPS does, with a digest of each entry's output. --group times
+only the cells with those labels (e.g. "4K 7x7 +-15 sad", "lazy 4K 8x8
++-31 mse", "replay worstcase-4k level 31", "lab L1 2048x2048 tile_h 128").
 `chip_smoke.py` times its in-turns groups with `time_group`; the tool uses
 only the public wrappers of `kernels/full_search_cuda.py` (MSE, SAD),
 `kernels/ssim_cuda.py` (SSIM) and `kernels/diamond_cuda.py` (the walk and
@@ -45,8 +49,10 @@ from motionestimation_tpu_torch.bench import matrix, measure
 from motionestimation_tpu_torch.core.device import resolve_device
 from motionestimation_tpu_torch.kernels import diamond_cuda as dc
 from motionestimation_tpu_torch.kernels import full_search_cuda as kc
+from motionestimation_tpu_torch.kernels import lab_cuda as lab
 from motionestimation_tpu_torch.kernels import ssim_cuda as sc
 from motionestimation_tpu_torch.search import diamond
+from motionestimation_tpu_torch.tools import kern_lab, vpu_peak
 
 LAUNCHES = 20
 # (label, height, width, blk, span, entries); an entry is (name, wrapper,
@@ -213,6 +219,50 @@ def time_replay(content, blk, span, r, metric, seed=0, device=None):
     return runs, device_ms(call, "replay_kernel", dev), digest
 
 
+# The speed-of-light tools' L1 variants at the lab's 2048x2048 8x8 +-12
+# (`kern_lab.make_inputs(seed)`) and P1's mixes on the tool's input
+# (`vpu_peak.peak_input`, INNER 64, OUTER 4096): (label, tool, entries);
+# an entry is an L1 variant at that label's tile_h or a P1 mix at its rows.
+LAB_GROUPS = [
+    ("lab L1 2048x2048 tile_h 128", "kern_lab 128",
+     ["NOP", "L0", "L1", "M1", "M2", "M3"]),
+    ("lab L1 2048x2048 tile_h 64", "kern_lab 64",
+     ["NOP", "L0", "L1", "M1", "M2", "M3"]),
+    ("lab P1 64x1024", "vpu_peak 64", ["fma", "mix", "roll"]),
+    ("lab P1 512x1024", "vpu_peak 512", ["fma", "mix", "roll"]),
+]
+
+
+def time_lab(tool, entries, seed=0, device=None):
+    """({entry: [ms, ms]}, {entry: digest}) of a LAB_GROUPS cell: each
+    entry once (its output's digest), then LAUNCHES launches each between
+    CUDA events behind a sleep, in turns."""
+    dev = resolve_device(device)
+    name, size = tool.split()
+    if name == "kern_lab":
+        cur, ref_p = (torch.from_numpy(x).to(dev)
+                      for x in kern_lab.make_inputs(seed))
+        fns = {v: functools.partial(lab.lab_padded, cur, ref_p,
+                                    tile_h=int(size), variant=v)
+               for v in entries}
+    else:
+        a = vpu_peak.peak_input(int(size)).to(dev)
+        fns = {m: functools.partial(lab.lab_peak, a, mix=m,
+                                    inner=vpu_peak.INNER,
+                                    outer=vpu_peak.OUTER)
+               for m in entries}
+    digests = {}
+    for entry, fn in fns.items():
+        out = fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        digests[entry] = hashlib.sha1(b"".join(
+            t.cpu().numpy().tobytes() for t in outs)).hexdigest()[:12]
+    times = {entry: [] for entry in fns}
+    for entry in [*fns, *reversed(fns)]:
+        times[entry].append(cuda_ms(fns[entry], LAUNCHES))
+    return times, digests
+
+
 def device_ms(call, kernel, device, n=LAUNCHES, tries=3):
     """Mean device time per launch of the kernel whose name holds `kernel`,
     from a profiled pass of n calls of `call`. The profiler can lose every
@@ -325,14 +375,17 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--group", nargs="+", metavar="LABEL",
                    help="time only these cells of GROUPS, SLAB_GROUPS, "
-                   "WALK_GROUPS and REPLAY_GROUPS (default: all)")
+                   "WALK_GROUPS, REPLAY_GROUPS and LAB_GROUPS (default: "
+                   "all)")
     args = p.parse_args(argv)
     if args.group is None:
         groups, walks, replays = select(), WALK_GROUPS, REPLAY_GROUPS
+        labs = LAB_GROUPS
     else:
         walks = [g for g in WALK_GROUPS if g[0] in args.group]
         replays = [g for g in REPLAY_GROUPS if g[0] in args.group]
-        taken = {g[0] for g in walks + replays}
+        labs = [g for g in LAB_GROUPS if g[0] in args.group]
+        taken = {g[0] for g in walks + replays + labs}
         rest = [g for g in args.group if g not in taken]
         groups = select(rest) if rest else []
     dev = resolve_device()
@@ -358,6 +411,11 @@ def main(argv=None) -> int:
               f"time, profiled mean of {LAUNCHES}); replay_cuda call "
               f"{statistics.mean(runs):.4f} ms (runs "
               f"{[round(t, 4) for t in runs]}); result {digest}")
+    for label, tool, entries in labs:
+        times, digests = time_lab(tool, entries, args.seed, dev)
+        for entry, ts in times.items():
+            print(f"{label}: {entry} {statistics.mean(ts):.4f} ms (runs "
+                  f"{[round(t, 4) for t in ts]}); result {digests[entry]}")
     return 0
 
 

@@ -13,7 +13,9 @@ count is the instructions each lane issues per candidate. With --against,
 a library built from another checkout (its kernels/build/lib<SOURCE>-*.so),
 it prints instead, for each kernel the two share, whether their instruction
 lists are identical, and the kernels only one of them has; it exits 1 if a
-shared kernel differs. Needs the toolkit (the card's machine), not a card.
+shared kernel differs. Kernels in an anonymous namespace (csrc/lab.cu's)
+are matched by name without the namespace's per-build hash. Needs the
+toolkit (the card's machine), not a card.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from motionestimation_tpu_torch.kernels import _build
 _FUNCTION = re.compile(r"\s*Function : (\S+)")
 _INSTRUCTION = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _TARGET = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
+_ANONYMOUS = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
 
 
 def functions(sass: str) -> dict[str, list[tuple[int, str]]]:
@@ -73,7 +76,10 @@ def loops(instructions: list[tuple[int, str]]):
 
 def same_code(ours: dict, theirs: dict) -> dict[str, bool | None]:
     """{kernel: True if its instructions equal the other build's, False if
-    not, None if only one build has it} over two `functions` dumps."""
+    not, None if only one build has it} over two `functions` dumps; a name
+    in an anonymous namespace is taken without its per-build hash."""
+    ours, theirs = ({_ANONYMOUS.sub("_GLOBAL__N__", k): v
+                     for k, v in d.items()} for d in (ours, theirs))
     out = {}
     for name in sorted(set(ours) | set(theirs)):
         if name in ours and name in theirs:
@@ -106,8 +112,7 @@ def main(argv=None) -> int:
         result = same_code(found, functions(disassemble(args.against)))
         for name, same in result.items():
             print(f"{name}: " + {True: "identical", False: "DIFFERS",
-                                 None: "in one build only"}[same] +
-                  (f" ({len(found[name])} instructions)" if same else ""))
+                                 None: "in one build only"}[same])
         n_same = sum(v is True for v in result.values())
         print(f"{args.source}: {n_same} of "
               f"{sum(v is not None for v in result.values())} shared kernels "

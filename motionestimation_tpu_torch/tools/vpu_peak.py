@@ -7,17 +7,21 @@ CUDA cores' FP32 lanes, not the tensor cores' headline. Mixes:
 
   fma   - s = fmaf(a, s, 1) chains (one FMA = one elem-op)
   mix   - d = s - a; s = fmaf(d, d, s) (the full-search term mix)
-  roll  - s[c] + s[(c + 1) % cols] (the sliding-sum mix: a warp shuffle
-          plus a hand-off between warps through shared memory)
+  roll  - s[c] + s[(c + 1) % cols] (the sliding-sum mix: neighbouring
+          columns in a thread's registers and a halo of INNER / 8 columns
+          recomputed; the threads of a row exchange once per iteration)
   chain - the phase kernel's inner loop in isolation: per dy, 8 terms
           d = c - e; acc += d*d, then the minimum over 25 dy (P2)
 
 Usage: python -m motionestimation_tpu_torch.tools.vpu_peak [fma mix roll chain]
 
-Prints T elem-ops/s for each mix, counting ops as the JAX tool does. Each
-time is taken with CUDA events around CHAIN back-to-back launches on one
-stream (the median of `reps` such runs, after one warm-up call that also
-builds the kernels), never with a host clock. The module constants are the
+Prints T elem-ops/s for each mix, counting ops as the JAX tool does (for
+roll also the adds the card executes, `roll_adds`: the JAX tool counts a
+roll + add pair as two elem-ops, and a thread that rolls in registers
+executes only the add). Each time is taken with CUDA events around CHAIN
+back-to-back launches on one stream (the median of `reps` such runs,
+after one warm-up call that also builds the kernels), never with a host
+clock. The module constants are the
 JAX tool's; `rows` (of `measure`) and `ch_w` (of `measure_chain`) can be
 raised to fill the card.
 """
@@ -84,6 +88,15 @@ def peak_ops(rows: int = ROWS) -> int:
     return rows * COLS * INNER * OUTER
 
 
+def roll_adds(rows: int = ROWS, cols: int = COLS, inner: int = INNER,
+              outer: int = OUTER) -> int:
+    """Adds one roll call executes: each of the four streams adds its
+    right neighbour at every element, INNER // 8 times an iteration (the
+    JAX tool's loop, vpu_peak.py:61-63); the rolls themselves move data
+    and add nothing. Half of `peak_ops` at INNER 64."""
+    return rows * cols * 4 * (inner // 8) * outer
+
+
 def chain_ops(ch_w: int = CH_W) -> int:
     """Elem-ops of one P2 call: sub + FMA per term."""
     return 2 * CH_K * CH_BLK * CH_G * ch_w * lab.CHAIN_REPS
@@ -140,7 +153,9 @@ def main(argv=None) -> int:
     print(f"# {torch.cuda.get_device_name(resolve_device())}")
     for mix in mixes:
         t = measure_chain() if mix == "chain" else measure(mix)
-        print(f"{mix:5s} {t:7.3f} T elem-ops/s")
+        extra = (f" ({t * roll_adds() / peak_ops():.3f} T adds/s executed)"
+                 if mix == "roll" else "")
+        print(f"{mix:5s} {t:7.3f} T elem-ops/s{extra}")
     return 0
 
 

@@ -15,6 +15,8 @@ version):
 * P1 per mix, within 1e-5 relative (the two sides round multiply and add
   in their own places), on inputs where one step fewer of any chain moves
   the result far past that tolerance;
+* `vpu_peak.roll_adds`, the adds the roll mix executes, against a count of
+  the adds of the JAX tool's roll loop run on numpy;
 * the port's kern_lab CLI prints a FAILED line for an unknown variant.
 
 Tests whose names end in `_cuda` hold each CUDA kernel against its plain
@@ -204,6 +206,43 @@ def test_peak_check_sees_one_step(jax_peak, mix):
         assert _peak_rel(short.numpy(), want) > 10 * tvp.CHECK_TOL[mix]
 
 
+def test_roll_adds_counts_the_jax_loop():
+    """The JAX tool's roll kernel body run on numpy (its `pltpu.roll` a
+    counting np.roll, `lax.fori_loop` a Python loop): the adds that take a
+    rolled operand number `vpu_peak.roll_adds` at the tool's INNER and
+    other shapes, half the JAX tool's own count (`peak_ops`), and the
+    result is the plain version's."""
+    import types
+
+    class Rolled(np.ndarray):
+        adds = 0
+
+        def __radd__(self, other):
+            Rolled.adds += self.size
+            return np.add(other, self.view(np.ndarray))
+
+    for rows, cols, inner, outer in ((4, 128, tvp.INNER, 3), (2, 32, 24, 2)):
+        mod = _load_tool("vpu_peak", ROWS=rows, COLS=cols, INNER=inner,
+                         OUTER=outer)
+        mod.pltpu = types.SimpleNamespace(
+            roll=lambda x, shift, axis: np.roll(x, shift, axis).view(Rolled))
+
+        def fori_loop(lo, hi, body, carry):
+            for i in range(lo, hi):
+                carry = body(i, carry)
+            return carry
+
+        mod.lax = types.SimpleNamespace(fori_loop=fori_loop)
+        a = tvp.check_input("roll", rows, cols).numpy()
+        out, scratch = np.zeros_like(a), np.zeros_like(a)
+        Rolled.adds = 0
+        mod.make_kernel("roll")(a, out, scratch)
+        assert Rolled.adds == tvp.roll_adds(rows, cols, inner, outer)
+        np.testing.assert_array_equal(out, lab.peak_plain(
+            torch.from_numpy(a), "roll", inner=inner, outer=outer).numpy())
+    assert tvp.peak_ops() == 2 * tvp.roll_adds()
+
+
 def test_kern_lab_cli_reports_unported_variants():
     """Every variant of the JAX lab is ported (tests/test_torch_lab_variants.py);
     a name no kernel takes is reported as the JAX tool reports it (its
@@ -239,9 +278,17 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("mix", ["fma", "mix", "roll"])
-def test_peak_kernel_matches_plain_cuda(cuda, mix):
-    a = tvp.check_input(mix, 16, 256).to(cuda)
+# fma and mix at one shape; roll at a warp a row (32 and 64 columns), rows
+# of several warps (96, 256 and 1024 columns) and 1 to 512 rows.
+PEAK_CARD_CASES = [("fma", 16, 256), ("mix", 16, 256), ("roll", 16, 256),
+                   ("roll", 1, 96),
+                   *(("roll", r, c) for r in (1, 64, 512)
+                     for c in (32, 64, 1024))]
+
+
+@pytest.mark.parametrize("mix,rows,cols", PEAK_CARD_CASES)
+def test_peak_kernel_matches_plain_cuda(cuda, mix, rows, cols):
+    a = tvp.check_input(mix, rows, cols).to(cuda)
     before = lab.lab_peak.launches
     got = lab.lab_peak(a, mix=mix, inner=tvp.INNER, outer=tvp.CHECK_OUTER)
     assert lab.lab_peak.launches == before + 1

@@ -26,8 +26,13 @@ Two variants have no JAX oracle, for reasons of the TPU kernel:
   (`lab_cuda.nochain_plain`); it is held against numpy on that
   definition only.
 
+`kernel_turns.LAB_GROUPS`, the A/B cells of L1 and P1, name variants and
+mixes the wrappers take.
+
 Tests whose names end in `_cuda` hold each new CUDA kernel against its
-plain version on the card and skip where there is none:
+plain version on the card (L1 on frames whose last CUDA block is partial,
+constant frames, and through `kern_lab.run_variant` with a `chunk` other
+than 5, which changes nothing) and skip where there is none:
 `python -m pytest --noconftest tests/test_torch_lab_variants.py -k cuda`.
 """
 import contextlib
@@ -42,6 +47,7 @@ from numpy.lib.stride_tricks import sliding_window_view
 
 from motionestimation_tpu_torch.kernels import lab_cuda as lab
 from motionestimation_tpu_torch.tools import kern_lab as tkl
+from motionestimation_tpu_torch.tools import kernel_turns, sass_loops
 from test_torch_lab import LAB_SIZE, _last_outputs, _load_tool, _torch
 
 torch.set_num_threads(1)
@@ -225,6 +231,40 @@ def test_names_route_as_jax_main(jax_lab, monkeypatch):
         tkl.variant_fn("Q1")
 
 
+def test_lab_groups_name_the_wrappers_variants():
+    """Each cell of `kernel_turns.LAB_GROUPS` names a tool and size the
+    timing reads, and entries that `lab_padded` or `lab_peak` take; the
+    occupancy query refuses a name no instance has before it touches a
+    card."""
+    for label, tool, entries in kernel_turns.LAB_GROUPS:
+        name, size = tool.split()
+        assert name in ("kern_lab", "vpu_peak") and int(size) > 0, label
+        known = (lab.PADDED_VARIANTS if name == "kern_lab" else lab.MIXES)
+        assert entries and set(entries) <= set(known), label
+        if name == "kern_lab":
+            assert tkl.H % int(size) == 0 and int(size) % BLK == 0
+    padded = {e for _, t, es in kernel_turns.LAB_GROUPS
+              if t.startswith("kern_lab") for e in es}
+    assert padded == set(lab.PADDED_VARIANTS)
+    with pytest.raises(ValueError):
+        lab.lab_occupancy("Q1")
+
+
+def test_sass_loops_matches_anonymous_namespace_kernels_across_builds():
+    """lab.cu's kernels live in an anonymous namespace whose mangled name
+    carries a per-build hash: `sass_loops --against` matches them without
+    it, so a kernel whose code is unchanged reads as identical."""
+    a = "_ZN38_GLOBAL__N__6a1122e9_6_lab_cu"
+    b = "_ZN38_GLOBAL__N__82561dd2_6_lab_cu"
+    ours = {a + "_bcbd64cf4peakEv": [(0, "EXIT")],
+            a + "_bcbd64cf4rollEv": [(0, "NOP")]}
+    theirs = {b + "_bcbd64cf4peakEv": [(0, "EXIT")],
+              b + "_bcbd64cf4rollEv": [(0, "EXIT")]}
+    assert sass_loops.same_code(ours, theirs) == {
+        "_ZN38_GLOBAL__N__6_lab_cu_bcbd64cf4peakEv": True,
+        "_ZN38_GLOBAL__N__6_lab_cu_bcbd64cf4rollEv": False}
+
+
 def test_variant_operand_checks():
     cur, ref_p = _torch(*tkl.make_inputs(0, height=64, width=64))
     with pytest.raises(ValueError, match="chunk"):
@@ -248,9 +288,42 @@ def _card_inputs(cuda):
     return tuple(t.to(cuda) for t in _torch(*_edge_inputs(1, 128, 200)))
 
 
-@pytest.mark.parametrize("tile_h", [8, 64, 128])
-def test_padded_kernel_matches_plain_cuda(cuda, tile_h):
-    cur, ref_p = _card_inputs(cuda)
+def _constant_inputs(height, width, cur_value, ref_value):
+    """cur all `cur_value`, the reference all `ref_value` inside its zero
+    halo."""
+    cur, ref_p = tkl.make_inputs(0, height=height, width=width)
+    cur[:] = cur_value
+    ref_p[:] = 0
+    ref_p[SPAN : SPAN + height, SPAN : SPAN + width] = ref_value
+    return cur, ref_p
+
+
+# (frames, tile_h, chunk). L1's CUDA blocks take 4 x 8 macroblocks: 128x200
+# leaves a last block column of one macroblock, 168x200 also a last block
+# row of one. Constant frames: 255 against 0 and 0 against 255 give the
+# largest costs (64 * 255^2), 255 against 255 products of 65,025 that M3
+# rounds, 7 against 37 products of 259, a tie that M3 rounds to even
+# (260); the zero halo gives the other offsets their costs.
+PADDED_CARD_CASES = [
+    ("edge 128x200", 8, 5), ("edge 128x200", 64, 5),
+    ("edge 128x200", 128, 5), ("edge 128x200", 128, 3),
+    ("random 168x200", 56, 5), ("random 168x200", 8, 7),
+    ("constant 255 0", 64, 5), ("constant 0 255", 64, 5),
+    ("constant 255 255", 64, 5), ("constant 7 37", 128, 5),
+]
+
+
+def _padded_card_frames(name):
+    if name == "edge 128x200":
+        return _edge_inputs(1, 128, 200)
+    if name == "random 168x200":
+        return tkl.make_inputs(2, height=168, width=200)
+    return _constant_inputs(128, 200, *map(int, name.split()[1:]))
+
+
+@pytest.mark.parametrize("frames,tile_h,chunk", PADDED_CARD_CASES)
+def test_padded_kernel_matches_plain_cuda(cuda, frames, tile_h, chunk):
+    cur, ref_p = (t.to(cuda) for t in _torch(*_padded_card_frames(frames)))
     plains = {"NOP": lab.nop_plain(cur, ref_p),
               "L0": lab.padded_plain(cur, ref_p),
               "L1": lab.raw_plain(cur, ref_p, tile_h=tile_h),
@@ -259,9 +332,12 @@ def test_padded_kernel_matches_plain_cuda(cuda, tile_h):
               "M3": lab.padded_plain(cur, ref_p, rounding=True)}
     for variant, want in plains.items():
         before = lab.lab_padded.launches
-        got = lab.lab_padded(cur, ref_p, tile_h=tile_h, variant=variant)
+        got = tkl.run_variant(cur, ref_p, variant=variant, tile_h=tile_h,
+                              chunk=chunk)
         assert lab.lab_padded.launches == before + 1
         assert all(torch.equal(a, b) for a, b in zip(got, want)), variant
+    if frames == "constant 7 37":  # every product a tie: M3 is not L0
+        assert not torch.equal(plains["M3"][0], plains["L0"][0])
 
 
 @pytest.mark.parametrize("tile_h", [8, 64, 128])
