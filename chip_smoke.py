@@ -211,9 +211,13 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    the tool's count beside it), and L2/L4 timed in turns beside K1. L1's
    six variants are held exactly against their plain versions at tile_h
    64 and 128, L0, M1 and M2 against K1 on the blocks whose window lies
-   inside the frame, each beside the bound its arithmetic sets; the
-   registers, spills and resident warps of L1's and the roll's instances
-   are printed.
+   inside the frame, each beside the bound its arithmetic sets
+   (`bench/roofline.lab_bound`); so are the nine variants of the key
+   kernel (L4 "P4", "P4S" at tile_h 64 and 128; L5, L7 and L3's "P3S" at
+   128), which are also held exactly against `diff_plain` on KEY_CHECKS'
+   frames with partial CUDA blocks (random, tie and wrapping-key contents,
+   the halo NaN, 1e9 and -7.5); the registers, spills and resident warps
+   of L1's, the key kernel's and the roll's instances are printed.
 8. One JSON line listing the kernels and emit modes, the nvidia-smi
    name/power-limit line, and as the last line {"ok": true, "device":
    {...}}.
@@ -441,18 +445,42 @@ LAB_KERNELS = ("me_lab_peak", "me_lab_chain", "me_lab_phase", "me_lab_diff",
                "me_lab_p7")
 FILL_ROWS = 512
 FILL_CH_W = 65536
-# The instructions a block-candidate of each L1 variant's arithmetic
-# needs, and the lanes per SM and clock that issue them: a __dp4a (L0, M1)
-# or a vabsdiff4 (M2) a word of four pixels on the 64 int32 lanes; a
-# bf16x2 FMA and an FADD a pixel (M3), or one product ("L1"), on the 128
-# FP32 lanes; none (NOP). The kernels line and PERF.md bound L1 by its
-# first variant's, L0's.
-PAD_OPS = {"NOP": (0, 128), "L0": (16, 64), "L1": (1, 128), "M1": (16, 64),
-           "M2": (16, 64), "M3": (128, 128)}
+# The key kernel's edge checks (`lab_key_kernel`, nine variants): (height,
+# width, tile_h) of frames whose last CUDA block is partial in one or both
+# directions, each with `kern_lab.check_inputs`' contents (random, tie,
+# wrap) inside a halo of NaN, 1e9 and -7.5.
+KEY_CHECKS = [(24, 24, 8), (40, 72, 8), (128, 2040, 64)]
 
 
 def fail(message: str):
     raise RuntimeError(f"chip_smoke: {message}")
+
+
+def key_checks(dev, compare):
+    """The key kernel's nine variants (`kern_lab.KEY_VARIANTS`, each through
+    `kern_lab.variant_fn`), each exactly against `diff_plain` (SAD where
+    "S" is in the name) on the KEY_CHECKS frames with every
+    `kern_lab.check_inputs` content, at the frame's tile_h. Returns the
+    number of checks."""
+    from motionestimation_tpu_torch.kernels import lab_cuda as lab
+    from motionestimation_tpu_torch.tools import kern_lab
+    kernel = {v: name for v, name, *_ in NEW_LAB}
+    kernel.update(P4="me_lab_diff", P4S="me_lab_diff")
+    n = 0
+    for h, w, tile_h in KEY_CHECKS:
+        for content in kern_lab.CHECK_CONTENTS:
+            cur, ref_p = (torch.from_numpy(a).to(dev) for a in
+                          kern_lab.check_inputs(h + w, height=h, width=w,
+                                                content=content))
+            want = {sad: lab.diff_plain(cur, ref_p, sad=sad)
+                    for sad in (False, True)}
+            for v in kern_lab.KEY_VARIANTS:
+                got = kern_lab.variant_fn(f"{v}:{tile_h}")[0](cur, ref_p)
+                compare([kernel[v]], [got], [want["S" in v]],
+                        f"{kernel[v]} \"{v}\" {w}x{h} tile_h {tile_h} "
+                        f"{content}", quiet=True)
+                n += 1
+    return n
 
 
 def synth(rng, h, w, texture=4, shift=(1, -2), noise=1):
@@ -1581,6 +1609,9 @@ def main(argv=None) -> int:
     from motionestimation_tpu_torch import cli
     from motionestimation_tpu_torch.bench import measure
     from motionestimation_tpu_torch.bench.roofline import bound
+    from motionestimation_tpu_torch.bench.roofline import lab_bound
+    from motionestimation_tpu_torch.bench.roofline import lab_parts
+    from motionestimation_tpu_torch.bench.roofline import LAB_OPS
     from motionestimation_tpu_torch.bench.roofline import replay_bound
     from motionestimation_tpu_torch.bench.roofline import replay_reads
     from motionestimation_tpu_torch.bench.roofline import valid_candidates
@@ -2602,6 +2633,8 @@ def main(argv=None) -> int:
     for what, occ in [
             *((f"me_lab_padded \"{v}\"", lab.lab_occupancy(v))
               for v in lab.PADDED_VARIANTS),
+            *((f"lab_key_kernel \"{k}\"", lab.lab_occupancy(k))
+              for k in lab.KEY_INSTANCES),
             *((f"me_lab_peak {k} at {c} columns",
                lab.lab_occupancy(k, cols=c, inner=vpu_peak.INNER))
               for k in lab.ROLL_INSTANCES for c in (32, 1024))]:
@@ -2726,7 +2759,7 @@ def main(argv=None) -> int:
     cur_u8 = cur.to(torch.uint8)
     halo_u8 = ref_p[: h + 2 * span, : w + 2 * span].to(torch.uint8)
     geo = (h, w, blk, span, (h, w), (0, 0))
-    lab_bound = bound(*geo)
+    bytes_bound = bound(*geo)
     turns, lab_plain_ms = {}, {}
     for metric in ("mse", "sad"):
         sad = metric == "sad"
@@ -2775,12 +2808,14 @@ def main(argv=None) -> int:
             print(f"  {metric} {name} {ms:.4f} ms (runs "
                   f"{[round(t, 4) for t in ts]}), {pixel_cands / ms / 1e9:.2f} "
                   f"T pixel-candidates/s | {card}")
-    print(f"  L2/L4 bound {lab_bound[0]:.6f} ms ({lab_bound[1]}; int8 "
+    print(f"  L2 bound {bytes_bound[0]:.6f} ms ({bytes_bound[1]}; int8 "
           f"data-sheet rate); FP32-lane floor {2 * pixel_cands / lane_ops_s * 1e3:.4f}"
           f" ms (2 lane-ops per pixel-candidate) | {card}")
-    for name, variant in (("me_lab_phase", "P0"), ("me_lab_diff", "P4")):
-        lab_times[name] = (turns[f"{name} \"{variant}\":128", "mse"],
-                           lab_plain_ms[name], *lab_bound)
+    lab_times["me_lab_phase"] = (turns["me_lab_phase \"P0\":128", "mse"],
+                                 lab_plain_ms["me_lab_phase"], *bytes_bound)
+    lab_times["me_lab_diff"] = (
+        turns["me_lab_diff \"P4\":128", "mse"], lab_plain_ms["me_lab_diff"],
+        *lab_bound("P4", h, w, sms, max_clock_mhz))
 
     # L1, L3, L5-L7: every variant exactly against its plain version, and
     # against K1 as NEW_LAB says.
@@ -2831,9 +2866,10 @@ def main(argv=None) -> int:
                   f"{where}")
         fns[f"{name} \"{variant}\":128"] = (
             lambda run=run: run(cur, ref_p))
-    # L1 at tile_h 64 too: it changes only "L1"'s function.
+    # L1 and the key variants at tile_h 64 too: it changes only "L1"'s
+    # function.
     for variant, name, plain, _ in NEW_LAB:
-        if name == "me_lab_padded":
+        if variant in LAB_OPS:
             want = (lab.raw_plain(cur, ref_p, tile_h=64) if plain == "raw"
                     else plains[plain][0])
             compare([name], kern_lab.variant_fn(f"{variant}:64")[0](
@@ -2850,30 +2886,42 @@ def main(argv=None) -> int:
               f"{[round(t, 4) for t in ts]}) | {card}")
     for plain, (_, ms) in plains.items():
         print(f"  plain {plain} {ms:.2f} ms | {card}")
-    # L1's bounds: the larger of its arithmetic (PAD_OPS) at the rate of
-    # the lanes that issue it and its float32 operands read once (cur, the
-    # [h + 24, w + 24] window) and outputs written once, at 3.35 TB/s.
-    nblk = (h // blk) * (w // blk)
-    pad_bytes_ms = (4 * (h * w + (h + 2 * span) * (w + 2 * span))
-                    + 8 * nblk) / 3.35e12 * 1e3
-    pad_bounds = {}
-    for v, (ops, lanes) in PAD_OPS.items():
-        ops_ms = (nblk * (2 * span + 1) ** 2 * ops
-                  / (sms * lanes * max_clock_mhz * 1e6) * 1e3)
-        pad_bounds[v] = ((ops_ms, "operations") if ops_ms > pad_bytes_ms
-                         else (pad_bytes_ms, "bytes"))
-        ms = statistics.mean(times[f"me_lab_padded \"{v}\":128"])
-        print(f"  me_lab_padded \"{v}\": {ms:.4f} ms, bound "
-              f"{pad_bounds[v][0]:.6f} ms ({pad_bounds[v][1]}: {ops} "
+    # L1's and the key kernel's bounds (bench/roofline.lab_bound): the
+    # larger of their arithmetic (LAB_OPS) at the rate of the lanes that
+    # issue it and their float32 operands read once (cur, the [h + 24,
+    # w + 24] window) and outputs written once, at 3.35 TB/s. L4's "P4"
+    # and "P4S" at both tile_h from the L2/L4 turns, the rest at 128.
+    variant_ms = {(name, v, 128): statistics.mean(times[f"{name} \"{v}\":128"])
+                  for v, name, *_ in NEW_LAB}
+    for tile_h in (128, 64):
+        for v, metric in (("P4", "mse"), ("P4S", "sad")):
+            variant_ms["me_lab_diff", v, tile_h] = turns[
+                f"me_lab_diff \"{v}\":{tile_h}", metric]
+    for (name, v, tile_h), ms in variant_ms.items():
+        if v not in LAB_OPS:
+            continue
+        ops, lanes = LAB_OPS[v]
+        ops_ms, bytes_ms = lab_parts(v, h, w, sms, max_clock_mhz)
+        bound_ms, bound_by = lab_bound(v, h, w, sms, max_clock_mhz)
+        print(f"  {name} \"{v}\"{'' if tile_h == 128 else ' tile_h 64'}: "
+              f"{ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {ops} "
               f"instructions a block-candidate on {lanes} lanes an SM, "
-              f"{ops_ms:.6f} ms, or {pad_bytes_ms:.6f} ms of bytes), "
-              f"{pad_bounds[v][0] / ms:.1%} of it | {card}")
+              f"{ops_ms:.6f} ms, or {bytes_ms:.6f} ms of bytes), "
+              f"{bound_ms / ms:.1%} of it | {card}")
     for variant, name, plain, _ in NEW_LAB:
         if name not in lab_times:  # each kernel's first variant
-            lab_times[name] = (statistics.mean(times[
-                f"{name} \"{variant}\":128"]), plains[plain][1],
-                *(pad_bounds[variant] if name == "me_lab_padded"
-                  else lab_bound))
+            lab_times[name] = (
+                variant_ms[name, variant, 128], plains[plain][1],
+                *(lab_bound(variant, h, w, sms, max_clock_mhz)
+                  if variant in LAB_OPS else bytes_bound))
+    # The key kernel on small frames with edges, garbage halos, ties and
+    # the wrapping key.
+    t_keys = time.perf_counter()
+    n_keys = key_checks(dev, compare)
+    print(f"lab_key_kernel: {n_keys} checks of its nine variants against "
+          f"diff_plain (frames {KEY_CHECKS} as (h, w, tile_h), contents "
+          f"{kern_lab.CHECK_CONTENTS}, halo {kern_lab.HALO_FILL}), all equal "
+          f"({time.perf_counter() - t_keys:.1f} s)")
     del cur, ref_p, cur_u8, halo_u8, plains, k1
     print(f"speed-of-light tools phase: "
           f"{time.perf_counter() - t_tools:.1f} s")

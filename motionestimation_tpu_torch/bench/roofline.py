@@ -1,5 +1,5 @@
-"""The least time the card could take for a search, a diamond replay or a
-diamond walk: its bound.
+"""The least time the card could take for a search, a diamond replay, a
+diamond walk or a speed-of-light lab variant: its bound.
 
 One copy of the arithmetic, shared by `chip_smoke.py` (each kernel's
 `bound_ms`) and `bench_torch.py` (`pct_of_roofline`), so a share of the
@@ -58,6 +58,56 @@ def bound(h, w, blk, span, tile, origin, ssim=False, volume=False):
     t_ops = max(2 * pixel_cands / INT8_OPS_S * 1e3,
                 SSIM_FLOPS * block_cands / FP32_OPS_S * 1e3 if ssim else 0.0)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# The speed-of-light lab (tools/kern_lab.py, csrc/lab.cu): 8x8 blocks, span
+# 12. The instructions one block-candidate of a variant needs on the card,
+# and the lanes of an SM that issue them each clock: L1's a __dp4a (L0,
+# M1) or a vabsdiff4 with accumulate (M2) a word of four pixels on the
+# 64 int32 lanes; a bf16x2 FMA and an FADD a pixel (M3), or one product
+# ("L1"), on the 128 FP32 lanes; none (NOP). The key kernel's (L4, L5, L7
+# and L3's "P3S"): SAD a vabsdiff4 with accumulate a word on the int32
+# lanes; the diff form a vabsdiff4 and a __dp4a a word, 32 instructions,
+# counted against what holds however the two are given pipes: an SM issues
+# one warp instruction a clock from each of its four schedulers, 128 lanes,
+# and each of the two alone is 16 on its 64 lanes, the same time. Neither
+# rate is measured on the card apart (a vabsdiff4-only and a __dp4a-only
+# loop would tell).
+LAB_BLK, LAB_SPAN = 8, 12
+LAB_OPS = {"NOP": (0, 128), "L0": (16, 64), "L1": (1, 128), "M1": (16, 64),
+           "M2": (16, 64), "M3": (128, 128),
+           **dict.fromkeys(("P4", "P5", "P5B", "P7"), (32, 128)),
+           **dict.fromkeys(("P4S", "P5S", "P5SB", "P7S", "P3S"), (16, 64))}
+# L1 searches every offset of the zero-padded reference and writes a float32
+# cost and an int32 index a block; the key variants only the candidates
+# whose window lies inside the frame, and one int32 key a block.
+LAB_UNMASKED = ("NOP", "L0", "L1", "M1", "M2", "M3")
+
+
+def lab_parts(variant: str, h: int, w: int, sms: int, clock_mhz: float):
+    """(operations ms, bytes ms) of a lab variant on an h x w frame: its
+    LAB_OPS instructions for each block-candidate the function needs (all
+    625 a block for L1, the valid ones for the key variants) over `sms` SMs
+    of its lanes at `clock_mhz`; its float32 operands (cur and the [h + 24,
+    w + 24] window) read once and outputs written once over the HBM rate."""
+    ops, lanes = LAB_OPS[variant]
+    nblk = (h // LAB_BLK) * (w // LAB_BLK)
+    if variant in LAB_UNMASKED:
+        cands, out_bytes = nblk * (2 * LAB_SPAN + 1) ** 2, 8
+    else:
+        cands = valid_candidates(h, w, LAB_BLK, LAB_SPAN, (h, w), (0, 0))[1]
+        out_bytes = 4
+    ops_ms = cands * ops / (sms * lanes * clock_mhz * 1e6) * 1e3
+    nbytes = (4 * (h * w + (h + 2 * LAB_SPAN) * (w + 2 * LAB_SPAN))
+              + out_bytes * nblk)
+    return ops_ms, nbytes / HBM_BYTES_S * 1e3
+
+
+def lab_bound(variant: str, h: int, w: int, sms: int, clock_mhz: float):
+    """(bound_ms, bound_by) of a lab variant in LAB_OPS: the larger of
+    `lab_parts`' two times."""
+    ops_ms, bytes_ms = lab_parts(variant, h, w, sms, clock_mhz)
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
 
 
 def replay_reads(traj, *, span: int) -> int:

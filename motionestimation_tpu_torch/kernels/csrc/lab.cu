@@ -23,7 +23,8 @@
 // me_lab_diff (L4) — replaces `make_p4_kernel` of tools/kern_lab.py (:657,
 //   `pallas_call` :730): SSD by the diff form sum (c - e)^2, or SAD, packed
 //   as key = cost * 625 + flat - 2^31 in wrapping 32-bit arithmetic,
-//   INT32_MAX where the candidate is invalid; the minimum key per block.
+//   INT32_MAX where the candidate is invalid; the minimum key per block
+//   (lab_key_kernel).
 // me_lab_padded (L1) — replaces `make_kernel` of tools/kern_lab.py (:74,
 //   `pallas_call` :241): no candidate masked, all 625 read the zero-padded
 //   reference; the first minimum of (cost, flat) from the start pair (3e8,
@@ -40,13 +41,15 @@
 //   leaves unwritten taken as 0) and nofold ("P3B": per block the least
 //   over ox of int32 sum_r cur[8R + r][c] * ref[8R + r][c + ox]).
 // me_lab_p5 (L5, `make_p5_kernel` :773, `pallas_call` :854): L4's key by
-//   the diff form or SAD, over float32 or bfloat16 planes.
+//   the diff form or SAD, over float32 or bfloat16 planes (lab_key_kernel).
 // me_lab_p6 (L6, `make_p6_kernel` :898, `pallas_call` :997): L4's key by
 //   the cross term (Qcur - X) + (Qref - X), float32 or bfloat16 planes.
 // me_lab_p7 (L7, `make_p7_kernel` :1044, `pallas_call` :1121): L4's key by
-//   the diff form or SAD over bfloat16 planes.
-// Several launchers share one instance of lab_search_kernel: P3S, P5S and
-// L4's SAD; P5 and L4's SSD; P7 and P5B; P7S and P5SB.
+//   the diff form or SAD over bfloat16 planes (lab_key_kernel).
+// Nine launcher variants share lab_key_kernel's two instances: its SSD (the
+// diff form) runs L4's "P4", "P5", "P5B", "P7"; its SAD "P4S", "P5S",
+// "P5SB", "P7S" and L3's "P3S" (bfloat16 holds every pixel 0..255, so a
+// bfloat16 variant computes its float32 variant's function).
 //
 // Lab contract (L1-L7): cur float32 [frame_h, frame_w] of integer pixels
 // 0..255; ref float32 halo, at least [frame_h + 24, frame_w + 24], with
@@ -74,32 +77,36 @@
 // memory, behind one barrier. P2: one thread per (g, x) holding its 8 C and
 // 32 E values in registers; each repetition reads the C values through the
 // same XOR and feeds a minimum carried across repetitions, so the `reps`
-// repetitions are neither folded into one nor dead. L2/L4: one CUDA block per
-// `tile_h` pixel rows (the TPU stripe height) and `tbx` macroblocks, staging
+// repetitions are neither folded into one nor dead. L2/L3/L6: one CUDA block
+// per `tile_h` pixel rows (the TPU stripe height) and `tbx` macroblocks, staging
 // the current tile and its reference window as float32 in shared memory (L2
 // SSD also the Qref box-sum plane, column sums then row sums, once per CUDA
 // block); 128 threads split each macroblock's 625 candidates and keep the
 // best as a 64-bit key, reduced by common.cuh. The TPU choreography (phase-
 // plane permutation matmuls, lane rolls of E, the static min tree) is not
-// carried over. L3 and L5-L7 are template axes of the same kernel: the cost
+// carried over. L3 and L6 are template axes of the same kernel: the cost
 // form, the key, the ablation, and bfloat16 staging, whose window is kept in
 // two copies shifted by one column so that a candidate at any column offset
 // reads aligned pairs. L1 is its own kernel (lab_padded_kernel below): no
 // product scratch and no atomic; the window is staged as bytes, and a thread
 // keeps 8 offset rows x 5 offset columns of sums in registers and feeds them
-// from each window row it loads once.
+// from each window row it loads once (pad_ring). L4, L5, L7 and "P3S" run
+// that layout and ring too (lab_key_kernel), with the masked candidates'
+// keys all ones where an offset row's costs enter the key.
 //
 // What bounds it. P1 fma and mix and P2 are FP32-lane issue: one FMA (or sub)
 // per lane per clock, 128 lanes per SM. P1 roll: its adds (one a stream,
 // column and step) at that rate, and the halo's, 28 a stream and iteration
 // beside a thread's 8 * KC; a row is one CUDA block, so at 64 rows 64 SMs
-// work, with 4 warps each. L2-L7: one shared-memory load and one FMA per
+// work, with 4 warps each. L2, L3, L6: one shared-memory load and one FMA per
 // pixel-candidate (2.62 G at 2048x2048); the load, 32 lanes per SM per clock,
 // comes first; bfloat16 pairs halve the loads. L1: its arithmetic, a __dp4a
 // (L0, M1) or a vabsdiff4 (M2) a word of four pixel-candidates on the 64
 // int32 lanes of an SM, a bf16x2 FMA and an FADD a pixel-candidate (M3) on
 // the 128 FP32 lanes; four shared loads and nine funnel shifts a window row
-// feed 320 pixel-candidates.
+// feed 320 pixel-candidates. The key kernel likewise: a vabsdiff4 and a
+// __dp4a a word (SSD by the diff form), or a vabsdiff4 with accumulate
+// (SAD), on the int32 lanes (bench/roofline.py LAB_OPS counts them).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -334,9 +341,9 @@ chain_kernel(const float* __restrict__ c, const float* __restrict__ e,
 }
 
 // ---------------------------------------------------------------------------
-// L2 / L3 / L4 / L5 / L6 / L7. FORM: 0 = SSD by the cross term
-// (Qcur - X) + (Qref - X) (L2, L6), 1 = SSD by the diff form (L4, L5, L7),
-// 2 = SAD, 3 = SSD by the cross term (Qcur + Qref) - 2X (L3). KEY: false
+// L2 / L3 / L6. FORM: 0 = SSD by the cross term (Qcur - X) + (Qref - X)
+// (L2, L6), 2 = SAD (L2's), 3 = SSD by the cross term (Qcur + Qref) - 2X
+// (L3); the diff form (1) and the key's SAD are lab_key_kernel's. KEY: false
 // writes L2's (cost, idx), true the packed key. ABL: 0, or L3's ablations
 // 1 = nochain (X is the r = 0 term at offset row 0, else 0) and 2 = nofold
 // (the first column's 8-term chain at offset row 0, unmasked, least over
@@ -507,9 +514,6 @@ lab_search_kernel(const float* __restrict__ cur, int cur_ld,
               col0 = fmaf(c, e, col0);
             } else if constexpr (FORM == 0 || FORM == 3) {
               acc = fmaf(c, e, acc);
-            } else if constexpr (FORM == 1) {
-              const float d = c - e;
-              acc = fmaf(d, d, acc);
             } else {
               acc += fabsf(c - e);
             }
@@ -635,7 +639,7 @@ int launch_lab(const void* cur, const void* ref, void* out_cost,
 // by __dp4a, then column sums sliding down) in shared memory; each thread
 // loads its macroblock's 64 pixels into registers as 16 words (M3: as
 // float32) and sums Qcur from them. A thread then walks the 32 window rows
-// its candidates reach: it loads the four words that hold a row's 12 columns
+// its candidates reach (pad_ring): it loads the four words that hold a row's 12 columns
 // once, shifts them in registers to the nine byte offsets its columns start
 // at, and they feed its 5 offset columns at each of the 8 offset rows the row
 // reaches (window row j adds cur row r = j - oy to offset row oy), kept as a
@@ -716,10 +720,146 @@ __device__ __forceinline__ float bf16_term(float c, float e, float acc) {
   return acc + __uint_as_float(p);
 }
 
-// The sums of an offset row: 32-bit integers of bytes (L0, M2) or float32
-// of rounded products (M3).
-template <int VAR>
-using PadSum = std::conditional_t<VAR == kM3, float, uint32_t>;
+// How a word of four pixel-candidates enters an offset row's sum in the
+// ring (pad_ring): kDot X += c . e by one __dp4a (L0, M1); kAbs the SAD by
+// one vabsdiff4 with accumulate (M2, the key's SAD); kSq the diff form,
+// d = |c - e| by one vabsdiff4 and the sum of d^2 by one __dp4a (the key's
+// SSD); kBf16 X += each c * e rounded to bfloat16 (M3, on float32 pixels).
+enum RingTerm { kDot = 0, kAbs = 1, kSq = 2, kBf16 = 3 };
+
+// The sums of an offset row: 32-bit integers of bytes, or float32 of
+// rounded products (kBf16).
+template <int TERM>
+using RingSum = std::conditional_t<TERM == kBf16, float, uint32_t>;
+
+// |a - b| of each byte: one VABSDIFF4.U8 on sm_90a.
+__device__ __forceinline__ uint32_t absdiff4(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("vabsdiff4.u32.u32.u32 %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(0u));
+  return d;
+}
+
+// Stage the window of the CUDA block's macroblocks (from (by0, bx0), nvy x
+// nvx of them in the frame) from ref_p as bytes, four to a word (the
+// contract makes every frame pixel an integer 0..255; a halo value maps to
+// some byte without trapping, and reaches only candidates the caller
+// ignores); zero where no valid macroblock reaches. Returns the OR of the
+// words this thread wrote.
+__device__ __forceinline__ uint32_t stage_pad_window(
+    const float* __restrict__ ref, int ref_ld, int by0, int bx0, int nvy,
+    int nvx, uint32_t* win, int t) {
+  const int used_h = nvy * kBlk + 2 * kSpan, used_w = nvx * kBlk + 2 * kSpan;
+  const float* rp = ref + static_cast<size_t>(by0) * kBlk * ref_ld + bx0 * kBlk;
+  uint32_t live = 0;
+  for (int i = t; i < kPadWinH * kPadWs; i += kPadThreads) {
+    const int r = i / kPadWs, c0 = 4 * (i - r * kPadWs);
+    uint32_t word = 0;
+    if (r < used_h) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c0 + k < used_w)
+          word |= pixel_byte(rp[static_cast<size_t>(r) * ref_ld + c0 + k])
+                  << (8 * k);
+    }
+    win[i] = word;
+    live |= word;
+  }
+  return live;
+}
+
+// The macroblock at (gy, gx): its 64 pixels four to a word (zero where
+// !valid); each(i, v) also takes pixel i as float32.
+template <typename Each>
+__device__ __forceinline__ void load_block(const float* __restrict__ cur,
+                                           int cur_ld, int gy, int gx,
+                                           bool valid, uint32_t (&cw)[16],
+                                           Each&& each) {
+#pragma unroll
+  for (int i = 0; i < kBlk * kBlk; ++i) {
+    const float v =
+        valid ? cur[static_cast<size_t>(gy + i / kBlk) * cur_ld + gx + i % kBlk]
+              : 0.0f;
+    each(i, v);
+    cw[i / 4] = (i % 4 ? cw[i / 4] : 0u) | pixel_byte(v) << (8 * (i % 4));
+  }
+}
+
+// One thread's ring: the sums of its kPadG offset columns (from ox0, the
+// 12 columns that start at byte `shift` / 8 of wrow's first word) at all 25
+// offset rows, over the 32 window rows from wrow (kPadWs words a row). Each
+// window row's four words are loaded once and shifted to the nine byte
+// offsets its columns start at; window row j adds cur row r = j - oy to
+// offset row oy, slot oy % 8 of 8 x kPadG sums in registers. finish(oy, x)
+// takes offset row oy's kPadG sums when it is whole (at r = 7). cf, the
+// macroblock's 64 pixels as float32, is read by kBf16 only (else nullptr).
+template <int TERM, typename Finish>
+__device__ __forceinline__ void pad_ring(const uint32_t* wrow, int shift,
+                                         const uint32_t (&cw)[16],
+                                         const float* cf, Finish&& finish) {
+  RingSum<TERM> acc[kBlk][kPadG] = {};  // offset row oy's in slot oy % 8
+  // Window rows j0..j0 + 7: cur row r adds to offset row j - r, which
+  // exists for r <= j in the first eight rows (phase 0) and for j - r <= 24
+  // in the last eight (phase 2), so the tests fold away.
+  auto rows8 = [&](auto phase, int j0) {
+    constexpr int kPhase = decltype(phase)::value;
+#pragma unroll
+    for (int jj = 0; jj < kBlk; ++jj) {
+      const int j = j0 + jj;  // window row, relative to the macroblock
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = wrow[j * kPadWs + i];
+      uint32_t e[kPadG + 4];  // e[o]: the columns' bytes o..o+3
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        e[4 * i] = __funnelshift_r(w[i], w[i + 1], shift);
+#pragma unroll
+      for (int o = 1; o < kPadG + 4; ++o)
+        if (o % 4)
+          e[o] = __funnelshift_r(e[o & ~3], e[(o & ~3) + 4], 8 * (o % 4));
+      float ef[kPadG + kBlk - 1];  // kBf16: the 12 columns as float32
+      if constexpr (TERM == kBf16) {
+#pragma unroll
+        for (int i = 0; i < kPadG + kBlk - 1; ++i)
+          ef[i] = byte_float(e[i & ~3], i % 4);
+      }
+#pragma unroll
+      for (int r = 0; r < kBlk; ++r) {
+        if ((kPhase == 0 && r > jj) || (kPhase == 2 && r < jj)) continue;
+        RingSum<TERM>(&a)[kPadG] = acc[(jj - r) & (kBlk - 1)];
+#pragma unroll
+        for (int q = 0; q < kPadG; ++q) {
+          RingSum<TERM> v = r == 0 ? RingSum<TERM>(0) : a[q];
+          if constexpr (TERM == kBf16) {
+#pragma unroll
+            for (int k = 0; k < kBlk; ++k)
+              v = bf16_term(cf[r * kBlk + k], ef[q + k], v);
+          } else if constexpr (TERM == kAbs) {
+            v = sad4(cw[2 * r], e[q], v);
+            v = sad4(cw[2 * r + 1], e[q + 4], v);
+          } else if constexpr (TERM == kSq) {
+            const uint32_t d0 = absdiff4(cw[2 * r], e[q]);
+            v = __dp4a(d0, d0, v);
+            const uint32_t d1 = absdiff4(cw[2 * r + 1], e[q + 4]);
+            v = __dp4a(d1, d1, v);
+          } else {
+            v = __dp4a(cw[2 * r], e[q], v);
+            v = __dp4a(cw[2 * r + 1], e[q + 4], v);
+          }
+          a[q] = v;
+        }
+        if (r == kBlk - 1) finish(j - r, a);
+      }
+    }
+  };
+  static_assert(kPadRows == 4 * kBlk, "phases 0, 1, 1, 2");
+  rows8(std::integral_constant<int, 0>(), 0);
+#pragma unroll 1
+  for (int j0 = kBlk; j0 < kPadRows - kBlk; j0 += kBlk)
+    rows8(std::integral_constant<int, 1>(), j0);
+  rows8(std::integral_constant<int, 2>(), kPadRows - kBlk);
+}
 
 template <int VAR>
 __global__ void __launch_bounds__(kPadThreads, VAR == kM3 ? 3 : 4)
@@ -728,6 +868,7 @@ lab_padded_kernel(const float* __restrict__ cur, int cur_ld,
                   float* __restrict__ out_cost, int32_t* __restrict__ out_idx,
                   int out_ld, int frame_h, int frame_w, int tile_h, int flip) {
   constexpr bool kQ = pad_qsums(VAR);
+  constexpr int kTerm = VAR == kM3 ? kBf16 : VAR == kM2 ? kAbs : kDot;
   extern __shared__ unsigned long long smem[];
   unsigned long long* red = smem;                              // [kPadThreads]
   uint32_t* win = reinterpret_cast<uint32_t*>(red + kPadThreads);  // [WinH][Ws]
@@ -746,35 +887,16 @@ lab_padded_kernel(const float* __restrict__ cur, int cur_ld,
   // zero-padded, and what no valid macroblock reaches is zero and reaches
   // no output.
   if (VAR == kNop && t == 0) *reinterpret_cast<uint32_t*>(red) = 0;
-  const int used_h = nvy * kBlk + 2 * kSpan, used_w = nvx * kBlk + 2 * kSpan;
-  const float* rp = ref + static_cast<size_t>(by0) * kBlk * ref_ld + bx0 * kBlk;
-  uint32_t live = 0;
-  for (int i = t; i < kPadWinH * kPadWs; i += kPadThreads) {
-    const int r = i / kPadWs, c0 = 4 * (i - r * kPadWs);
-    uint32_t word = 0;
-    if (r < used_h) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (c0 + k < used_w)
-          word |= pixel_byte(rp[static_cast<size_t>(r) * ref_ld + c0 + k])
-                  << (8 * k);
-    }
-    win[i] = word;
-    live |= word;
-  }
-  // The macroblock's pixels, four to a word, and (M3) as float32.
+  uint32_t live = stage_pad_window(ref, ref_ld, by0, bx0, nvy, nvx, win, t);
+  // The macroblock's pixels, four to a word, and (M3) as float32; Qcur,
+  // their sum of squares.
   uint32_t cw[kBlk * kBlk / 4];
   float cf[kBlk * kBlk];
   float qcur = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kBlk * kBlk; ++i) {
-    const float v =
-        valid ? cur[static_cast<size_t>(gy + i / kBlk) * cur_ld + gx + i % kBlk]
-              : 0.0f;
+  load_block(cur, cur_ld, gy, gx, valid, cw, [&](int i, float v) {
     cf[i] = v;
     qcur = fmaf(v, v, qcur);
-    cw[i / 4] = (i % 4 ? cw[i / 4] : 0u) | pixel_byte(v) << (8 * (i % 4));
-  }
+  });
   __syncthreads();
 
   if constexpr (VAR == kNop) {
@@ -857,7 +979,7 @@ lab_padded_kernel(const float* __restrict__ cur, int cur_ld,
         uint32_t best32 = 0xffffffffu;
         const uint32_t qc = static_cast<uint32_t>(qcur);  // exact
         // The five costs of offset row oy from their sums into the key.
-        auto finish = [&](int oy, const PadSum<VAR>(&x)[kPadG]) {
+        auto finish = [&](int oy, const RingSum<kTerm>(&x)[kPadG]) {
 #pragma unroll
           for (int q = 0; q < kPadG; ++q) {
             const int flat = oy * kK + ox0 + q;
@@ -876,64 +998,8 @@ lab_padded_kernel(const float* __restrict__ cur, int cur_ld,
         };
         // The thread's 12 columns start at byte 8 * bm + ox0 of a window
         // row: word 2 * bm + ox0 / 4, byte ox0 % 4 of it.
-        const uint32_t* wrow = win + R * kBlk * kPadWs + 2 * bm + ox0 / 4;
-        const int shift = 8 * (ox0 & 3);
-        PadSum<VAR> acc[kBlk][kPadG] = {};  // offset row oy's in slot oy % 8
-        // Window rows j0..j0 + 7: cur row r adds to offset row j - r, which
-        // exists for r <= j in the first eight rows (phase 0) and for
-        // j - r <= 24 in the last eight (phase 2), so the tests fold away.
-        auto rows8 = [&](auto phase, int j0) {
-          constexpr int kPhase = decltype(phase)::value;
-#pragma unroll
-          for (int jj = 0; jj < kBlk; ++jj) {
-            const int j = j0 + jj;  // window row, relative to the macroblock
-            uint32_t w[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) w[i] = wrow[j * kPadWs + i];
-            uint32_t e[kPadG + 4];  // e[o]: the columns' bytes o..o+3
-#pragma unroll
-            for (int i = 0; i < 3; ++i)
-              e[4 * i] = __funnelshift_r(w[i], w[i + 1], shift);
-#pragma unroll
-            for (int o = 1; o < kPadG + 4; ++o)
-              if (o % 4)
-                e[o] = __funnelshift_r(e[o & ~3], e[(o & ~3) + 4], 8 * (o % 4));
-            float ef[kPadG + kBlk - 1];  // M3: the 12 columns as float32
-            if constexpr (VAR == kM3) {
-#pragma unroll
-              for (int i = 0; i < kPadG + kBlk - 1; ++i)
-                ef[i] = byte_float(e[i & ~3], i % 4);
-            }
-#pragma unroll
-            for (int r = 0; r < kBlk; ++r) {
-              if ((kPhase == 0 && r > jj) || (kPhase == 2 && r < jj)) continue;
-              PadSum<VAR>(&a)[kPadG] = acc[(jj - r) & (kBlk - 1)];
-#pragma unroll
-              for (int q = 0; q < kPadG; ++q) {
-                PadSum<VAR> v = r == 0 ? PadSum<VAR>(0) : a[q];
-                if constexpr (VAR == kM3) {
-#pragma unroll
-                  for (int k = 0; k < kBlk; ++k)
-                    v = bf16_term(cf[r * kBlk + k], ef[q + k], v);
-                } else if constexpr (VAR == kM2) {
-                  v = sad4(cw[2 * r], e[q], v);
-                  v = sad4(cw[2 * r + 1], e[q + 4], v);
-                } else {
-                  v = __dp4a(cw[2 * r], e[q], v);
-                  v = __dp4a(cw[2 * r + 1], e[q + 4], v);
-                }
-                a[q] = v;
-              }
-              if (r == kBlk - 1) finish(j - r, a);
-            }
-          }
-        };
-        static_assert(kPadRows == 4 * kBlk, "phases 0, 1, 1, 2");
-        rows8(std::integral_constant<int, 0>(), 0);
-#pragma unroll 1
-        for (int j0 = kBlk; j0 < kPadRows - kBlk; j0 += kBlk)
-          rows8(std::integral_constant<int, 1>(), j0);
-        rows8(std::integral_constant<int, 2>(), kPadRows - kBlk);
+        pad_ring<kTerm>(win + R * kBlk * kPadWs + 2 * bm + ox0 / 4,
+                        8 * (ox0 & 3), cw, cf, finish);
         if constexpr (VAR != kM3) {
           const unsigned long long key = pad_key(
               static_cast<float>(best32 / (kK * kK)), best32 % (kK * kK));
@@ -976,6 +1042,100 @@ int launch_padded(const void* cur, const void* ref, void* out_cost,
       static_cast<const float*>(cur), cur_ld, static_cast<const float*>(ref),
       ref_ld, static_cast<float*>(out_cost), static_cast<int32_t*>(out_idx),
       out_ld, frame_h, frame_w, tile_h, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// L4 / L5 / L7 and L3's SAD ("P3S"): L1's layout and ring on the frame's
+// reference, each candidate whose window leaves the frame masked, and L4's
+// key. TERM: kSq (SSD by the diff form, sum |c - e|^2: one vabsdiff4 and one
+// __dp4a a word, the sum at most 64 * 255^2, exact) or kAbs (SAD, one
+// vabsdiff4 with accumulate a word). The ring runs every candidate with no
+// branch a pixel: the valid offsets, kern_lab.py:405-410's ranges, apply only
+// where an offset row's kPadG costs enter the thread's best key, which an
+// invalid candidate enters as 0xffffffff, so halo bytes reach no result. The
+// key, cost * 625 + flat, is below 2^32 unsigned, so its least value is the
+// first minimum in raster order; the five threads of a macroblock meet once,
+// through shared memory, and its top bit flipped is L4's key - 2^31 in
+// wrapping int32 (INT32_MAX where no candidate is valid). The layout does
+// not depend on tile_h. grid = (ceil(nbx / kPadBx), ceil(nby / kPadBy)).
+constexpr size_t kKeySmemBytes = sizeof(uint32_t) * (kPadThreads + kPadWinH * kPadWs);
+
+template <int TERM>
+__global__ void __launch_bounds__(kPadThreads, 4)
+lab_key_kernel(const float* __restrict__ cur, int cur_ld,
+               const float* __restrict__ ref, int ref_ld,
+               int32_t* __restrict__ out_key, int out_ld, int frame_h,
+               int frame_w) {
+  static_assert(TERM == kSq || TERM == kAbs, "the key's cost forms");
+  extern __shared__ unsigned long long smem[];
+  uint32_t* red = reinterpret_cast<uint32_t*>(smem);  // [kPadThreads]
+  uint32_t* win = red + kPadThreads;                  // [WinH][Ws]
+  const int by0 = blockIdx.y * kPadBy, bx0 = blockIdx.x * kPadBx;
+  const int nvy = min(kPadBy, frame_h / kBlk - by0);
+  const int nvx = min(kPadBx, frame_w / kBlk - bx0);
+  const int t = threadIdx.x, m = t / kPadG, g = t - m * kPadG;
+  const int R = m / kPadBx, bm = m - R * kPadBx;
+  const bool valid = R < nvy && bm < nvx;
+  const int ox0 = g * kPadG;
+  const int gy = (by0 + R) * kBlk, gx = (bx0 + bm) * kBlk;
+
+  stage_pad_window(ref, ref_ld, by0, bx0, nvy, nvx, win, t);
+  uint32_t cw[kBlk * kBlk / 4];
+  load_block(cur, cur_ld, gy, gx, valid, cw, [](int, float) {});
+  __syncthreads();
+
+  uint32_t best = 0xffffffffu;
+  if (valid) {
+    // Valid offsets o = d + span: 0 <= g + o - span <= frame - 8. A
+    // candidate outside them gets all ones OR-ed into its key.
+    const int oy_lo = max(0, kSpan - gy);
+    const int oy_hi = min(2 * kSpan, frame_h - kBlk - gy + kSpan);
+    const int ox_lo = max(0, kSpan - gx);
+    const int ox_hi = min(2 * kSpan, frame_w - kBlk - gx + kSpan);
+    uint32_t col_out[kPadG];
+#pragma unroll
+    for (int q = 0; q < kPadG; ++q)
+      col_out[q] = ox0 + q < ox_lo || ox0 + q > ox_hi ? 0xffffffffu : 0u;
+    auto finish = [&](int oy, const uint32_t(&x)[kPadG]) {
+      const uint32_t row_out = oy < oy_lo || oy > oy_hi ? 0xffffffffu : 0u;
+#pragma unroll
+      for (int q = 0; q < kPadG; ++q)
+        best = min(best, (x[q] * (kK * kK) + oy * kK + ox0 + q) | row_out |
+                             col_out[q]);
+    };
+    pad_ring<TERM>(win + R * kBlk * kPadWs + 2 * bm + ox0 / 4, 8 * (ox0 & 3),
+                   cw, nullptr, finish);
+  }
+  red[t] = best;
+  __syncthreads();
+  if (t < kPadBy * kPadBx) {
+    const int R2 = t / kPadBx, b2 = t - R2 * kPadBx;
+    if (R2 < nvy && b2 < nvx) {
+      uint32_t k = red[t * kPadG];
+#pragma unroll
+      for (int i = 1; i < kPadG; ++i) k = min(k, red[t * kPadG + i]);
+      out_key[static_cast<size_t>(by0 + R2) * out_ld + bx0 + b2] =
+          static_cast<int32_t>(k ^ 0x80000000u);
+    }
+  }
+}
+
+// sad: 0 = SSD by the diff form (kSq), 1 = SAD (kAbs). out_key int32
+// [frame_h / 8][out_ld].
+int launch_key(const void* cur, const void* ref, void* out_key, int cur_ld,
+               int ref_ld, int out_ld, int frame_h, int frame_w, int tile_h,
+               int sad, void* stream) {
+  if (!lab_shape_ok(tile_h, frame_h, frame_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sad ? lab_key_kernel<kAbs> : lab_key_kernel<kSq>;
+  if (!reserve_smem(kernel, kKeySmemBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((frame_w / kBlk + kPadBx - 1) / kPadBx,
+                  (frame_h / kBlk + kPadBy - 1) / kPadBy);
+  kernel<<<grid, kPadThreads, kKeySmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cur), cur_ld, static_cast<const float*>(ref),
+      ref_ld, static_cast<int32_t*>(out_key), out_ld, frame_h, frame_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1064,12 +1224,8 @@ extern "C" int me_lab_phase(const void* cur, const void* ref, void* out_cost,
 extern "C" int me_lab_diff(const void* cur, const void* ref, void* out_key,
                            int cur_ld, int ref_ld, int out_ld, int frame_h,
                            int frame_w, int tile_h, int sad, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sad)
-    return launch_lab<2, true>(cur, ref, nullptr, nullptr, out_key, cur_ld,
-                               ref_ld, out_ld, frame_h, frame_w, tile_h, s);
-  return launch_lab<1, true>(cur, ref, nullptr, nullptr, out_key, cur_ld,
-                             ref_ld, out_ld, frame_h, frame_w, tile_h, s);
+  return launch_key(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
+                    frame_w, tile_h, sad, stream);
 }
 
 // variant: 0 NOP, 1 L0, 2 "L1", 3 M1, 4 M2, 5 M3. out_cost float32 and
@@ -1109,7 +1265,10 @@ extern "C" int me_lab_p3(const void* cur, const void* ref, void* out_key,
                          int cur_ld, int ref_ld, int out_ld, int frame_h,
                          int frame_w, int tile_h, int sad, int ablate,
                          void* stream) {
-  if (sad) return ablate ? static_cast<int>(cudaErrorInvalidValue) : ME_KEY(2, 0, false);
+  if (sad)
+    return ablate ? static_cast<int>(cudaErrorInvalidValue)
+                  : launch_key(cur, ref, out_key, cur_ld, ref_ld, out_ld,
+                               frame_h, frame_w, tile_h, 1, stream);
   switch (ablate) {
     case 0: return ME_KEY(3, 0, false);
     case 1: return ME_KEY(3, 1, false);
@@ -1118,13 +1277,15 @@ extern "C" int me_lab_p3(const void* cur, const void* ref, void* out_key,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// sad: 0 = SSD by the diff form, 1 = SAD; bf16: bfloat16 planes.
+// sad: 0 = SSD by the diff form, 1 = SAD; bf16: bfloat16 planes. bfloat16
+// holds every pixel 0..255 exactly, so "P5B" and "P5SB" compute the
+// function of "P5" and "P5S" and run their byte instances (as M1 runs L0's).
 extern "C" int me_lab_p5(const void* cur, const void* ref, void* out_key,
                          int cur_ld, int ref_ld, int out_ld, int frame_h,
                          int frame_w, int tile_h, int sad, int bf16,
                          void* stream) {
-  if (bf16) return sad ? ME_KEY(2, 0, true) : ME_KEY(1, 0, true);
-  return sad ? ME_KEY(2, 0, false) : ME_KEY(1, 0, false);
+  return launch_key(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
+                    frame_w, tile_h, sad, stream);
 }
 
 // SSD by the cross term (Qcur - X) + (Qref - X); bf16: bfloat16 planes.
@@ -1134,11 +1295,14 @@ extern "C" int me_lab_p6(const void* cur, const void* ref, void* out_key,
   return bf16 ? ME_KEY(0, 0, true) : ME_KEY(0, 0, false);
 }
 
-// sad: 0 = SSD by the diff form, 1 = SAD, over bfloat16 planes.
+// sad: 0 = SSD by the diff form, 1 = SAD, over bfloat16 planes: as P5B
+// and P5SB, the byte instances of "P5" and "P5S" (bfloat16 is exact on
+// pixels 0..255).
 extern "C" int me_lab_p7(const void* cur, const void* ref, void* out_key,
                          int cur_ld, int ref_ld, int out_ld, int frame_h,
                          int frame_w, int tile_h, int sad, void* stream) {
-  return sad ? ME_KEY(2, 0, true) : ME_KEY(1, 0, true);
+  return launch_key(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
+                    frame_w, tile_h, sad, stream);
 }
 #undef ME_KEY
 
@@ -1146,7 +1310,8 @@ extern "C" int me_lab_p7(const void* cur, const void* ref, void* out_key,
 // bytes per thread, threads a CUDA block, dynamic shared bytes, CUDA blocks
 // resident per SM. kind: 0-5 the me_lab_padded variant of that code; 6 and
 // 7 the roll mix's instances of 8 and 16 columns a thread for a row of
-// `cols` columns at `inner`. Returns a cudaError_t.
+// `cols` columns at `inner`; 8 and 9 the key kernel's SSD (diff form) and
+// SAD instances. Returns a cudaError_t.
 extern "C" int me_lab_occupancy(int kind, int cols, int inner, int* out) {
 #define ME_PADDED_OCC(V) \
   occupancy(lab_padded_kernel<V>, kPadThreads, pad_smem_bytes(V), out)
@@ -1163,7 +1328,10 @@ extern "C" int me_lab_occupancy(int kind, int cols, int inner, int* out) {
       if (roll_cols_ok(cols))
         return occupancy(roll_kernel(kc, inner), cols / kc,
                          roll_smem(cols, inner), out);
+      break;
     }
+    case 8: return occupancy(lab_key_kernel<kSq>, kPadThreads, kKeySmemBytes, out);
+    case 9: return occupancy(lab_key_kernel<kAbs>, kPadThreads, kKeySmemBytes, out);
   }
 #undef ME_PADDED_OCC
   return static_cast<int>(cudaErrorInvalidValue);

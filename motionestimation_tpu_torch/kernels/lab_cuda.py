@@ -30,6 +30,13 @@ The PyTorch counterparts of the Pallas kernels of the JAX repo's
   `me_lab_p7` (L7, `make_p7_kernel` :1044: the diff form over bfloat16
   planes), each L4's key.
 
+L4, L5, L7 and L3's "P3S" run one kernel on the card (`lab_key_kernel`):
+L1's layout and register ring over bytes, the candidates whose window
+leaves the frame masked; its SSD (diff form) instance takes "P4", "P5",
+"P5B", "P7", its SAD instance "P4S", "P5S", "P5SB", "P7S", "P3S"
+(bfloat16 holds 0..255 exactly, so the bfloat16 variants compute their
+float32 variants' function).
+
 Beside each kernel stands its plain PyTorch version (`peak_plain`,
 `chain_plain`, `phase_plain`, `diff_plain`, `padded_plain`, `raw_plain`,
 `nop_plain`, `nochain_plain`, `nofold_plain`). The lab's masked search
@@ -462,20 +469,24 @@ lab_padded.launches = 0
 # The roll mix's instances, by columns a thread: 8, or 16 where a launch
 # has at least two rows an SM.
 ROLL_INSTANCES = {"roll 8": 6, "roll 16": 7}
+# The key kernel's instances (L4, L5, L7, "P3S"): SSD by the diff form, SAD.
+KEY_INSTANCES = {"key ssd": 8, "key sad": 9}
 
 
 def lab_occupancy(kernel: str, *, cols: int = 1024,
                   inner: int = 64) -> dict:
     """The resources on the current card of the instance that `lab_padded`
-    launches for variant `kernel` ("NOP", "L0", "L1", "M1", "M2", "M3"), or
-    of the roll mix's instance `kernel` ("roll 8", "roll 16") on rows of
+    launches for variant `kernel` ("NOP", "L0", "L1", "M1", "M2", "M3"), of
+    the key kernel's instance `kernel` ("key ssd", "key sad"), or of the
+    roll mix's instance `kernel` ("roll 8", "roll 16") on rows of
     `cols` columns at `inner`: registers and local (spill) bytes per
     thread, threads and dynamic shared bytes per CUDA block, CUDA blocks
     and warps resident per SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a card."""
-    if kernel not in ROLL_INSTANCES:
+    codes = {**PADDED_VARIANTS, **ROLL_INSTANCES, **KEY_INSTANCES}
+    if kernel not in codes:
         check_padded_variant(kernel)
-    code = ROLL_INSTANCES.get(kernel, PADDED_VARIANTS.get(kernel))
+    code = codes[kernel]
     out = (ctypes.c_int * 5)()
     err = _lib().me_lab_occupancy(code, cols, inner, out)
     if err != 0:

@@ -82,6 +82,37 @@ def make_inputs(seed: int = 0, *, height: int = H, width: int = W):
     return cur, ref_p
 
 
+# The variants that give L4's key by the diff form or SAD ("S" in the
+# name): on the card they run one kernel's two instances.
+KEY_VARIANTS = ("P4", "P4S", "P5", "P5S", "P5B", "P5SB", "P7", "P7S", "P3S")
+# What the key variants' edge checks write around the frame: a halo of
+# values no pixel takes, which only masked candidates may read.
+HALO_FILL = (float("nan"), 1e9, -7.5)
+CHECK_CONTENTS = ("random", "tie", "wrap")
+
+
+def check_inputs(seed: int = 0, *, height: int, width: int,
+                 content: str = "random"):
+    """(cur, ref_p) as make_inputs builds them, with the frames' integer
+    pixels set by `content` ("random": as drawn; "tie": both frames one
+    value, so every candidate ties; "wrap": cur 255 against ref 0, the
+    largest cost, 64 * 255^2, whose cost * 625 passes 2^31) and every
+    entry of ref_p outside the frame taken in turn from HALO_FILL."""
+    if content not in CHECK_CONTENTS:
+        raise ValueError(f"content must be one of {CHECK_CONTENTS}, got "
+                         f"{content!r}")
+    cur, ref_p = make_inputs(seed, height=height, width=width)
+    frame = (slice(SPAN, SPAN + height), slice(SPAN, SPAN + width))
+    if content != "random":
+        cur[:] = 255 if content == "wrap" else 77
+        ref_p[frame] = 0 if content == "wrap" else 77
+    halo = np.ones(ref_p.shape, bool)
+    halo[frame] = False
+    fill = np.resize(np.array(HALO_FILL, np.float32), ref_p.shape)
+    ref_p[halo] = fill[halo]
+    return cur, ref_p
+
+
 def run_phase(cur, ref_p, *, variant: str, tile_h: int = 128):
     """L2: (float32 cost, int32 idx) per block; SAD for variant "P1", SSD
     by the cross term otherwise, as in the JAX tool."""

@@ -26,16 +26,23 @@ Two variants have no JAX oracle, for reasons of the TPU kernel:
   (`lab_cuda.nochain_plain`); it is held against numpy on that
   definition only.
 
-`kernel_turns.LAB_GROUPS`, the A/B cells of L1 and P1, name variants and
-mixes the wrappers take.
+`kernel_turns.LAB_GROUPS`, the A/B cells of L1, the key variants and P1,
+name variants and mixes the wrappers take, and each key variant
+(`kern_lab.KEY_VARIANTS`) gives the diff form's or SAD's key. The plain
+version of the key ignores the reference's halo (`kern_lab.check_inputs`
+fills it with NaN, 1e9 and -7.5), and `bench/roofline.lab_bound` counts
+the key kernel's arithmetic over the valid candidates.
 
 Tests whose names end in `_cuda` hold each new CUDA kernel against its
 plain version on the card (L1 on frames whose last CUDA block is partial,
 constant frames, and through `kern_lab.run_variant` with a `chunk` other
-than 5, which changes nothing) and skip where there is none:
+than 5, which changes nothing; the key kernel's nine variants on frames
+with partial CUDA blocks, garbage halos, ties and the wrapping key) and
+skip where there is none:
 `python -m pytest --noconftest tests/test_torch_lab_variants.py -k cuda`.
 """
 import contextlib
+import functools
 import io
 import sys
 
@@ -45,6 +52,7 @@ import pytest
 import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
+from motionestimation_tpu_torch.bench import roofline
 from motionestimation_tpu_torch.kernels import lab_cuda as lab
 from motionestimation_tpu_torch.tools import kern_lab as tkl
 from motionestimation_tpu_torch.tools import kernel_turns, sass_loops
@@ -233,21 +241,127 @@ def test_names_route_as_jax_main(jax_lab, monkeypatch):
 
 def test_lab_groups_name_the_wrappers_variants():
     """Each cell of `kernel_turns.LAB_GROUPS` names a tool and size the
-    timing reads, and entries that `lab_padded` or `lab_peak` take; the
-    occupancy query refuses a name no instance has before it touches a
-    card."""
+    timing reads, and entries that `kern_lab.variant_fn` (L1's and the
+    key variants) or `lab_peak` take; the L1 cells take every L1
+    variant, the key cells every key variant at tile_h 128 and L4's at
+    64; the occupancy query refuses a name no instance has before it
+    touches a card."""
+    keys = {}  # tile_h -> the key variants of its cells
     for label, tool, entries in kernel_turns.LAB_GROUPS:
         name, size = tool.split()
         assert name in ("kern_lab", "vpu_peak") and int(size) > 0, label
-        known = (lab.PADDED_VARIANTS if name == "kern_lab" else lab.MIXES)
+        known = ((*lab.PADDED_VARIANTS, *tkl.KEY_VARIANTS)
+                 if name == "kern_lab" else lab.MIXES)
         assert entries and set(entries) <= set(known), label
         if name == "kern_lab":
             assert tkl.H % int(size) == 0 and int(size) % BLK == 0
+            in_l1 = set(entries) <= set(lab.PADDED_VARIANTS)
+            assert in_l1 or set(entries) <= set(tkl.KEY_VARIANTS)
+            assert label.startswith("lab L1" if in_l1 else "lab key"), label
+            if not in_l1:
+                keys.setdefault(int(size), set()).update(entries)
     padded = {e for _, t, es in kernel_turns.LAB_GROUPS
-              if t.startswith("kern_lab") for e in es}
+              if t.startswith("kern_lab") for e in es} - keys[128]
     assert padded == set(lab.PADDED_VARIANTS)
+    assert keys == {128: set(tkl.KEY_VARIANTS), 64: {"P4", "P4S"}}
     with pytest.raises(ValueError):
         lab.lab_occupancy("Q1")
+
+
+@pytest.mark.parametrize("variant", tkl.KEY_VARIANTS)
+def test_key_variants_give_the_diff_form_or_sad(lab_inputs, variant):
+    """`kern_lab.variant_fn` of each key variant gives L4's key: SAD's
+    where "S" is in the name, the diff form's otherwise, as the card checks
+    (chip_smoke.py, the `_cuda` tests below) assume."""
+    cur, ref_p = _torch(*lab_inputs)
+    got = tkl.variant_fn(f"{variant}:64")[0](cur, ref_p)
+    assert torch.equal(got, lab.diff_plain(cur, ref_p, sad="S" in variant))
+
+
+# -- the key kernel's inputs and bound ----------------------------------------
+
+@pytest.mark.parametrize("sad", [False, True])
+def test_diff_plain_ignores_the_halo(sad):
+    """The key's plain version reads only the frame: the same keys for a
+    zero halo and one of NaN, 1e9 and -7.5 (`kern_lab.check_inputs`)."""
+    zero = _torch(*tkl.make_inputs(3, height=40, width=72))
+    garbage = _torch(*tkl.check_inputs(3, height=40, width=72))
+    assert torch.equal(zero[0], garbage[0])
+    assert bool(torch.isnan(garbage[1]).any())
+    assert torch.equal(lab.diff_plain(*zero, sad=sad),
+                       lab.diff_plain(*garbage, sad=sad))
+
+
+@pytest.mark.parametrize("content", tkl.CHECK_CONTENTS)
+def test_check_inputs_contents(content):
+    """Integer frames inside a halo of exactly HALO_FILL's values; "tie"
+    costs every candidate alike (each block's key is its first valid
+    candidate's flat index), "wrap" gives the largest cost, whose
+    cost * 625 passes 2^31 and wraps in int32."""
+    h, w = 24, 40
+    cur, ref_p = tkl.check_inputs(1, height=h, width=w, content=content)
+    frame = ref_p[SPAN : SPAN + h, SPAN : SPAN + w]
+    for x in (cur, frame):
+        assert ((x >= 0) & (x <= 255) & (x == np.round(x))).all()
+    outside = np.ones(ref_p.shape, bool)
+    outside[SPAN : SPAN + h, SPAN : SPAN + w] = False
+    halo = ref_p[outside]
+    assert np.isnan(halo).any()
+    assert {float(v) for v in halo[~np.isnan(halo)]} == {1e9, -7.5}
+    key = lab.diff_plain(*_torch(cur, ref_p)).numpy().astype(np.int64)
+    if content == "random":
+        return
+    # A block's first valid candidate: offset max(0, 12 - 8b) on each axis.
+    first = np.maximum(0, SPAN - BLK * np.arange(h // BLK))[:, None] * K \
+        + np.maximum(0, SPAN - BLK * np.arange(w // BLK))[None]
+    cost = 0 if content == "tie" else BLK * BLK * 255 ** 2
+    assert (key == cost * K * K + first - 2**31).all()
+    if content == "wrap":
+        assert cost * K * K > 2**31 - 1
+
+
+# Valid block-candidates at 2048x2048 8x8 +-12: 6,368 a block row or column
+# (25 a block but 12 + 4 fewer at each end).
+VALID_2048 = 6368 ** 2
+LAB_BOUNDS = [  # (variant, instructions a block-candidate, lanes, masked)
+    *[(v, 32, 128, True) for v in ("P4", "P5", "P5B", "P7")],
+    *[(v, 16, 64, True) for v in ("P4S", "P5S", "P5SB", "P7S", "P3S")],
+    *[(v, 16, 64, False) for v in ("L0", "M1", "M2")],
+    ("M3", 128, 128, False),
+]
+
+
+@pytest.mark.parametrize("variant,ops,lanes,masked", LAB_BOUNDS,
+                         ids=[v for v, *_ in LAB_BOUNDS])
+def test_lab_bound_counts_the_arithmetic(variant, ops, lanes, masked):
+    """`roofline.lab_bound` at 2048x2048 on 132 SMs at 1980 MHz: the
+    variant's instructions over the block-candidates its function needs
+    (the valid ones for the key: 0.0388 ms for the diff form, whose two
+    instructions a word count against the SM's 128 lanes of issue, and
+    for SAD; all 625 a block for L1), above its bytes."""
+    cands = VALID_2048 if masked else 256 * 256 * K * K
+    want = cands * ops / (132 * lanes * 1980e6) * 1e3
+    ms, by = roofline.lab_bound(variant, 2048, 2048, 132, 1980)
+    assert by == "operations" and ms == pytest.approx(want, rel=1e-12)
+    assert ms > roofline.lab_parts(variant, 2048, 2048, 132, 1980)[1]
+    expected = {"P4": 0.038789, "P4S": 0.038789, "L0": 0.039180,
+                "M3": 0.156719}
+    if variant in expected:
+        assert round(ms, 6) == expected[variant]
+
+
+def test_lab_bound_of_the_unmasked_nop_is_its_bytes():
+    """NOP and "L1" do (next to) no arithmetic: their bound is their
+    float32 operands and outputs once, 0.010291 ms at 2048x2048; the
+    key variants write half the output bytes."""
+    for v in ("NOP", "L1"):
+        ms, by = roofline.lab_bound(v, 2048, 2048, 132, 1980)
+        assert by == "bytes" and round(ms, 6) == 0.010291
+    key_bytes = roofline.lab_parts("P4", 2048, 2048, 132, 1980)[1]
+    assert key_bytes == pytest.approx(
+        (4 * (2048 ** 2 + 2072 ** 2) + 4 * 256 ** 2) / 3.35e12 * 1e3)
+    with pytest.raises(KeyError):
+        roofline.lab_bound("P3", 2048, 2048, 132, 1980)
 
 
 def test_sass_loops_matches_anonymous_namespace_kernels_across_builds():
@@ -340,22 +454,52 @@ def test_padded_kernel_matches_plain_cuda(cuda, frames, tile_h, chunk):
         assert not torch.equal(plains["M3"][0], plains["L0"][0])
 
 
-@pytest.mark.parametrize("tile_h", [8, 64, 128])
-def test_key_kernels_match_plain_cuda(cuda, tile_h):
-    cur, ref_p = _card_inputs(cuda)
+# The key wrappers' card frames: (frames, tile_h), "edge" the 128x200 pair
+# with cur's top-left block 0 against a zero halo, or (content, h, w) from
+# `kern_lab.check_inputs` in a halo of NaN, 1e9 and -7.5. The key kernel's
+# CUDA blocks take 4 x 8 macroblocks, so 24x24 is one partial block, 40x72
+# a partial last row and column of blocks, 128x2040 a last column of 7
+# macroblocks.
+KEY_CARD_CASES = [
+    *[pytest.param("edge", t, id=str(t)) for t in (8, 64, 128)],
+    *[pytest.param((c, h, w), t, id=f"{c}-{h}x{w}-{t}")
+      for h, w, t in [(24, 24, 8), (40, 72, 8), (128, 2040, 8),
+                      (128, 2040, 64), (128, 2040, 128)]
+      for c in tkl.CHECK_CONTENTS],
+]
+
+
+@pytest.mark.parametrize("frames,tile_h", KEY_CARD_CASES)
+def test_key_kernels_match_plain_cuda(cuda, frames, tile_h):
+    """Each key wrapper, one launch a call, equal to its plain version: the
+    nine key variants (`kern_lab.variant_fn`, on `lab_key_kernel`) to
+    `diff_plain` on every frame pair, random pixels, ties (one value in
+    both frames) and the wrapping key (cur 255 against ref 0); L3's and
+    L6's other variants on the zero halo they were ported for."""
+    if frames == "edge":
+        cur, ref_p = _card_inputs(cuda)
+    else:
+        c, h, w = frames
+        cur, ref_p = (t.to(cuda) for t in _torch(*tkl.check_inputs(
+            h + w, height=h, width=w, content=c)))
     diff = {sad: lab.diff_plain(cur, ref_p, sad=sad) for sad in (False, True)}
-    cases = [
-        (lab.lab_p3, dict(), diff[False]),
-        (lab.lab_p3, dict(sad=True), diff[True]),
-        (lab.lab_p3, dict(ablate="nochain"), lab.nochain_plain(cur, ref_p)),
-        (lab.lab_p3, dict(ablate="nofold"), lab.nofold_plain(cur, ref_p)),
-        *[(lab.lab_p5, dict(sad=s, bf16=b), diff[s])
-          for s in (False, True) for b in (False, True)],
-        *[(lab.lab_p6, dict(bf16=b), diff[False]) for b in (False, True)],
-        *[(lab.lab_p7, dict(sad=s), diff[s]) for s in (False, True)],
-    ]
-    for fn, kw, want in cases:
-        before = fn.launches
-        got = fn(cur, ref_p, tile_h=tile_h, **kw)
-        assert fn.launches == before + 1
-        assert torch.equal(got, want), (fn.__name__, kw)
+    wrappers = {"P3": lab.lab_p3, "P4": lab.lab_diff, "P5": lab.lab_p5,
+                "P7": lab.lab_p7}
+    runs = [(v, wrappers[v[:2]], tkl.variant_fn(f"{v}:{tile_h}")[0],
+             diff["S" in v]) for v in tkl.KEY_VARIANTS]
+    if frames == "edge":  # lab_search_kernel's key variants
+        for fn, kw, want in [
+                (lab.lab_p3, {}, diff[False]),
+                (lab.lab_p3, dict(ablate="nochain"),
+                 lab.nochain_plain(cur, ref_p)),
+                (lab.lab_p3, dict(ablate="nofold"),
+                 lab.nofold_plain(cur, ref_p)),
+                *[(lab.lab_p6, dict(bf16=b), diff[False])
+                  for b in (False, True)]]:
+            runs.append((f"{fn.__name__} {kw}", fn,
+                         functools.partial(fn, tile_h=tile_h, **kw), want))
+    for what, wrapper, run, want in runs:
+        before = wrapper.launches
+        got = run(cur, ref_p)
+        assert wrapper.launches == before + 1, what
+        assert torch.equal(got, want), what
