@@ -209,15 +209,16 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    sizes beside the FP32-lane floor (a rate above it fails: the compiler
    dropped work; roll by the adds it executes, `vpu_peak.roll_adds`, with
    the tool's count beside it), and L2/L4 timed in turns beside K1. L1's
-   six variants are held exactly against their plain versions at tile_h
-   64 and 128, L0, M1 and M2 against K1 on the blocks whose window lies
-   inside the frame, each beside the bound its arithmetic sets
-   (`bench/roofline.lab_bound`); so are the nine variants of the key
-   kernel (L4 "P4", "P4S" at tile_h 64 and 128; L5, L7 and L3's "P3S" at
-   128), which are also held exactly against `diff_plain` on KEY_CHECKS'
-   frames with partial CUDA blocks (random, tie and wrapping-key contents,
-   the halo NaN, 1e9 and -7.5); the registers, spills and resident warps
-   of L1's, the key kernel's and the roll's instances are printed.
+   six variants and L3, L5-L7 are held exactly against their plain
+   versions at tile_h 64 and 128, L0, M1 and M2 against K1 on the blocks
+   whose window lies inside the frame, each variant beside the bound its
+   arithmetic sets (`bench/roofline.lab_bound`; L2 and L4 at both tile_h).
+   The sixteen variants of the key kernel (L2-L7 but L1) are also held
+   exactly against their plain versions (`kern_lab.key_plain`) on
+   KEY_CHECKS' frames with partial CUDA blocks (random, tie and
+   wrapping-key contents, the halo NaN, 1e9 and -7.5; "P3B" the zero
+   halo); the registers, spills and resident warps of L1's, the key
+   kernel's seven and the roll's instances are printed.
 8. One JSON line listing the kernels and emit modes, the nvidia-smi
    name/power-limit line, and as the last line {"ok": true, "device":
    {...}}.
@@ -445,10 +446,11 @@ LAB_KERNELS = ("me_lab_peak", "me_lab_chain", "me_lab_phase", "me_lab_diff",
                "me_lab_p7")
 FILL_ROWS = 512
 FILL_CH_W = 65536
-# The key kernel's edge checks (`lab_key_kernel`, nine variants): (height,
-# width, tile_h) of frames whose last CUDA block is partial in one or both
-# directions, each with `kern_lab.check_inputs`' contents (random, tie,
-# wrap) inside a halo of NaN, 1e9 and -7.5.
+# The key kernel's edge checks (`lab_key_kernel`, the sixteen variants of
+# L2-L7): (height, width, tile_h) of frames whose last CUDA block is partial
+# in one or both directions, each with `kern_lab.check_inputs`' contents
+# (random, tie, wrap) inside a halo of NaN, 1e9 and -7.5 ("P3B", which
+# masks nothing, inside the zero halo).
 KEY_CHECKS = [(24, 24, 8), (40, 72, 8), (128, 2040, 64)]
 
 
@@ -457,26 +459,29 @@ def fail(message: str):
 
 
 def key_checks(dev, compare):
-    """The key kernel's nine variants (`kern_lab.KEY_VARIANTS`, each through
-    `kern_lab.variant_fn`), each exactly against `diff_plain` (SAD where
-    "S" is in the name) on the KEY_CHECKS frames with every
-    `kern_lab.check_inputs` content, at the frame's tile_h. Returns the
+    """The key kernel's sixteen variants (`kern_lab.KEY_VARIANTS` and
+    `CROSS_VARIANTS`, each through `kern_lab.variant_fn`), each exactly
+    against its plain version (`kern_lab.key_plain`) on the KEY_CHECKS
+    frames with every `kern_lab.check_inputs` content, at the frame's
+    tile_h; "P3B" on the zero halo around the same frame. Returns the
     number of checks."""
-    from motionestimation_tpu_torch.kernels import lab_cuda as lab
     from motionestimation_tpu_torch.tools import kern_lab
     kernel = {v: name for v, name, *_ in NEW_LAB}
-    kernel.update(P4="me_lab_diff", P4S="me_lab_diff")
+    kernel.update(P4="me_lab_diff", P4S="me_lab_diff", P0="me_lab_phase",
+                  P1="me_lab_phase")
     n = 0
     for h, w, tile_h in KEY_CHECKS:
         for content in kern_lab.CHECK_CONTENTS:
             cur, ref_p = (torch.from_numpy(a).to(dev) for a in
                           kern_lab.check_inputs(h + w, height=h, width=w,
                                                 content=content))
-            want = {sad: lab.diff_plain(cur, ref_p, sad=sad)
-                    for sad in (False, True)}
-            for v in kern_lab.KEY_VARIANTS:
-                got = kern_lab.variant_fn(f"{v}:{tile_h}")[0](cur, ref_p)
-                compare([kernel[v]], [got], [want["S" in v]],
+            for v in (*kern_lab.KEY_VARIANTS, *kern_lab.CROSS_VARIANTS):
+                ref = (kern_lab.zero_halo(ref_p, height=h, width=w)
+                       if v == "P3B" else ref_p)
+                got = kern_lab.variant_fn(f"{v}:{tile_h}")[0](cur, ref)
+                want = kern_lab.key_plain(v, cur, ref)
+                compare([kernel[v]], got if isinstance(got, tuple) else [got],
+                        want if isinstance(want, tuple) else [want],
                         f"{kernel[v]} \"{v}\" {w}x{h} tile_h {tile_h} "
                         f"{content}", quiet=True)
                 n += 1
@@ -2808,11 +2813,13 @@ def main(argv=None) -> int:
             print(f"  {metric} {name} {ms:.4f} ms (runs "
                   f"{[round(t, 4) for t in ts]}), {pixel_cands / ms / 1e9:.2f} "
                   f"T pixel-candidates/s | {card}")
-    print(f"  L2 bound {bytes_bound[0]:.6f} ms ({bytes_bound[1]}; int8 "
-          f"data-sheet rate); FP32-lane floor {2 * pixel_cands / lane_ops_s * 1e3:.4f}"
+    print(f"  the search's bound by bench/roofline.bound "
+          f"{bytes_bound[0]:.6f} ms ({bytes_bound[1]}; int8 data-sheet rate; "
+          f"L2's own below, by lab_bound); FP32-lane floor {2 * pixel_cands / lane_ops_s * 1e3:.4f}"
           f" ms (2 lane-ops per pixel-candidate) | {card}")
     lab_times["me_lab_phase"] = (turns["me_lab_phase \"P0\":128", "mse"],
-                                 lab_plain_ms["me_lab_phase"], *bytes_bound)
+                                 lab_plain_ms["me_lab_phase"],
+                                 *lab_bound("P0", h, w, sms, max_clock_mhz))
     lab_times["me_lab_diff"] = (
         turns["me_lab_diff \"P4\":128", "mse"], lab_plain_ms["me_lab_diff"],
         *lab_bound("P4", h, w, sms, max_clock_mhz))
@@ -2866,14 +2873,12 @@ def main(argv=None) -> int:
                   f"{where}")
         fns[f"{name} \"{variant}\":128"] = (
             lambda run=run: run(cur, ref_p))
-    # L1 and the key variants at tile_h 64 too: it changes only "L1"'s
-    # function.
+    # Every variant at tile_h 64 too: it changes only "L1"'s function.
     for variant, name, plain, _ in NEW_LAB:
-        if variant in LAB_OPS:
-            want = (lab.raw_plain(cur, ref_p, tile_h=64) if plain == "raw"
-                    else plains[plain][0])
-            compare([name], kern_lab.variant_fn(f"{variant}:64")[0](
-                cur, ref_p), want, f"{name} \"{variant}\" {w}x{h} tile_h 64")
+        want = (lab.raw_plain(cur, ref_p, tile_h=64) if plain == "raw"
+                else plains[plain][0])
+        compare([name], kern_lab.variant_fn(f"{variant}:64")[0](cur, ref_p),
+                want, f"{name} \"{variant}\" {w}x{h} tile_h 64")
     for fn in fns.values():
         fn()  # warm-up
     times = {n: [] for n in fns}
@@ -2886,20 +2891,22 @@ def main(argv=None) -> int:
               f"{[round(t, 4) for t in ts]}) | {card}")
     for plain, (_, ms) in plains.items():
         print(f"  plain {plain} {ms:.2f} ms | {card}")
-    # L1's and the key kernel's bounds (bench/roofline.lab_bound): the
+    # Every lab variant's bound (bench/roofline.lab_bound): the
     # larger of their arithmetic (LAB_OPS) at the rate of the lanes that
     # issue it and their float32 operands read once (cur, the [h + 24,
-    # w + 24] window) and outputs written once, at 3.35 TB/s. L4's "P4"
-    # and "P4S" at both tile_h from the L2/L4 turns, the rest at 128.
+    # w + 24] window) and outputs written once, at 3.35 TB/s. L2's "P0",
+    # "P1" and L4's "P4", "P4S" at both tile_h from the L2/L4 turns, the
+    # rest at 128.
     variant_ms = {(name, v, 128): statistics.mean(times[f"{name} \"{v}\":128"])
                   for v, name, *_ in NEW_LAB}
     for tile_h in (128, 64):
-        for v, metric in (("P4", "mse"), ("P4S", "sad")):
-            variant_ms["me_lab_diff", v, tile_h] = turns[
-                f"me_lab_diff \"{v}\":{tile_h}", metric]
+        for name, v, metric in (("me_lab_phase", "P0", "mse"),
+                                ("me_lab_phase", "P1", "sad"),
+                                ("me_lab_diff", "P4", "mse"),
+                                ("me_lab_diff", "P4S", "sad")):
+            variant_ms[name, v, tile_h] = turns[
+                f"{name} \"{v}\":{tile_h}", metric]
     for (name, v, tile_h), ms in variant_ms.items():
-        if v not in LAB_OPS:
-            continue
         ops, lanes = LAB_OPS[v]
         ops_ms, bytes_ms = lab_parts(v, h, w, sms, max_clock_mhz)
         bound_ms, bound_by = lab_bound(v, h, w, sms, max_clock_mhz)
@@ -2912,15 +2919,15 @@ def main(argv=None) -> int:
         if name not in lab_times:  # each kernel's first variant
             lab_times[name] = (
                 variant_ms[name, variant, 128], plains[plain][1],
-                *(lab_bound(variant, h, w, sms, max_clock_mhz)
-                  if variant in LAB_OPS else bytes_bound))
+                *lab_bound(variant, h, w, sms, max_clock_mhz))
     # The key kernel on small frames with edges, garbage halos, ties and
     # the wrapping key.
     t_keys = time.perf_counter()
     n_keys = key_checks(dev, compare)
-    print(f"lab_key_kernel: {n_keys} checks of its nine variants against "
-          f"diff_plain (frames {KEY_CHECKS} as (h, w, tile_h), contents "
-          f"{kern_lab.CHECK_CONTENTS}, halo {kern_lab.HALO_FILL}), all equal "
+    print(f"lab_key_kernel: {n_keys} checks of its sixteen variants against "
+          f"their plain versions (frames {KEY_CHECKS} as (h, w, tile_h), "
+          f"contents {kern_lab.CHECK_CONTENTS}, halo {kern_lab.HALO_FILL}; "
+          f"\"P3B\" the zero halo), all equal "
           f"({time.perf_counter() - t_keys:.1f} s)")
     del cur, ref_p, cur_u8, halo_u8, plains, k1
     print(f"speed-of-light tools phase: "

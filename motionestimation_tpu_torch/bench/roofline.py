@@ -65,38 +65,48 @@ def bound(h, w, blk, span, tile, origin, ssim=False, volume=False):
 # and the lanes of an SM that issue them each clock: L1's a __dp4a (L0,
 # M1) or a vabsdiff4 with accumulate (M2) a word of four pixels on the
 # 64 int32 lanes; a bf16x2 FMA and an FADD a pixel (M3), or one product
-# ("L1"), on the 128 FP32 lanes; none (NOP). The key kernel's (L4, L5, L7
-# and L3's "P3S"): SAD a vabsdiff4 with accumulate a word on the int32
-# lanes; the diff form a vabsdiff4 and a __dp4a a word, 32 instructions,
-# counted against what holds however the two are given pipes: an SM issues
-# one warp instruction a clock from each of its four schedulers, 128 lanes,
-# and each of the two alone is 16 on its 64 lanes, the same time. Neither
-# rate is measured on the card apart (a vabsdiff4-only and a __dp4a-only
-# loop would tell).
+# ("L1"), on the 128 FP32 lanes; none (NOP). The key kernel's (L2-L7): SAD
+# ("P1" and the key's) a vabsdiff4 with accumulate a word and the cross
+# term ("P0", "P3", "P6", "P6B") a __dp4a a word, on the int32 lanes; the
+# diff form a vabsdiff4 and a __dp4a a word, 32 instructions, counted
+# against what holds however the two are given pipes: an SM issues one
+# warp instruction a clock from each of its four schedulers, 128 lanes, and
+# each of the two alone is 16 on its 64 lanes, the same time. Neither rate
+# is measured on the card apart (a vabsdiff4-only and a __dp4a-only loop
+# would tell). L3's ablations: "P3B" the cross term's ring, which it keeps
+# live, over every candidate; "P3A" no ring, the cost's add, the key's
+# multiply-add, the mask's OR and the minimum a candidate on the int32
+# lanes, under its bytes.
 LAB_BLK, LAB_SPAN = 8, 12
 LAB_OPS = {"NOP": (0, 128), "L0": (16, 64), "L1": (1, 128), "M1": (16, 64),
            "M2": (16, 64), "M3": (128, 128),
            **dict.fromkeys(("P4", "P5", "P5B", "P7"), (32, 128)),
-           **dict.fromkeys(("P4S", "P5S", "P5SB", "P7S", "P3S"), (16, 64))}
-# L1 searches every offset of the zero-padded reference and writes a float32
-# cost and an int32 index a block; the key variants only the candidates
-# whose window lies inside the frame, and one int32 key a block.
-LAB_UNMASKED = ("NOP", "L0", "L1", "M1", "M2", "M3")
+           **dict.fromkeys(("P4S", "P5S", "P5SB", "P7S", "P3S", "P1"),
+                           (16, 64)),
+           **dict.fromkeys(("P0", "P3", "P6", "P6B", "P3B"), (16, 64)),
+           "P3A": (4, 64)}
+# L1 searches every offset of the zero-padded reference, and "P3B" keeps
+# every offset's ring live; the other key variants need only the candidates
+# whose window lies inside the frame. L1 and L2 ("P0", "P1") write a
+# float32 cost and an int32 index a block, the rest one int32.
+LAB_UNMASKED = ("NOP", "L0", "L1", "M1", "M2", "M3", "P3B")
+LAB_PAIR = ("NOP", "L0", "L1", "M1", "M2", "M3", "P0", "P1")
 
 
 def lab_parts(variant: str, h: int, w: int, sms: int, clock_mhz: float):
     """(operations ms, bytes ms) of a lab variant on an h x w frame: its
     LAB_OPS instructions for each block-candidate the function needs (all
-    625 a block for L1, the valid ones for the key variants) over `sms` SMs
-    of its lanes at `clock_mhz`; its float32 operands (cur and the [h + 24,
-    w + 24] window) read once and outputs written once over the HBM rate."""
+    625 a block for LAB_UNMASKED, the valid ones for the rest) over `sms`
+    SMs of its lanes at `clock_mhz`; its float32 operands (cur and the
+    [h + 24, w + 24] window) read once and outputs (8 bytes a block for
+    LAB_PAIR, 4 for the rest) written once over the HBM rate."""
     ops, lanes = LAB_OPS[variant]
     nblk = (h // LAB_BLK) * (w // LAB_BLK)
     if variant in LAB_UNMASKED:
-        cands, out_bytes = nblk * (2 * LAB_SPAN + 1) ** 2, 8
+        cands = nblk * (2 * LAB_SPAN + 1) ** 2
     else:
         cands = valid_candidates(h, w, LAB_BLK, LAB_SPAN, (h, w), (0, 0))[1]
-        out_bytes = 4
+    out_bytes = 8 if variant in LAB_PAIR else 4
     ops_ms = cands * ops / (sms * lanes * clock_mhz * 1e6) * 1e3
     nbytes = (4 * (h * w + (h + 2 * LAB_SPAN) * (w + 2 * LAB_SPAN))
               + out_bytes * nblk)

@@ -39,23 +39,27 @@
 //   L4's key by the cross term (Qcur + Qref) - 2X, or SAD; nochain ("P3A":
 //   X the r = 0 term at offset row 0, 0 elsewhere, the rows the TPU kernel
 //   leaves unwritten taken as 0) and nofold ("P3B": per block the least
-//   over ox of int32 sum_r cur[8R + r][c] * ref[8R + r][c + ox]).
+//   over ox of int32 sum_r cur[8R + r][c] * ref[8R + r][c + ox]); what
+//   each keeps and drops of "P3" is at lab_key_kernel (kNochain, kNofold).
 // me_lab_p5 (L5, `make_p5_kernel` :773, `pallas_call` :854): L4's key by
 //   the diff form or SAD, over float32 or bfloat16 planes (lab_key_kernel).
 // me_lab_p6 (L6, `make_p6_kernel` :898, `pallas_call` :997): L4's key by
 //   the cross term (Qcur - X) + (Qref - X), float32 or bfloat16 planes.
 // me_lab_p7 (L7, `make_p7_kernel` :1044, `pallas_call` :1121): L4's key by
 //   the diff form or SAD over bfloat16 planes (lab_key_kernel).
-// Nine launcher variants share lab_key_kernel's two instances: its SSD (the
-// diff form) runs L4's "P4", "P5", "P5B", "P7"; its SAD "P4S", "P5S",
-// "P5SB", "P7S" and L3's "P3S" (bfloat16 holds every pixel 0..255, so a
-// bfloat16 variant computes its float32 variant's function).
+// L2-L7 run one kernel, lab_key_kernel, in seven instances (a cost form
+// and an output form each; bfloat16 holds every pixel 0..255, so a
+// bfloat16 variant computes its float32 variant's function): the diff
+// form's key runs L4's "P4", "P5", "P5B", "P7"; SAD's key "P4S", "P5S",
+// "P5SB", "P7S" and L3's "P3S"; the cross term's key L3's "P3" and L6's
+// "P6", "P6B"; the cross term's and SAD's (cost, idx) L2's "P0" and "P1";
+// and one instance each for L3's ablations "P3A" and "P3B".
 //
 // Lab contract (L1-L7): cur float32 [frame_h, frame_w] of integer pixels
 // 0..255; ref float32 halo, at least [frame_h + 24, frame_w + 24], with
 // reference pixel (y, x) at [y + 12, x + 12]. Blocks 8x8, span 12 (K = 25),
 // flat = (dy + 12) * 25 + (dx + 12). A candidate is valid iff its window
-// lies inside the frame (kern_lab.py:405-410; L1 and P3B mask nothing).
+// lies inside the frame (kern_lab.py:405-410; L1 and "P3B" mask nothing).
 // Every partial sum is an integer below 2^24 (at most 64 * 255^2), so
 // float32 is exact in any order (L1 sums L0's and M2's in 32-bit integers
 // of bytes, exact too), and cost * 625 + flat < 2^32: the unsigned key
@@ -77,36 +81,38 @@
 // memory, behind one barrier. P2: one thread per (g, x) holding its 8 C and
 // 32 E values in registers; each repetition reads the C values through the
 // same XOR and feeds a minimum carried across repetitions, so the `reps`
-// repetitions are neither folded into one nor dead. L2/L3/L6: one CUDA block
-// per `tile_h` pixel rows (the TPU stripe height) and `tbx` macroblocks, staging
-// the current tile and its reference window as float32 in shared memory (L2
-// SSD also the Qref box-sum plane, column sums then row sums, once per CUDA
-// block); 128 threads split each macroblock's 625 candidates and keep the
-// best as a 64-bit key, reduced by common.cuh. The TPU choreography (phase-
-// plane permutation matmuls, lane rolls of E, the static min tree) is not
-// carried over. L3 and L6 are template axes of the same kernel: the cost
-// form, the key, the ablation, and bfloat16 staging, whose window is kept in
-// two copies shifted by one column so that a candidate at any column offset
-// reads aligned pairs. L1 is its own kernel (lab_padded_kernel below): no
-// product scratch and no atomic; the window is staged as bytes, and a thread
-// keeps 8 offset rows x 5 offset columns of sums in registers and feeds them
-// from each window row it loads once (pad_ring). L4, L5, L7 and "P3S" run
-// that layout and ring too (lab_key_kernel), with the masked candidates'
-// keys all ones where an offset row's costs enter the key.
+// repetitions are neither folded into one nor dead. L1-L7 share one layout:
+// a CUDA block of 160 threads takes 4 x 8 macroblocks (tile_h, the TPU
+// stripe height, is checked and sets nothing but "L1"'s function), stages
+// their window as bytes, four to a word, in shared memory (and, for the
+// cross term, the Qref box-sum plane: row sums by __dp4a, then column sums
+// sliding down, build_qref), and gives each macroblock five threads of 5
+// offset columns each. A thread holds its macroblock's 64 pixels as 16
+// words and keeps 8 offset rows x 5 offset columns of sums in registers,
+// fed from each window row it loads once and shifts to the nine byte
+// offsets its columns start at (pad_ring); no product scratch, no atomic,
+// no shared load per pixel-candidate. The five threads of a macroblock meet
+// once at the end, through shared memory. The TPU choreography (phase-plane
+// permutation matmuls, lane rolls of E, the static min tree) is not carried
+// over. L1 runs lab_padded_kernel (nothing masked); L2-L7 run
+// lab_key_kernel, with each masked candidate's key all ones where an
+// offset row's costs enter the key.
 //
 // What bounds it. P1 fma and mix and P2 are FP32-lane issue: one FMA (or sub)
 // per lane per clock, 128 lanes per SM. P1 roll: its adds (one a stream,
 // column and step) at that rate, and the halo's, 28 a stream and iteration
 // beside a thread's 8 * KC; a row is one CUDA block, so at 64 rows 64 SMs
-// work, with 4 warps each. L2, L3, L6: one shared-memory load and one FMA per
-// pixel-candidate (2.62 G at 2048x2048); the load, 32 lanes per SM per clock,
-// comes first; bfloat16 pairs halve the loads. L1: its arithmetic, a __dp4a
-// (L0, M1) or a vabsdiff4 (M2) a word of four pixel-candidates on the 64
-// int32 lanes of an SM, a bf16x2 FMA and an FADD a pixel-candidate (M3) on
-// the 128 FP32 lanes; four shared loads and nine funnel shifts a window row
-// feed 320 pixel-candidates. The key kernel likewise: a vabsdiff4 and a
-// __dp4a a word (SSD by the diff form), or a vabsdiff4 with accumulate
-// (SAD), on the int32 lanes (bench/roofline.py LAB_OPS counts them).
+// work, with 4 warps each. L1: its arithmetic, a __dp4a (L0, M1) or a
+// vabsdiff4 (M2) a word of four pixel-candidates on the 64 int32 lanes of
+// an SM, a bf16x2 FMA and an FADD a pixel-candidate (M3) on the 128 FP32
+// lanes; four shared loads and nine funnel shifts a window row feed 320
+// pixel-candidates. The key kernel likewise, over the valid candidates: a
+// __dp4a a word (the cross term: "P0", "P3", "P6", "P6B"), a vabsdiff4 with
+// accumulate (SAD: "P1" and the key's), or a vabsdiff4 and a __dp4a (the
+// diff form; two instructions a word against the SM's issue, 128 lanes a
+// clock); "P3B" its __dp4a over every candidate, which it keeps live; "P3A"
+// no ring, a few integer instructions a candidate, so its bytes
+// (bench/roofline.py LAB_OPS counts them all).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,11 +124,8 @@
 
 namespace {
 
-using me::kNoKey;
 using me::kThreads;
-using me::kWarps;
 using me::reserve_smem;
-using me::warp_store_min;
 
 constexpr int kBlk = 8;
 constexpr int kSpan = 12;
@@ -340,284 +343,9 @@ chain_kernel(const float* __restrict__ c, const float* __restrict__ e,
   out[i] = total;
 }
 
-// ---------------------------------------------------------------------------
-// L2 / L3 / L6. FORM: 0 = SSD by the cross term (Qcur - X) + (Qref - X)
-// (L2, L6), 2 = SAD (L2's), 3 = SSD by the cross term (Qcur + Qref) - 2X
-// (L3); the diff form (1) and the key's SAD are lab_key_kernel's. KEY: false
-// writes L2's (cost, idx), true the packed key. ABL: 0, or L3's ablations
-// 1 = nochain (X is the r = 0 term at offset row 0, else 0) and 2 = nofold
-// (the first column's 8-term chain at offset row 0, unmasked, least over
-// ox). BF16: the window and tile staged as bfloat16 pairs, the window in
-// two copies shifted by one column so that every candidate reads aligned
-// __nv_bfloat162 pairs, two pixels per 32-bit shared load.
-// grid = (ceil(nbx / tbx), frame_h / tile_h).
-struct LabLayout {
-  int tile_h, tw, win_h, win_w, q_h, q_w, nblk;
-  __host__ __device__ LabLayout(int tile_h_, int tbx)
-      : tile_h(tile_h_), tw(tbx * kBlk), win_h(tile_h_ + 2 * kSpan),
-        win_w(tbx * kBlk + 2 * kSpan), q_h(tile_h_ - kBlk + 2 * kSpan + 1),
-        q_w(tbx * kBlk - kBlk + 2 * kSpan + 1),
-        nblk((tile_h_ / kBlk) * tbx) {}
-  // Bytes of shared memory: key slots, window, current tile, and for the
-  // cross term the column-sum and Qref planes. With bf16 the window is two
-  // bfloat16 copies (the same bytes as one float32 copy) and the tile half.
-  __host__ __device__ size_t bytes(bool qref, bool bf16) const {
-    size_t floats = static_cast<size_t>(win_h) * win_w +
-                    static_cast<size_t>(tile_h) * tw / (bf16 ? 2 : 1);
-    if (qref)
-      floats += static_cast<size_t>(q_h) * win_w + static_cast<size_t>(q_h) * q_w;
-    return sizeof(unsigned long long) * nblk * kWarps + sizeof(float) * floats;
-  }
-};
-
-// Window pixel (r, c) from the float32 window or bfloat16 copy 0.
-template <bool BF16>
-__device__ __forceinline__ float win_at(const float* win,
-                                        const __nv_bfloat162* win16, int ld,
-                                        int r, int c) {
-  if constexpr (BF16) {
-    const __nv_bfloat162 p = win16[r * (ld / 2) + (c >> 1)];
-    return (c & 1) ? __high2float(p) : __low2float(p);
-  } else {
-    return win[r * ld + c];
-  }
-}
-
-template <int FORM, bool KEY, int ABL, bool BF16>
-__global__ void __launch_bounds__(kThreads)
-lab_search_kernel(const float* __restrict__ cur, int cur_ld,
-                  const float* __restrict__ ref, int ref_ld,
-                  float* __restrict__ out_cost, int32_t* __restrict__ out_idx,
-                  int32_t* __restrict__ out_key, int out_ld, int frame_h,
-                  int frame_w, int tile_h, int tbx, int flip) {
-  constexpr bool kQref = FORM == 0 || FORM == 3;
-  static_assert(KEY || (ABL == 0 && !BF16), "L2 has no ablation or bf16");
-  static_assert(ABL == 0 || FORM == 3, "the ablations are L3's");
-  extern __shared__ unsigned long long smem[];
-  const LabLayout L(tile_h, tbx);
-  const int nbx = frame_w / kBlk;
-  const int bx0 = blockIdx.x * tbx;
-  const int ntile = min(tbx, nbx - bx0);
-  const int y0 = blockIdx.y * tile_h, x0 = bx0 * kBlk;
-  const int pw = L.win_w / 2, tpw = L.tw / 2;  // bfloat16 pairs per row
-
-  unsigned long long* red = smem;                                    // [nblk*kWarps]
-  float* win = reinterpret_cast<float*>(red + L.nblk * kWarps);      // [win_h*win_w]
-  __nv_bfloat162* win16 = reinterpret_cast<__nv_bfloat162*>(win);    // [2][win_h*pw]
-  float* cblk = win + L.win_h * L.win_w;                             // [tile_h*tw]
-  __nv_bfloat162* cblk16 = reinterpret_cast<__nv_bfloat162*>(cblk);  // [tile_h*tpw]
-  float* colsq = cblk + L.tile_h * L.tw / (BF16 ? 2 : 1);            // [q_h*win_w]
-  float* qref = colsq + L.q_h * L.win_w;                             // [q_h*q_w]
-
-  // Stage the window and the current tile; columns past the frame's last
-  // macroblock of this CUDA block are zero and never read by a candidate.
-  const int used_w = ntile * kBlk + 2 * kSpan;
-  auto ref_at = [&](int r, int c) {
-    return c < used_w ? ref[static_cast<size_t>(y0 + r) * ref_ld + x0 + c]
-                      : 0.0f;
-  };
-  auto cur_at = [&](int r, int c) {
-    return c < ntile * kBlk
-               ? cur[static_cast<size_t>(y0 + r) * cur_ld + x0 + c]
-               : 0.0f;
-  };
-  if constexpr (BF16) {
-    // Copy s, pair q of row r: window columns (2q + s, 2q + s + 1).
-    for (int i = threadIdx.x; i < 2 * L.win_h * pw; i += kThreads) {
-      const int s = i / (L.win_h * pw), rem = i - s * L.win_h * pw;
-      const int r = rem / pw, c = 2 * (rem - r * pw) + s;
-      win16[i] = __floats2bfloat162_rn(ref_at(r, c), ref_at(r, c + 1));
-    }
-    for (int i = threadIdx.x; i < L.tile_h * tpw; i += kThreads) {
-      const int r = i / tpw, c = 2 * (i - r * tpw);
-      cblk16[i] = __floats2bfloat162_rn(cur_at(r, c), cur_at(r, c + 1));
-    }
-  } else {
-    for (int i = threadIdx.x; i < L.win_h * L.win_w; i += kThreads) {
-      const int r = i / L.win_w;
-      win[i] = ref_at(r, i - r * L.win_w);
-    }
-    for (int i = threadIdx.x; i < L.tile_h * L.tw; i += kThreads) {
-      const int r = i / L.tw;
-      cblk[i] = cur_at(r, i - r * L.tw);
-    }
-  }
-  __syncthreads();
-  if constexpr (kQref) {
-    // Qref[y][x] = sum over the 8x8 box at window (y, x) of ref^2.
-    for (int i = threadIdx.x; i < L.q_h * L.win_w; i += kThreads) {
-      const int r = i / L.win_w, c = i - r * L.win_w;
-      float s = 0.0f;
-#pragma unroll
-      for (int a = 0; a < kBlk; ++a) {
-        const float v = win_at<BF16>(win, win16, L.win_w, r + a, c);
-        s = fmaf(v, v, s);
-      }
-      colsq[i] = s;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < L.q_h * L.q_w; i += kThreads) {
-      const int r = i / L.q_w, c = i - r * L.q_w;
-      float s = 0.0f;
-#pragma unroll
-      for (int b = 0; b < kBlk; ++b) s += colsq[r * L.win_w + c + b];
-      qref[i] = s;
-    }
-    __syncthreads();
-  }
-
-  for (int m = 0; m < L.nblk; ++m) {
-    const int R = m / tbx, bm = m - R * tbx;
-    unsigned long long best = kNoKey;
-    if (bm < ntile) {
-      float creg[kBlk * kBlk];
-      float qcur = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kBlk; ++r) {
-#pragma unroll
-        for (int q = 0; q < kBlk / 2; ++q) {
-          float2 v;
-          if constexpr (BF16) {
-            v = __bfloat1622float2(cblk16[(R * kBlk + r) * tpw + bm * 4 + q]);
-          } else {
-            const float* cb = cblk + (R * kBlk + r) * L.tw + bm * kBlk + 2 * q;
-            v = make_float2(cb[0], cb[1]);
-          }
-          creg[r * kBlk + 2 * q] = v.x;
-          creg[r * kBlk + 2 * q + 1] = v.y;
-          if constexpr (kQref) qcur = fmaf(v.y, v.y, fmaf(v.x, v.x, qcur));
-        }
-      }
-      const int gy = y0 + R * kBlk, gx = x0 + bm * kBlk;
-      // Valid offsets o = d + span: 0 <= g + o - span <= frame - 8.
-      const int oy_lo = max(0, kSpan - gy);
-      const int oy_hi = min(2 * kSpan, frame_h - kBlk - gy + kSpan);
-      const int ox_lo = max(0, kSpan - gx);
-      const int ox_hi = min(2 * kSpan, frame_w - kBlk - gx + kSpan);
-      for (int cand = threadIdx.x; cand < kK * kK; cand += kThreads) {
-        const int oy = cand / kK, ox = cand - oy * kK;
-        unsigned long long key;
-        if (ABL != 2 &&
-            (oy < oy_lo || oy > oy_hi || ox < ox_lo || ox > ox_hi)) {
-          key = KEY ? 0xffffffffull
-                    : (static_cast<unsigned long long>(kBig) << 32) |
-                          static_cast<unsigned>(cand);
-        } else {
-          const int row = R * kBlk + oy, col = bm * kBlk + ox;
-          const float* wp = win + row * L.win_w + col;
-          // Copy (col & 1) holds the pairs that start at col.
-          const __nv_bfloat162* wq =
-              win16 + (col & 1) * L.win_h * pw + row * pw + (col >> 1);
-          float acc = 0.0f, col0 = 0.0f;
-          auto term = [&](float c, float e, bool first_col) {
-            if (ABL == 2 && first_col) {
-              col0 = fmaf(c, e, col0);
-            } else if constexpr (FORM == 0 || FORM == 3) {
-              acc = fmaf(c, e, acc);
-            } else {
-              acc += fabsf(c - e);
-            }
-          };
-          if constexpr (ABL == 1) {
-            // nochain: the TPU kernel writes only the first term of the
-            // offset-row-0 chain; the rest of its buffer is taken as 0.
-            if (oy == 0) {
-#pragma unroll
-              for (int k = 0; k < kBlk; ++k)
-                acc = fmaf(creg[k], win_at<BF16>(win, win16, L.win_w, row, col + k),
-                           acc);
-            }
-          } else {
-#pragma unroll
-            for (int r = 0; r < kBlk; ++r) {
-#pragma unroll
-              for (int q = 0; q < kBlk / 2; ++q) {
-                float2 e;
-                if constexpr (BF16) {
-                  e = __bfloat1622float2(wq[r * pw + q]);
-                } else {
-                  e = make_float2(wp[r * L.win_w + 2 * q],
-                                  wp[r * L.win_w + 2 * q + 1]);
-                }
-                term(creg[r * kBlk + 2 * q], e.x, q == 0);
-                term(creg[r * kBlk + 2 * q + 1], e.y, false);
-              }
-            }
-          }
-          if constexpr (ABL == 2) {
-            // nofold: the int32 chain value, ordered as unsigned; the other
-            // offset rows' chains reach the key only through (bits & flip),
-            // flip being 0, so they stay computed and never win.
-            const uint32_t live = __float_as_uint(acc) & static_cast<uint32_t>(flip);
-            key = (oy == 0 ? static_cast<uint32_t>(static_cast<int32_t>(col0)) ^
-                                 0x80000000u
-                           : 0xffffffffu) ^ live;
-          } else {
-            float cost = acc;
-            if constexpr (FORM == 0)
-              cost = (qcur - acc) +
-                     (qref[(R * kBlk + oy) * L.q_w + bm * kBlk + ox] - acc);
-            if constexpr (FORM == 3)
-              cost = (qcur + qref[(R * kBlk + oy) * L.q_w + bm * kBlk + ox]) -
-                     (acc + acc);
-            const uint32_t ic = static_cast<uint32_t>(cost);  // exact, >= 0
-            key = KEY ? static_cast<unsigned long long>(
-                            ic * static_cast<uint32_t>(kK * kK) +
-                            static_cast<uint32_t>(cand))
-                      : (static_cast<unsigned long long>(ic) << 32) |
-                            static_cast<unsigned>(cand);
-          }
-        }
-        best = key < best ? key : best;
-      }
-    }
-    warp_store_min(best, red, m);
-  }
-  __syncthreads();
-  for (int m = threadIdx.x; m < L.nblk; m += kThreads) {
-    const int R = m / tbx, bm = m - R * tbx;
-    if (bm >= ntile) continue;
-    const unsigned long long best = me::slot_min(red, m);
-    const size_t o =
-        static_cast<size_t>(blockIdx.y * (tile_h / kBlk) + R) * out_ld + bx0 + bm;
-    if constexpr (KEY) {
-      // key - 2^31 in wrapping int32: flip the top bit.
-      out_key[o] = static_cast<int32_t>(static_cast<uint32_t>(best) ^ 0x80000000u);
-    } else {
-      out_cost[o] = static_cast<float>(static_cast<uint32_t>(best >> 32));
-      out_idx[o] = static_cast<int32_t>(best & 0xffffffffu);
-    }
-  }
-}
-
 bool lab_shape_ok(int tile_h, int frame_h, int frame_w) {
   return tile_h > 0 && tile_h % kBlk == 0 && frame_h % tile_h == 0 &&
          frame_w % kBlk == 0 && frame_w > 0;
-}
-
-template <int FORM, bool KEY, int ABL = 0, bool BF16 = false>
-int launch_lab(const void* cur, const void* ref, void* out_cost,
-               void* out_idx, void* out_key, int cur_ld, int ref_ld,
-               int out_ld, int frame_h, int frame_w, int tile_h,
-               cudaStream_t stream) {
-  if (!lab_shape_ok(tile_h, frame_h, frame_w))
-    return static_cast<int>(cudaErrorInvalidValue);
-  constexpr bool kQref = FORM == 0 || FORM == 3;
-  auto kernel = lab_search_kernel<FORM, KEY, ABL, BF16>;
-  const int nbx = frame_w / kBlk;
-  int tbx = nbx < 8 ? nbx : 8;  // 64 pixels of macroblocks per CUDA block
-  while (!reserve_smem(kernel, LabLayout(tile_h, tbx).bytes(kQref, BF16)) &&
-         tbx > 1)
-    tbx /= 2;
-  const size_t smem = LabLayout(tile_h, tbx).bytes(kQref, BF16);
-  if (!reserve_smem(kernel, smem)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((nbx + tbx - 1) / tbx, frame_h / tile_h);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(cur), cur_ld, static_cast<const float*>(ref),
-      ref_ld, static_cast<float*>(out_cost), static_cast<int32_t*>(out_idx),
-      static_cast<int32_t*>(out_key), out_ld, frame_h, frame_w, tile_h, tbx,
-      0);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -786,6 +514,60 @@ __device__ __forceinline__ void load_block(const float* __restrict__ cur,
   }
 }
 
+// A window row's 12 columns from byte shift / 8 of its first word (the
+// row's four words loaded once): e[o] holds columns o..o+3, four to a word.
+__device__ __forceinline__ void row_columns(const uint32_t* row, int shift,
+                                            uint32_t (&e)[kPadG + 4]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = row[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) e[4 * i] = __funnelshift_r(w[i], w[i + 1], shift);
+#pragma unroll
+  for (int o = 1; o < kPadG + 4; ++o)
+    if (o % 4) e[o] = __funnelshift_r(e[o & ~3], e[(o & ~3) + 4], 8 * (o % 4));
+}
+
+// The Qref plane of a staged window: qref[y][x] = sum over the 8x8 box at
+// window (y, x) of ref^2, from row sums in rowsq (kPadWinH x kPadRq). Every
+// thread of the CUDA block calls it after the window is staged; it ends
+// behind a barrier.
+__device__ __forceinline__ void build_qref(const uint32_t* win, uint32_t* qref,
+                                           uint32_t* rowsq, int t) {
+  // Row sums first, four columns an item: rowsq[y][x] = sum_{b<8}
+  // ref(y, x + b)^2, a __dp4a of each byte word with itself.
+  for (int i = t; i < kPadWinH * (kPadRq / 4); i += kPadThreads) {
+    const int y = i / (kPadRq / 4), x4 = i - y * (kPadRq / 4);
+    const uint32_t* wp = win + y * kPadWs + x4;
+    const uint32_t w[3] = {wp[0], wp[1], wp[2]};
+    uint32_t e[8];  // e[o]: bytes 4 * x4 + o .. + 3
+#pragma unroll
+    for (int o = 0; o < 8; ++o)
+      e[o] = o % 4 ? __funnelshift_r(w[o / 4], w[o / 4 + 1], 8 * (o % 4))
+                   : w[o / 4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      rowsq[y * kPadRq + 4 * x4 + q] =
+          __dp4a(e[q], e[q], __dp4a(e[q + 4], e[q + 4], 0u));
+  }
+  __syncthreads();
+  // Then the sums of 8 rows, sliding down half a column an item.
+  constexpr int kHalf = (kPadQh + 1) / 2;
+  for (int i = t; i < 2 * kPadQw; i += kPadThreads) {
+    const int x = i % kPadQw, y0 = i / kPadQw * kHalf;
+    const int y1 = min(kPadQh, y0 + kHalf);
+    uint32_t s = 0;
+#pragma unroll
+    for (int a = 0; a < kBlk; ++a) s += rowsq[(y0 + a) * kPadRq + x];
+    qref[y0 * kPadQw + x] = s;
+    for (int y = y0 + 1; y < y1; ++y) {
+      s += rowsq[(y + kBlk - 1) * kPadRq + x] - rowsq[(y - 1) * kPadRq + x];
+      qref[y * kPadQw + x] = s;
+    }
+  }
+  __syncthreads();
+}
+
 // One thread's ring: the sums of its kPadG offset columns (from ox0, the
 // 12 columns that start at byte `shift` / 8 of wrow's first word) at all 25
 // offset rows, over the 32 window rows from wrow (kPadWs words a row). Each
@@ -807,17 +589,8 @@ __device__ __forceinline__ void pad_ring(const uint32_t* wrow, int shift,
 #pragma unroll
     for (int jj = 0; jj < kBlk; ++jj) {
       const int j = j0 + jj;  // window row, relative to the macroblock
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = wrow[j * kPadWs + i];
-      uint32_t e[kPadG + 4];  // e[o]: the columns' bytes o..o+3
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        e[4 * i] = __funnelshift_r(w[i], w[i + 1], shift);
-#pragma unroll
-      for (int o = 1; o < kPadG + 4; ++o)
-        if (o % 4)
-          e[o] = __funnelshift_r(e[o & ~3], e[(o & ~3) + 4], 8 * (o % 4));
+      uint32_t e[kPadG + 4];
+      row_columns(wrow + j * kPadWs, shift, e);
       float ef[kPadG + kBlk - 1];  // kBf16: the 12 columns as float32
       if constexpr (TERM == kBf16) {
 #pragma unroll
@@ -916,41 +689,7 @@ lab_padded_kernel(const float* __restrict__ cur, int cur_ld,
       out_idx[o] = kSpan * kK + kSpan;
     }
   } else {
-    if constexpr (kQ) {
-      // Qref[y][x] = sum over the 8x8 box at window (y, x) of ref^2. Row
-      // sums first, four columns an item: rowsq[y][x] = sum_{b<8}
-      // ref(y, x + b)^2, a __dp4a of each byte word with itself.
-      for (int i = t; i < kPadWinH * (kPadRq / 4); i += kPadThreads) {
-        const int y = i / (kPadRq / 4), x4 = i - y * (kPadRq / 4);
-        const uint32_t* wp = win + y * kPadWs + x4;
-        const uint32_t w[3] = {wp[0], wp[1], wp[2]};
-        uint32_t e[8];  // e[o]: bytes 4 * x4 + o .. + 3
-#pragma unroll
-        for (int o = 0; o < 8; ++o)
-          e[o] = o % 4 ? __funnelshift_r(w[o / 4], w[o / 4 + 1], 8 * (o % 4))
-                       : w[o / 4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          rowsq[y * kPadRq + 4 * x4 + q] =
-              __dp4a(e[q], e[q], __dp4a(e[q + 4], e[q + 4], 0u));
-      }
-      __syncthreads();
-      // Then the sums of 8 rows, sliding down half a column an item.
-      constexpr int kHalf = (kPadQh + 1) / 2;
-      for (int i = t; i < 2 * kPadQw; i += kPadThreads) {
-        const int x = i % kPadQw, y0 = i / kPadQw * kHalf;
-        const int y1 = min(kPadQh, y0 + kHalf);
-        uint32_t s = 0;
-#pragma unroll
-        for (int a = 0; a < kBlk; ++a) s += rowsq[(y0 + a) * kPadRq + x];
-        qref[y0 * kPadQw + x] = s;
-        for (int y = y0 + 1; y < y1; ++y) {
-          s += rowsq[(y + kBlk - 1) * kPadRq + x] - rowsq[(y - 1) * kPadRq + x];
-          qref[y * kPadQw + x] = s;
-        }
-      }
-      __syncthreads();
-    }
+    if constexpr (kQ) build_qref(win, qref, rowsq, t);
     // The tool's start pair (3e8, centre): no cost reaches 3e8.
     unsigned long long best =
         pad_key(static_cast<float>(kBig), kSpan * kK + kSpan);
@@ -1045,31 +784,71 @@ int launch_padded(const void* cur, const void* ref, void* out_cost,
   return static_cast<int>(cudaGetLastError());
 }
 
-// L4 / L5 / L7 and L3's SAD ("P3S"): L1's layout and ring on the frame's
-// reference, each candidate whose window leaves the frame masked, and L4's
-// key. TERM: kSq (SSD by the diff form, sum |c - e|^2: one vabsdiff4 and one
-// __dp4a a word, the sum at most 64 * 255^2, exact) or kAbs (SAD, one
-// vabsdiff4 with accumulate a word). The ring runs every candidate with no
-// branch a pixel: the valid offsets, kern_lab.py:405-410's ranges, apply only
-// where an offset row's kPadG costs enter the thread's best key, which an
-// invalid candidate enters as 0xffffffff, so halo bytes reach no result. The
-// key, cost * 625 + flat, is below 2^32 unsigned, so its least value is the
-// first minimum in raster order; the five threads of a macroblock meet once,
-// through shared memory, and its top bit flipped is L4's key - 2^31 in
-// wrapping int32 (INT32_MAX where no candidate is valid). The layout does
-// not depend on tile_h. grid = (ceil(nbx / kPadBx), ceil(nby / kPadBy)).
-constexpr size_t kKeySmemBytes = sizeof(uint32_t) * (kPadThreads + kPadWinH * kPadWs);
+// The lab's masked searches, L2-L7: L1's layout and ring on the frame's
+// reference, each candidate whose window leaves the frame masked. TERM:
+// kSq (SSD by the diff form, sum |c - e|^2: one vabsdiff4 and one __dp4a
+// a word; L4, L5, L7), kAbs (SAD, one vabsdiff4 with accumulate a word;
+// their SAD, L3's "P3S", L2's "P1") or kDot (the cross term: X = sum c * e
+// by one __dp4a a word, as L0, and the cost Qcur + Qref - 2X in 32 bits,
+// which is sum (c - e)^2 >= 0, exact; Qcur from the macroblock's words,
+// Qref from the plane build_qref stages; L3's "P3", L6, L2's "P0"). Every
+// cost is at most 64 * 255^2. The ring runs every candidate with no branch
+// a pixel: the valid offsets, kern_lab.py:405-410's ranges, apply only
+// where an offset row's kPadG costs enter the thread's best key, cost *
+// 625 + flat in 32 bits, which an invalid candidate enters as 0xffffffff,
+// so halo bytes reach no result. The least key is the first minimum in
+// raster order; the five threads of a macroblock meet once, through shared
+// memory, and OUT says what they write there:
+//   kKey: the key with its top bit flipped, L4's key - 2^31 in wrapping
+//     int32 (INT32_MAX where no candidate is valid);
+//   kPair: L2's float32 cost = key / 625 and int32 index key % 625 (the
+//     centre candidate of a block inside the frame is always valid, and the
+//     lexicographic (cost, flat) order is the key's unsigned order);
+//   kNochain ("P3A", kDot): "P3" with the chain taken out, as the TPU
+//     kernel takes it out (kern_lab.py:561-562). It keeps Qcur, the Qref
+//     plane, the mask and the key; it drops the ring: X is the block's
+//     first row against window row 0 at offset row 0 (one row's two __dp4a
+//     a column) and 0 at every other offset row, where the cost is Qcur +
+//     Qref. That reaches 8,323,200, so cost * 625 + flat is taken mod 2^32,
+//     as the TPU's int32 key wraps;
+//   kNofold ("P3B", kDot): "P3" with the fold taken out (kern_lab.py:
+//     573-580). It keeps the ring, Qcur, the Qref plane and every cost,
+//     which reach the output only through (bits & flip), flip being 0, so
+//     they are computed and never win; it drops the mask and the key. Its
+//     output, unmasked, is per block the least over the offset columns of
+//     the first column's chain at offset row 0, sum_r cur[r][0] *
+//     window[r][ox] (at most 8 * 255^2).
+// The layout does not depend on tile_h. grid = (ceil(nbx / kPadBx),
+// ceil(nby / kPadBy)).
+enum KeyOut { kKey = 0, kPair = 1, kNochain = 2, kNofold = 3 };
 
-template <int TERM>
+// Bytes: a key slot per thread and the window, and for the cross term the
+// Qref plane and the row sums it is built from.
+__host__ __device__ constexpr size_t key_smem_bytes(int term) {
+  return sizeof(uint32_t) *
+         (kPadThreads + kPadWinH * kPadWs +
+          (term == kDot ? kPadQh * kPadQw + kPadWinH * kPadRq : 0));
+}
+
+// out: the int32 key (kKey, kNochain), the float32 cost (kPair) or the
+// int32 chain minimum (kNofold), [frame_h / 8][out_ld]; out_idx: kPair's
+// int32 index, else unused. flip is 0 (kNofold reads it).
+template <int TERM, int OUT>
 __global__ void __launch_bounds__(kPadThreads, 4)
 lab_key_kernel(const float* __restrict__ cur, int cur_ld,
                const float* __restrict__ ref, int ref_ld,
-               int32_t* __restrict__ out_key, int out_ld, int frame_h,
-               int frame_w) {
-  static_assert(TERM == kSq || TERM == kAbs, "the key's cost forms");
+               void* __restrict__ out, int out_ld, int frame_h, int frame_w,
+               int32_t* __restrict__ out_idx, int flip) {
+  static_assert(TERM == kSq || TERM == kAbs || TERM == kDot,
+                "the key's cost forms");
+  static_assert(OUT == kKey || OUT == kPair || TERM == kDot,
+                "the ablations are the cross term's");
+  constexpr bool kCross = TERM == kDot;
   extern __shared__ unsigned long long smem[];
   uint32_t* red = reinterpret_cast<uint32_t*>(smem);  // [kPadThreads]
   uint32_t* win = red + kPadThreads;                  // [WinH][Ws]
+  uint32_t* qref = win + kPadWinH * kPadWs;           // [Qh][Qw] (kDot)
+  uint32_t* rowsq = qref + kPadQh * kPadQw;           // [WinH][Rq] (kDot)
   const int by0 = blockIdx.y * kPadBy, bx0 = blockIdx.x * kPadBx;
   const int nvy = min(kPadBy, frame_h / kBlk - by0);
   const int nvx = min(kPadBx, frame_w / kBlk - bx0);
@@ -1083,6 +862,7 @@ lab_key_kernel(const float* __restrict__ cur, int cur_ld,
   uint32_t cw[kBlk * kBlk / 4];
   load_block(cur, cur_ld, gy, gx, valid, cw, [](int, float) {});
   __syncthreads();
+  if constexpr (kCross) build_qref(win, qref, rowsq, t);
 
   uint32_t best = 0xffffffffu;
   if (valid) {
@@ -1096,15 +876,65 @@ lab_key_kernel(const float* __restrict__ cur, int cur_ld,
 #pragma unroll
     for (int q = 0; q < kPadG; ++q)
       col_out[q] = ox0 + q < ox_lo || ox0 + q > ox_hi ? 0xffffffffu : 0u;
-    auto finish = [&](int oy, const uint32_t(&x)[kPadG]) {
+    // The thread's 12 columns start at byte 8 * bm + ox0 of a window row:
+    // word 2 * bm + ox0 / 4, byte ox0 % 4 of it.
+    const uint32_t* wrow = win + R * kBlk * kPadWs + 2 * bm + ox0 / 4;
+    const int shift = 8 * (ox0 & 3);
+    uint32_t qc = 0;  // Qcur, exact in 32 bits
+    if constexpr (kCross) {
+#pragma unroll
+      for (int i = 0; i < kBlk * kBlk / 4; ++i) qc = __dp4a(cw[i], cw[i], qc);
+    }
+    const uint32_t* qrow = qref + R * kBlk * kPadQw + bm * kBlk + ox0;
+    // The cost of candidate (oy, ox0 + q) from its sum x.
+    auto cost = [&](int oy, int q, uint32_t x) -> uint32_t {
+      if constexpr (kCross) return qc + qrow[oy * kPadQw + q] - 2 * x;
+      return x;
+    };
+    // Offset row oy's kPadG costs into the thread's best key.
+    auto enter = [&](int oy, const uint32_t(&x)[kPadG]) {
       const uint32_t row_out = oy < oy_lo || oy > oy_hi ? 0xffffffffu : 0u;
 #pragma unroll
       for (int q = 0; q < kPadG; ++q)
-        best = min(best, (x[q] * (kK * kK) + oy * kK + ox0 + q) | row_out |
-                             col_out[q]);
+        best = min(best, (cost(oy, q, x[q]) * (kK * kK) + oy * kK + ox0 + q) |
+                             row_out | col_out[q]);
     };
-    pad_ring<TERM>(win + R * kBlk * kPadWs + 2 * bm + ox0 / 4, 8 * (ox0 & 3),
-                   cw, nullptr, finish);
+    if constexpr (OUT == kNochain) {
+      uint32_t e[kPadG + 4], x[kPadG];
+      row_columns(wrow, shift, e);
+#pragma unroll
+      for (int q = 0; q < kPadG; ++q)
+        x[q] = __dp4a(cw[0], e[q], __dp4a(cw[1], e[q + 4], 0u));
+      enter(0, x);
+#pragma unroll
+      for (int q = 0; q < kPadG; ++q) x[q] = 0;
+#pragma unroll 4
+      for (int oy = 1; oy < kK; ++oy) enter(oy, x);
+    } else if constexpr (OUT == kNofold) {
+      uint32_t live = 0;  // every cost, XORed; reaches the output as 0
+      pad_ring<kDot>(wrow, shift, cw, nullptr,
+                     [&](int oy, const uint32_t(&x)[kPadG]) {
+#pragma unroll
+                       for (int q = 0; q < kPadG; ++q)
+                         live ^= cost(oy, q, x[q]);
+                     });
+      // The first column's chain at offset row 0: pixel (r, 0), byte 0 of
+      // cw[2r], against byte 0 of each column word of window row r.
+      uint32_t chain[kPadG] = {};
+#pragma unroll
+      for (int r = 0; r < kBlk; ++r) {
+        uint32_t e[kPadG + 4];
+        row_columns(wrow + r * kPadWs, shift, e);
+#pragma unroll
+        for (int q = 0; q < kPadG; ++q)
+          chain[q] = __dp4a(cw[2 * r] & 0xffu, e[q], chain[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < kPadG; ++q) best = min(best, chain[q]);
+      best ^= live & static_cast<uint32_t>(flip);
+    } else {
+      pad_ring<TERM>(wrow, shift, cw, nullptr, enter);
+    }
   }
   red[t] = best;
   __syncthreads();
@@ -1114,29 +944,45 @@ lab_key_kernel(const float* __restrict__ cur, int cur_ld,
       uint32_t k = red[t * kPadG];
 #pragma unroll
       for (int i = 1; i < kPadG; ++i) k = min(k, red[t * kPadG + i]);
-      out_key[static_cast<size_t>(by0 + R2) * out_ld + bx0 + b2] =
-          static_cast<int32_t>(k ^ 0x80000000u);
+      const size_t o = static_cast<size_t>(by0 + R2) * out_ld + bx0 + b2;
+      if constexpr (OUT == kPair) {
+        static_cast<float*>(out)[o] = static_cast<float>(k / (kK * kK));
+        out_idx[o] = static_cast<int32_t>(k % (kK * kK));
+      } else {
+        static_cast<int32_t*>(out)[o] =
+            static_cast<int32_t>(OUT == kNofold ? k : k ^ 0x80000000u);
+      }
     }
   }
 }
 
-// sad: 0 = SSD by the diff form (kSq), 1 = SAD (kAbs). out_key int32
-// [frame_h / 8][out_ld].
-int launch_key(const void* cur, const void* ref, void* out_key, int cur_ld,
-               int ref_ld, int out_ld, int frame_h, int frame_w, int tile_h,
-               int sad, void* stream) {
+// One launch of lab_key_kernel<TERM, OUT>, out and out_idx as it takes
+// them.
+template <int TERM, int OUT>
+int launch_key(const void* cur, const void* ref, void* out, void* out_idx,
+               int cur_ld, int ref_ld, int out_ld, int frame_h, int frame_w,
+               int tile_h, void* stream) {
   if (!lab_shape_ok(tile_h, frame_h, frame_w))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = sad ? lab_key_kernel<kAbs> : lab_key_kernel<kSq>;
-  if (!reserve_smem(kernel, kKeySmemBytes))
-    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lab_key_kernel<TERM, OUT>;
+  constexpr size_t smem = key_smem_bytes(TERM);
+  if (!reserve_smem(kernel, smem)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((frame_w / kBlk + kPadBx - 1) / kPadBx,
                   (frame_h / kBlk + kPadBy - 1) / kPadBy);
-  kernel<<<grid, kPadThreads, kKeySmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kPadThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cur), cur_ld, static_cast<const float*>(ref),
-      ref_ld, static_cast<int32_t*>(out_key), out_ld, frame_h, frame_w);
+      ref_ld, out, out_ld, frame_h, frame_w, static_cast<int32_t*>(out_idx),
+      0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// L4's key by the diff form (sad 0) or SAD (sad 1).
+int launch_diff(const void* cur, const void* ref, void* out_key, int cur_ld,
+                int ref_ld, int out_ld, int frame_h, int frame_w, int tile_h,
+                int sad, void* stream) {
+  return (sad ? launch_key<kAbs, kKey> : launch_key<kSq, kKey>)(
+      cur, ref, out_key, nullptr, cur_ld, ref_ld, out_ld, frame_h, frame_w,
+      tile_h, stream);
 }
 
 // A kernel's resources on the current card into out[0..4]: registers and
@@ -1158,6 +1004,12 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
   out[3] = static_cast<int>(smem);
   out[4] = blocks;
   return 0;
+}
+
+template <int TERM, int OUT>
+int key_occupancy(int* out) {
+  return occupancy(lab_key_kernel<TERM, OUT>, kPadThreads, key_smem_bytes(TERM),
+                   out);
 }
 
 }  // namespace
@@ -1212,20 +1064,17 @@ extern "C" int me_lab_phase(const void* cur, const void* ref, void* out_cost,
                             void* out_idx, int cur_ld, int ref_ld, int out_ld,
                             int frame_h, int frame_w, int tile_h, int sad,
                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sad)
-    return launch_lab<2, false>(cur, ref, out_cost, out_idx, nullptr, cur_ld,
-                                ref_ld, out_ld, frame_h, frame_w, tile_h, s);
-  return launch_lab<0, false>(cur, ref, out_cost, out_idx, nullptr, cur_ld,
-                              ref_ld, out_ld, frame_h, frame_w, tile_h, s);
+  return (sad ? launch_key<kAbs, kPair> : launch_key<kDot, kPair>)(
+      cur, ref, out_cost, out_idx, cur_ld, ref_ld, out_ld, frame_h, frame_w,
+      tile_h, stream);
 }
 
 // sad: 0 = SSD (the diff form), 1 = SAD. out_key int32 [frame_h / 8][out_ld].
 extern "C" int me_lab_diff(const void* cur, const void* ref, void* out_key,
                            int cur_ld, int ref_ld, int out_ld, int frame_h,
                            int frame_w, int tile_h, int sad, void* stream) {
-  return launch_key(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
-                    frame_w, tile_h, sad, stream);
+  return launch_diff(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
+                     frame_w, tile_h, sad, stream);
 }
 
 // variant: 0 NOP, 1 L0, 2 "L1", 3 M1, 4 M2, 5 M3. out_cost float32 and
@@ -1254,10 +1103,6 @@ extern "C" int me_lab_padded(const void* cur, const void* ref, void* out_cost,
 }
 
 // The key-form launchers below write out_key int32 [frame_h / 8][out_ld].
-#define ME_KEY(FORM, ABL, BF16)                                                \
-  launch_lab<FORM, true, ABL, BF16>(cur, ref, nullptr, nullptr, out_key,       \
-                                    cur_ld, ref_ld, out_ld, frame_h, frame_w,  \
-                                    tile_h, static_cast<cudaStream_t>(stream))
 
 // sad: 0 = SSD by the cross term (Qcur + Qref) - 2X, 1 = SAD; ablate: 0,
 // 1 = nochain, 2 = nofold (SSD only).
@@ -1265,16 +1110,19 @@ extern "C" int me_lab_p3(const void* cur, const void* ref, void* out_key,
                          int cur_ld, int ref_ld, int out_ld, int frame_h,
                          int frame_w, int tile_h, int sad, int ablate,
                          void* stream) {
-  if (sad)
-    return ablate ? static_cast<int>(cudaErrorInvalidValue)
-                  : launch_key(cur, ref, out_key, cur_ld, ref_ld, out_ld,
-                               frame_h, frame_w, tile_h, 1, stream);
-  switch (ablate) {
-    case 0: return ME_KEY(3, 0, false);
-    case 1: return ME_KEY(3, 1, false);
-    case 2: return ME_KEY(3, 2, false);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  int (*launch)(const void*, const void*, void*, void*, int, int, int, int,
+                int, int, void*) = nullptr;
+  if (sad) {
+    if (ablate == 0) launch = launch_key<kAbs, kKey>;
+  } else if (ablate == 0)
+    launch = launch_key<kDot, kKey>;
+  else if (ablate == 1)
+    launch = launch_key<kDot, kNochain>;
+  else if (ablate == 2)
+    launch = launch_key<kDot, kNofold>;
+  if (!launch) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(cur, ref, out_key, nullptr, cur_ld, ref_ld, out_ld, frame_h,
+                frame_w, tile_h, stream);
 }
 
 // sad: 0 = SSD by the diff form, 1 = SAD; bf16: bfloat16 planes. bfloat16
@@ -1284,15 +1132,19 @@ extern "C" int me_lab_p5(const void* cur, const void* ref, void* out_key,
                          int cur_ld, int ref_ld, int out_ld, int frame_h,
                          int frame_w, int tile_h, int sad, int bf16,
                          void* stream) {
-  return launch_key(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
-                    frame_w, tile_h, sad, stream);
+  return launch_diff(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
+                     frame_w, tile_h, sad, stream);
 }
 
-// SSD by the cross term (Qcur - X) + (Qref - X); bf16: bfloat16 planes.
+// SSD by the cross term (Qcur - X) + (Qref - X); bf16: bfloat16 planes. In
+// 32-bit unsigned arithmetic (Qcur - X) + (Qref - X) and (Qcur + Qref) - 2X
+// are the same bits, and bfloat16 holds every pixel 0..255, so "P6" and
+// "P6B" compute "P3"'s function and run its instance.
 extern "C" int me_lab_p6(const void* cur, const void* ref, void* out_key,
                          int cur_ld, int ref_ld, int out_ld, int frame_h,
                          int frame_w, int tile_h, int bf16, void* stream) {
-  return bf16 ? ME_KEY(0, 0, true) : ME_KEY(0, 0, false);
+  return launch_key<kDot, kKey>(cur, ref, out_key, nullptr, cur_ld, ref_ld,
+                                out_ld, frame_h, frame_w, tile_h, stream);
 }
 
 // sad: 0 = SSD by the diff form, 1 = SAD, over bfloat16 planes: as P5B
@@ -1301,17 +1153,17 @@ extern "C" int me_lab_p6(const void* cur, const void* ref, void* out_key,
 extern "C" int me_lab_p7(const void* cur, const void* ref, void* out_key,
                          int cur_ld, int ref_ld, int out_ld, int frame_h,
                          int frame_w, int tile_h, int sad, void* stream) {
-  return launch_key(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
-                    frame_w, tile_h, sad, stream);
+  return launch_diff(cur, ref, out_key, cur_ld, ref_ld, out_ld, frame_h,
+                     frame_w, tile_h, sad, stream);
 }
-#undef ME_KEY
 
 // The resources of an instance into out[0..4]: registers and local (spill)
 // bytes per thread, threads a CUDA block, dynamic shared bytes, CUDA blocks
 // resident per SM. kind: 0-5 the me_lab_padded variant of that code; 6 and
 // 7 the roll mix's instances of 8 and 16 columns a thread for a row of
-// `cols` columns at `inner`; 8 and 9 the key kernel's SSD (diff form) and
-// SAD instances. Returns a cudaError_t.
+// `cols` columns at `inner`; 8-14 the key kernel's instances: 8 the diff
+// form's key, 9 SAD's key, 10 the cross term's key, 11 the cross term's
+// pair, 12 SAD's pair, 13 nochain, 14 nofold. Returns a cudaError_t.
 extern "C" int me_lab_occupancy(int kind, int cols, int inner, int* out) {
 #define ME_PADDED_OCC(V) \
   occupancy(lab_padded_kernel<V>, kPadThreads, pad_smem_bytes(V), out)
@@ -1330,8 +1182,13 @@ extern "C" int me_lab_occupancy(int kind, int cols, int inner, int* out) {
                          roll_smem(cols, inner), out);
       break;
     }
-    case 8: return occupancy(lab_key_kernel<kSq>, kPadThreads, kKeySmemBytes, out);
-    case 9: return occupancy(lab_key_kernel<kAbs>, kPadThreads, kKeySmemBytes, out);
+    case 8: return key_occupancy<kSq, kKey>(out);
+    case 9: return key_occupancy<kAbs, kKey>(out);
+    case 10: return key_occupancy<kDot, kKey>(out);
+    case 11: return key_occupancy<kDot, kPair>(out);
+    case 12: return key_occupancy<kAbs, kPair>(out);
+    case 13: return key_occupancy<kDot, kNochain>(out);
+    case 14: return key_occupancy<kDot, kNofold>(out);
   }
 #undef ME_PADDED_OCC
   return static_cast<int>(cudaErrorInvalidValue);

@@ -30,12 +30,14 @@ The PyTorch counterparts of the Pallas kernels of the JAX repo's
   `me_lab_p7` (L7, `make_p7_kernel` :1044: the diff form over bfloat16
   planes), each L4's key.
 
-L4, L5, L7 and L3's "P3S" run one kernel on the card (`lab_key_kernel`):
-L1's layout and register ring over bytes, the candidates whose window
-leaves the frame masked; its SSD (diff form) instance takes "P4", "P5",
-"P5B", "P7", its SAD instance "P4S", "P5S", "P5SB", "P7S", "P3S"
-(bfloat16 holds 0..255 exactly, so the bfloat16 variants compute their
-float32 variants' function).
+L2-L7 run one kernel on the card (`lab_key_kernel`): L1's layout and
+register ring over bytes, the candidates whose window leaves the frame
+masked, in seven instances (`KEY_INSTANCES`). The diff form's key takes
+"P4", "P5", "P5B", "P7"; SAD's key "P4S", "P5S", "P5SB", "P7S", "P3S";
+the cross term's key "P3", "P6", "P6B"; the cross term's and SAD's
+(cost, idx) "P0" and "P1"; "P3A" and "P3B" one instance each (bfloat16
+holds 0..255 exactly, so the bfloat16 variants compute their float32
+variants' function).
 
 Beside each kernel stands its plain PyTorch version (`peak_plain`,
 `chain_plain`, `phase_plain`, `diff_plain`, `padded_plain`, `raw_plain`,
@@ -469,15 +471,20 @@ lab_padded.launches = 0
 # The roll mix's instances, by columns a thread: 8, or 16 where a launch
 # has at least two rows an SM.
 ROLL_INSTANCES = {"roll 8": 6, "roll 16": 7}
-# The key kernel's instances (L4, L5, L7, "P3S"): SSD by the diff form, SAD.
-KEY_INSTANCES = {"key ssd": 8, "key sad": 9}
+# The key kernel's instances (L2-L7): L4's key by the diff form ("P4",
+# "P5", "P5B", "P7"), by SAD ("P4S", "P5S", "P5SB", "P7S", "P3S") and by the
+# cross term ("P3", "P6", "P6B"); L2's (cost, idx) by the cross term ("P0")
+# and by SAD ("P1"); L3's ablations "P3A" (nochain) and "P3B" (nofold).
+KEY_INSTANCES = {"key ssd": 8, "key sad": 9, "key cross": 10,
+                 "pair cross": 11, "pair sad": 12, "key nochain": 13,
+                 "key nofold": 14}
 
 
 def lab_occupancy(kernel: str, *, cols: int = 1024,
                   inner: int = 64) -> dict:
     """The resources on the current card of the instance that `lab_padded`
     launches for variant `kernel` ("NOP", "L0", "L1", "M1", "M2", "M3"), of
-    the key kernel's instance `kernel` ("key ssd", "key sad"), or of the
+    the key kernel's instance `kernel` (a `KEY_INSTANCES` name), or of the
     roll mix's instance `kernel` ("roll 8", "roll 16") on rows of
     `cols` columns at `inner`: registers and local (spill) bytes per
     thread, threads and dynamic shared bytes per CUDA block, CUDA blocks

@@ -85,6 +85,11 @@ def make_inputs(seed: int = 0, *, height: int = H, width: int = W):
 # The variants that give L4's key by the diff form or SAD ("S" in the
 # name): on the card they run one kernel's two instances.
 KEY_VARIANTS = ("P4", "P4S", "P5", "P5S", "P5B", "P5SB", "P7", "P7S", "P3S")
+# The rest of L2-L7, on the same kernel's other instances: L2's (cost, idx)
+# by the cross term or SAD, L3's and L6's key by the cross term, and L3's
+# ablations. "P3B" masks nothing, so its edge checks keep the tool's zero
+# halo (`zero_halo`).
+CROSS_VARIANTS = ("P0", "P1", "P3", "P3A", "P3B", "P6", "P6B")
 # What the key variants' edge checks write around the frame: a halo of
 # values no pixel takes, which only masked candidates may read.
 HALO_FILL = (float("nan"), 1e9, -7.5)
@@ -111,6 +116,29 @@ def check_inputs(seed: int = 0, *, height: int, width: int,
     fill = np.resize(np.array(HALO_FILL, np.float32), ref_p.shape)
     ref_p[halo] = fill[halo]
     return cur, ref_p
+
+
+def zero_halo(ref_p: torch.Tensor, *, height: int, width: int):
+    """ref_p with every entry outside the height x width frame 0, as
+    make_inputs builds it."""
+    frame = (slice(SPAN, SPAN + height), slice(SPAN, SPAN + width))
+    out = torch.zeros_like(ref_p)
+    out[frame] = ref_p[frame]
+    return out
+
+
+def key_plain(variant: str, cur, ref_p):
+    """The plain version of a key or cross variant (KEY_VARIANTS,
+    CROSS_VARIANTS): L2's (cost, idx) for "P0" and "P1", the ablations'
+    for "P3A" and "P3B", L4's key, by SAD where "S" is in the name, for the
+    rest."""
+    if variant in ("P0", "P1"):
+        return lab.phase_plain(cur, ref_p, sad=variant == "P1")
+    if variant == "P3A":
+        return lab.nochain_plain(cur, ref_p)
+    if variant == "P3B":
+        return lab.nofold_plain(cur, ref_p)
+    return lab.diff_plain(cur, ref_p, sad="S" in variant)
 
 
 def run_phase(cur, ref_p, *, variant: str, tile_h: int = 128):

@@ -20,10 +20,10 @@ runs can be seen to agree. Each cell of REPLAY_GROUPS (a staged level of
 `bench/matrix`'s diamond rows, on its content) does the same for
 `me_diamond_replay` through `kernels/diamond_cuda.replay_cuda` over the
 level's volume. Each cell of LAB_GROUPS (the speed-of-light tools' L1, the
-key variants of L3, L4, L5 and L7, and P1, on their tools' inputs,
-`kern_lab.make_inputs` and `vpu_peak.peak_input`) times its entries through
-`kern_lab.variant_fn` (`kernels/lab_cuda.lab_padded`, or the key wrappers
-`lab_diff`, `lab_p5`, `lab_p7`, `lab_p3`) or `lab_peak` in turns, as GROUPS
+variants of L2-L7, and P1, on their tools' inputs, `kern_lab.make_inputs`
+and `vpu_peak.peak_input`) times its entries through `kern_lab.variant_fn`
+(`kernels/lab_cuda.lab_padded`, or the wrappers `lab_phase`, `lab_diff`,
+`lab_p3`, `lab_p5`, `lab_p6`, `lab_p7`) or `lab_peak` in turns, as GROUPS
 does, with a digest of each entry's output. --group times only the cells with
 those labels (e.g. "4K 7x7 +-15 sad", "lazy 4K 8x8 +-31 mse", "replay
 worstcase-4k level 31", "lab key 2048x2048 tile_h 128").
@@ -221,11 +221,11 @@ def time_replay(content, blk, span, r, metric, seed=0, device=None):
     return runs, device_ms(call, "replay_kernel", dev), digest
 
 
-# The speed-of-light tools' L1 and key variants at the lab's 2048x2048 8x8
-# +-12 (`kern_lab.make_inputs(seed)`) and P1's mixes on the tool's input
-# (`vpu_peak.peak_input`, INNER 64, OUTER 4096): (label, tool, entries);
-# an entry is an L1 or key variant at that label's tile_h or a P1 mix at
-# its rows.
+# The speed-of-light tools' L1, key and cross variants at the lab's
+# 2048x2048 8x8 +-12 (`kern_lab.make_inputs(seed)`) and P1's mixes on the
+# tool's input (`vpu_peak.peak_input`, INNER 64, OUTER 4096): (label, tool,
+# entries); an entry is an L1, key or cross variant at that label's tile_h
+# or a P1 mix at its rows.
 LAB_GROUPS = [
     ("lab L1 2048x2048 tile_h 128", "kern_lab 128",
      ["NOP", "L0", "L1", "M1", "M2", "M3"]),
@@ -234,6 +234,9 @@ LAB_GROUPS = [
     ("lab key 2048x2048 tile_h 128", "kern_lab 128",
      ["P4", "P4S", "P5", "P5S", "P5B", "P5SB", "P7", "P7S", "P3S"]),
     ("lab key 2048x2048 tile_h 64", "kern_lab 64", ["P4", "P4S"]),
+    ("lab cross 2048x2048 tile_h 128", "kern_lab 128",
+     ["P0", "P1", "P3", "P3A", "P3B", "P6", "P6B"]),
+    ("lab cross 2048x2048 tile_h 64", "kern_lab 64", ["P0", "P1"]),
     ("lab P1 64x1024", "vpu_peak 64", ["fma", "mix", "roll"]),
     ("lab P1 512x1024", "vpu_peak 512", ["fma", "mix", "roll"]),
 ]

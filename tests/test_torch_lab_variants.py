@@ -26,23 +26,23 @@ Two variants have no JAX oracle, for reasons of the TPU kernel:
   (`lab_cuda.nochain_plain`); it is held against numpy on that
   definition only.
 
-`kernel_turns.LAB_GROUPS`, the A/B cells of L1, the key variants and P1,
-name variants and mixes the wrappers take, and each key variant
-(`kern_lab.KEY_VARIANTS`) gives the diff form's or SAD's key. The plain
-version of the key ignores the reference's halo (`kern_lab.check_inputs`
-fills it with NaN, 1e9 and -7.5), and `bench/roofline.lab_bound` counts
-the key kernel's arithmetic over the valid candidates.
+`kernel_turns.LAB_GROUPS`, the A/B cells of L1, the key and cross
+variants and P1, name variants and mixes the wrappers take, and each key
+variant (`kern_lab.KEY_VARIANTS`) gives the diff form's or SAD's key. The
+plain versions of the key and of "P3A" ignore the reference's halo
+(`kern_lab.check_inputs` fills it with NaN, 1e9 and -7.5), and
+`bench/roofline.lab_bound` counts the key kernel's arithmetic over the
+valid candidates (over all of them for "P3B", which masks nothing).
 
 Tests whose names end in `_cuda` hold each new CUDA kernel against its
 plain version on the card (L1 on frames whose last CUDA block is partial,
 constant frames, and through `kern_lab.run_variant` with a `chunk` other
-than 5, which changes nothing; the key kernel's nine variants on frames
-with partial CUDA blocks, garbage halos, ties and the wrapping key) and
-skip where there is none:
+than 5, which changes nothing; the key kernel's sixteen variants, L2-L7,
+on frames with partial CUDA blocks, garbage halos, ties and the wrapping
+key, "P3B" on the zero halo) and skip where there is none:
 `python -m pytest --noconftest tests/test_torch_lab_variants.py -k cuda`.
 """
 import contextlib
-import functools
 import io
 import sys
 
@@ -241,29 +241,32 @@ def test_names_route_as_jax_main(jax_lab, monkeypatch):
 
 def test_lab_groups_name_the_wrappers_variants():
     """Each cell of `kernel_turns.LAB_GROUPS` names a tool and size the
-    timing reads, and entries that `kern_lab.variant_fn` (L1's and the
-    key variants) or `lab_peak` take; the L1 cells take every L1
+    timing reads, and entries that `kern_lab.variant_fn` (L1's, the key
+    and the cross variants) or `lab_peak` take; the L1 cells take every L1
     variant, the key cells every key variant at tile_h 128 and L4's at
-    64; the occupancy query refuses a name no instance has before it
-    touches a card."""
-    keys = {}  # tile_h -> the key variants of its cells
+    64, the cross cells every cross variant at 128 and L2's at 64; the
+    occupancy query refuses a name no instance has before it touches a
+    card."""
+    kinds = {"lab L1": lab.PADDED_VARIANTS, "lab key": tkl.KEY_VARIANTS,
+             "lab cross": tkl.CROSS_VARIANTS}
+    cells = {}  # (kind, tile_h) -> its variants
     for label, tool, entries in kernel_turns.LAB_GROUPS:
         name, size = tool.split()
         assert name in ("kern_lab", "vpu_peak") and int(size) > 0, label
-        known = ((*lab.PADDED_VARIANTS, *tkl.KEY_VARIANTS)
-                 if name == "kern_lab" else lab.MIXES)
+        known = ((*lab.PADDED_VARIANTS, *tkl.KEY_VARIANTS,
+                  *tkl.CROSS_VARIANTS) if name == "kern_lab" else lab.MIXES)
         assert entries and set(entries) <= set(known), label
         if name == "kern_lab":
             assert tkl.H % int(size) == 0 and int(size) % BLK == 0
-            in_l1 = set(entries) <= set(lab.PADDED_VARIANTS)
-            assert in_l1 or set(entries) <= set(tkl.KEY_VARIANTS)
-            assert label.startswith("lab L1" if in_l1 else "lab key"), label
-            if not in_l1:
-                keys.setdefault(int(size), set()).update(entries)
-    padded = {e for _, t, es in kernel_turns.LAB_GROUPS
-              if t.startswith("kern_lab") for e in es} - keys[128]
-    assert padded == set(lab.PADDED_VARIANTS)
-    assert keys == {128: set(tkl.KEY_VARIANTS), 64: {"P4", "P4S"}}
+            kind = next(k for k, vs in kinds.items() if set(entries) <= set(vs))
+            assert label.startswith(kind), label
+            cells.setdefault((kind, int(size)), set()).update(entries)
+    assert cells == {
+        ("lab L1", 128): set(lab.PADDED_VARIANTS),
+        ("lab L1", 64): set(lab.PADDED_VARIANTS),
+        ("lab key", 128): set(tkl.KEY_VARIANTS), ("lab key", 64): {"P4", "P4S"},
+        ("lab cross", 128): set(tkl.CROSS_VARIANTS),
+        ("lab cross", 64): {"P0", "P1"}}
     with pytest.raises(ValueError):
         lab.lab_occupancy("Q1")
 
@@ -278,6 +281,19 @@ def test_key_variants_give_the_diff_form_or_sad(lab_inputs, variant):
     assert torch.equal(got, lab.diff_plain(cur, ref_p, sad="S" in variant))
 
 
+@pytest.mark.parametrize("variant", [*tkl.KEY_VARIANTS, *tkl.CROSS_VARIANTS])
+def test_key_plain_is_the_wrappers_plain_version(lab_inputs, variant):
+    """`kern_lab.key_plain`, which the card checks (chip_smoke.py, the
+    `_cuda` tests below) hold each kernel against, is what the variant's
+    wrapper computes on the CPU, where it runs its plain version."""
+    cur, ref_p = _torch(*lab_inputs)
+    got = tkl.variant_fn(f"{variant}:64")[0](cur, ref_p)
+    want = tkl.key_plain(variant, cur, ref_p)
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    assert len(got) == len(want) == (2 if variant in ("P0", "P1") else 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 # -- the key kernel's inputs and bound ----------------------------------------
 
 @pytest.mark.parametrize("sad", [False, True])
@@ -290,6 +306,19 @@ def test_diff_plain_ignores_the_halo(sad):
     assert bool(torch.isnan(garbage[1]).any())
     assert torch.equal(lab.diff_plain(*zero, sad=sad),
                        lab.diff_plain(*garbage, sad=sad))
+
+
+@pytest.mark.parametrize("content", tkl.CHECK_CONTENTS)
+def test_nochain_plain_ignores_the_halo(content):
+    """"P3A"'s plain version reads only the frame too: the same keys for
+    `kern_lab.check_inputs`' halo of NaN, 1e9 and -7.5 and for the zero
+    halo around the same frame (`kern_lab.zero_halo`)."""
+    cur, garbage = _torch(*tkl.check_inputs(3, height=40, width=72,
+                                            content=content))
+    zero = tkl.zero_halo(garbage, height=40, width=72)
+    assert bool(torch.isnan(garbage).any()) and not bool(torch.isnan(zero).any())
+    assert torch.equal(lab.nochain_plain(cur, zero),
+                       lab.nochain_plain(cur, garbage))
 
 
 @pytest.mark.parametrize("content", tkl.CHECK_CONTENTS)
@@ -323,29 +352,39 @@ def test_check_inputs_contents(content):
 # Valid block-candidates at 2048x2048 8x8 +-12: 6,368 a block row or column
 # (25 a block but 12 + 4 fewer at each end).
 VALID_2048 = 6368 ** 2
-LAB_BOUNDS = [  # (variant, instructions a block-candidate, lanes, masked)
-    *[(v, 32, 128, True) for v in ("P4", "P5", "P5B", "P7")],
-    *[(v, 16, 64, True) for v in ("P4S", "P5S", "P5SB", "P7S", "P3S")],
-    *[(v, 16, 64, False) for v in ("L0", "M1", "M2")],
-    ("M3", 128, 128, False),
+LAB_BOUNDS = [  # (variant, instructions a block-candidate, lanes, masked,
+    #              what bounds it)
+    *[(v, 32, 128, True, "operations") for v in ("P4", "P5", "P5B", "P7")],
+    *[(v, 16, 64, True, "operations")
+      for v in ("P4S", "P5S", "P5SB", "P7S", "P3S", "P1")],
+    *[(v, 16, 64, True, "operations") for v in ("P0", "P3", "P6", "P6B")],
+    ("P3B", 16, 64, False, "operations"),
+    ("P3A", 4, 64, True, "bytes"),
+    *[(v, 16, 64, False, "operations") for v in ("L0", "M1", "M2")],
+    ("M3", 128, 128, False, "operations"),
 ]
 
 
-@pytest.mark.parametrize("variant,ops,lanes,masked", LAB_BOUNDS,
+@pytest.mark.parametrize("variant,ops,lanes,masked,by", LAB_BOUNDS,
                          ids=[v for v, *_ in LAB_BOUNDS])
-def test_lab_bound_counts_the_arithmetic(variant, ops, lanes, masked):
+def test_lab_bound_counts_the_arithmetic(variant, ops, lanes, masked, by):
     """`roofline.lab_bound` at 2048x2048 on 132 SMs at 1980 MHz: the
     variant's instructions over the block-candidates its function needs
-    (the valid ones for the key: 0.0388 ms for the diff form, whose two
-    instructions a word count against the SM's 128 lanes of issue, and
-    for SAD; all 625 a block for L1), above its bytes."""
+    (the valid ones for the key and L2: 0.0388 ms for the diff form, whose
+    two instructions a word count against the SM's 128 lanes of issue, for
+    SAD and for the cross term; all 625 a block for L1 and "P3B", which
+    keeps the ring live at every offset), or its bytes where they take
+    longer ("P3A", no ring: 4 integer instructions a candidate)."""
     cands = VALID_2048 if masked else 256 * 256 * K * K
     want = cands * ops / (132 * lanes * 1980e6) * 1e3
-    ms, by = roofline.lab_bound(variant, 2048, 2048, 132, 1980)
-    assert by == "operations" and ms == pytest.approx(want, rel=1e-12)
-    assert ms > roofline.lab_parts(variant, 2048, 2048, 132, 1980)[1]
+    ops_ms, bytes_ms = roofline.lab_parts(variant, 2048, 2048, 132, 1980)
+    assert ops_ms == pytest.approx(want, rel=1e-12)
+    ms, got_by = roofline.lab_bound(variant, 2048, 2048, 132, 1980)
+    assert got_by == by and (want > bytes_ms) == (by == "operations")
+    assert ms == max(ops_ms, bytes_ms)
     expected = {"P4": 0.038789, "P4S": 0.038789, "L0": 0.039180,
-                "M3": 0.156719}
+                "M3": 0.156719, "P0": 0.038789, "P3": 0.038789,
+                "P3B": 0.039180, "P3A": 0.010213}
     if variant in expected:
         assert round(ms, 6) == expected[variant]
 
@@ -353,15 +392,17 @@ def test_lab_bound_counts_the_arithmetic(variant, ops, lanes, masked):
 def test_lab_bound_of_the_unmasked_nop_is_its_bytes():
     """NOP and "L1" do (next to) no arithmetic: their bound is their
     float32 operands and outputs once, 0.010291 ms at 2048x2048; the
-    key variants write half the output bytes."""
+    key variants write half the output bytes, L2's (cost, idx) as many as
+    L1."""
     for v in ("NOP", "L1"):
         ms, by = roofline.lab_bound(v, 2048, 2048, 132, 1980)
         assert by == "bytes" and round(ms, 6) == 0.010291
-    key_bytes = roofline.lab_parts("P4", 2048, 2048, 132, 1980)[1]
-    assert key_bytes == pytest.approx(
-        (4 * (2048 ** 2 + 2072 ** 2) + 4 * 256 ** 2) / 3.35e12 * 1e3)
+    for v, out_bytes in (("P4", 4), ("P3B", 4), ("P0", 8), ("P1", 8)):
+        assert roofline.lab_parts(v, 2048, 2048, 132, 1980)[1] == (
+            pytest.approx((4 * (2048 ** 2 + 2072 ** 2)
+                           + out_bytes * 256 ** 2) / 3.35e12 * 1e3))
     with pytest.raises(KeyError):
-        roofline.lab_bound("P3", 2048, 2048, 132, 1980)
+        roofline.lab_bound("P2", 2048, 2048, 132, 1980)
 
 
 def test_sass_loops_matches_anonymous_namespace_kernels_across_builds():
@@ -469,37 +510,37 @@ KEY_CARD_CASES = [
 ]
 
 
+# The wrapper that each key or cross variant launches, by its first two
+# characters.
+KEY_WRAPPERS = {"P0": lab.lab_phase, "P1": lab.lab_phase, "P3": lab.lab_p3,
+                "P4": lab.lab_diff, "P5": lab.lab_p5, "P6": lab.lab_p6,
+                "P7": lab.lab_p7}
+
+
+@pytest.mark.parametrize("variant", [*tkl.KEY_VARIANTS, *tkl.CROSS_VARIANTS])
 @pytest.mark.parametrize("frames,tile_h", KEY_CARD_CASES)
-def test_key_kernels_match_plain_cuda(cuda, frames, tile_h):
-    """Each key wrapper, one launch a call, equal to its plain version: the
-    nine key variants (`kern_lab.variant_fn`, on `lab_key_kernel`) to
-    `diff_plain` on every frame pair, random pixels, ties (one value in
-    both frames) and the wrapping key (cur 255 against ref 0); L3's and
-    L6's other variants on the zero halo they were ported for."""
+def test_key_kernels_match_plain_cuda(cuda, frames, tile_h, variant):
+    """Each key or cross variant (`kern_lab.variant_fn`, on
+    `lab_key_kernel`), one launch of its wrapper a call, equal to its plain
+    version (`kern_lab.key_plain`: L4's key by the diff form or SAD, L2's
+    (cost, idx), the ablations') on every frame pair: random pixels, ties
+    (one value in both frames) and the wrapping key (cur 255 against ref
+    0) in the garbage halo, "P3B", which masks nothing, in the zero halo
+    around the same frame."""
     if frames == "edge":
         cur, ref_p = _card_inputs(cuda)
+        h, w = cur.shape
     else:
         c, h, w = frames
         cur, ref_p = (t.to(cuda) for t in _torch(*tkl.check_inputs(
             h + w, height=h, width=w, content=c)))
-    diff = {sad: lab.diff_plain(cur, ref_p, sad=sad) for sad in (False, True)}
-    wrappers = {"P3": lab.lab_p3, "P4": lab.lab_diff, "P5": lab.lab_p5,
-                "P7": lab.lab_p7}
-    runs = [(v, wrappers[v[:2]], tkl.variant_fn(f"{v}:{tile_h}")[0],
-             diff["S" in v]) for v in tkl.KEY_VARIANTS]
-    if frames == "edge":  # lab_search_kernel's key variants
-        for fn, kw, want in [
-                (lab.lab_p3, {}, diff[False]),
-                (lab.lab_p3, dict(ablate="nochain"),
-                 lab.nochain_plain(cur, ref_p)),
-                (lab.lab_p3, dict(ablate="nofold"),
-                 lab.nofold_plain(cur, ref_p)),
-                *[(lab.lab_p6, dict(bf16=b), diff[False])
-                  for b in (False, True)]]:
-            runs.append((f"{fn.__name__} {kw}", fn,
-                         functools.partial(fn, tile_h=tile_h, **kw), want))
-    for what, wrapper, run, want in runs:
-        before = wrapper.launches
-        got = run(cur, ref_p)
-        assert wrapper.launches == before + 1, what
-        assert torch.equal(got, want), what
+    if variant == "P3B":
+        ref_p = tkl.zero_halo(ref_p, height=h, width=w)
+    wrapper = KEY_WRAPPERS[variant[:2]]
+    before = wrapper.launches
+    got = tkl.variant_fn(f"{variant}:{tile_h}")[0](cur, ref_p)
+    assert wrapper.launches == before + 1
+    want = tkl.key_plain(variant, cur, ref_p)
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
