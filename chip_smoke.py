@@ -203,7 +203,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    from --seed). Then P1 against its plain version at the tool's shape
    on inputs where every step of each chain moves the result
    (`vpu_peak.check_input`, OUTER 8: finite, 1e-4 relative for fma and
-   mix, whose kernel fuses the multiply-add, 1e-5 for roll), P2 exactly,
+   mix, whose kernel fuses the multiply-add, 1e-5 for roll), P2 exactly
+   at the tool's [8, 2048] and at the card-filling [8, 65536],
    each L2/L4 variant exactly and, decoded, against K1's cost and index on
    the same frames; T elem-ops/s at the tool's shapes and at card-filling
    sizes beside the FP32-lane floor (a rate above it fails: the compiler
@@ -2642,7 +2643,8 @@ def main(argv=None) -> int:
               for k in lab.KEY_INSTANCES),
             *((f"me_lab_peak {k} at {c} columns",
                lab.lab_occupancy(k, cols=c, inner=vpu_peak.INNER))
-              for k in lab.ROLL_INSTANCES for c in (32, 1024))]:
+              for k in lab.ROLL_INSTANCES for c in (32, 1024)),
+            ("me_lab_chain", lab.lab_occupancy("chain"))]:
         print(f"{what}: {occ['registers']} registers and "
               f"{occ['local_bytes']} bytes of local memory (spills) per "
               f"thread, {occ['threads']} threads and {occ['smem_bytes']} B "
@@ -2745,6 +2747,11 @@ def main(argv=None) -> int:
     lab_times["me_lab_chain"] = (ms, plain_ms, chain_ops / lane_ops_s * 1e3,
                                  "operations")
     t_tool = rate(chain_ops, ms, "P2")
+    cf, ef = (t.to(dev) for t in vpu_peak.chain_inputs(FILL_CH_W))
+    compare(["me_lab_chain"], [lab.lab_chain(cf, ef, ch_g=vpu_peak.CH_G)],
+            [lab.chain_plain(cf, ef, ch_g=vpu_peak.CH_G)],
+            f"me_lab_chain [{vpu_peak.CH_G}, {FILL_CH_W}]")
+    del cf, ef
     t = vpu_peak.measure_chain(ch_w=FILL_CH_W)
     fill_ops = vpu_peak.chain_ops(ch_w=FILL_CH_W)
     rate(fill_ops, fill_ops / t / 1e9, f"P2 width {FILL_CH_W}")

@@ -79,13 +79,18 @@
 // recomputed, stands in for the neighbours' columns: no shuffle and no
 // barrier a step; the threads exchange x once per iteration, through shared
 // memory, behind one barrier. P2: one thread per (g, x) holding its 8 C and
-// 32 E values in registers; each repetition reads the C values through the
-// same XOR and feeds a minimum carried across repetitions, so the `reps`
-// repetitions are neither folded into one nor dead. L1-L7 share one layout:
-// a CUDA block of 160 threads takes 4 x 8 macroblocks (tile_h, the TPU
-// stripe height, is checked and sets nothing but "L1"'s function), stages
-// their window as bytes, four to a word, in shared memory (and, for the
-// cross term, the Qref box-sum plane: row sums by __dp4a, then column sums
+// 32 E values in registers; each repetition XORs the C values in place
+// with (rep & mask) and feeds a minimum carried across repetitions, so the
+// `reps` repetitions are neither folded into one nor dead. A team of warps
+// sharing an element's repetitions (or its dy rows) was tried and ran no
+// faster at the JAX tool's [8, 2048] and slower at [8, 65536]: at [8,
+// 2048] 512 warps of 64 repetitions leave 256 warp-repetitions on the
+// busiest of the 132 SMs, and a team of any size leaves that SM the same
+// 256. L1-L7 share one layout: a CUDA block of 160 threads takes 4 x 8
+// macroblocks (tile_h, the TPU stripe height, is checked and sets nothing
+// but "L1"'s function), stages their window as bytes, four to a word, in
+// shared memory (and, for the cross term, the Qref box-sum plane: row
+// sums by __dp4a, then column sums
 // sliding down, build_qref), and gives each macroblock five threads of 5
 // offset columns each. A thread holds its macroblock's 64 pixels as 16
 // words and keeps 8 offset rows x 5 offset columns of sums in registers,
@@ -99,11 +104,19 @@
 // offset row's costs enter the key.
 //
 // What bounds it. P1 fma and mix and P2 are FP32-lane issue: one FMA (or sub)
-// per lane per clock, 128 lanes per SM. P1 roll: its adds (one a stream,
-// column and step) at that rate, and the halo's, 28 a stream and iteration
-// beside a thread's 8 * KC; a row is one CUDA block, so at 64 rows 64 SMs
-// work, with 4 warps each. L1: its arithmetic, a __dp4a (L0, M1) or a
-// vabsdiff4 (M2) a word of four pixel-candidates on the 64 int32 lanes of
+// per lane per clock, 128 lanes per SM. P2's 16 FP32 instructions a dy
+// row share the schedulers' issue with a minimum a dy row and the flip's 8
+// XORs a repetition (433 issues a repetition against 400 on the FP32
+// lanes: at best 92% of the floor). At the JAX tool's [8, 2048] one thread
+// an element puts 4 warps on 128 of the 132 SMs; 25 independent dy chains
+// a thread keep one warp a scheduler issuing, so the order ptxas gives the
+// chain (the flip in place, one repetition a loop trip) sets P2's time,
+// not its warps an SM. P1 roll:
+// its adds (one a stream, column and step) at that rate, and the halo's,
+// 28 a stream and iteration beside a thread's 8 * KC; a row is one CUDA
+// block, so at 64 rows 64 SMs work, with 4 warps each. L1: its
+// arithmetic, a __dp4a (L0, M1) or a vabsdiff4 (M2) a word of four
+// pixel-candidates on the 64 int32 lanes of
 // an SM, a bf16x2 FMA and an FADD a pixel-candidate (M3) on the 128 FP32
 // lanes; four shared loads and nine funnel shifts a window row feed 320
 // pixel-candidates. The key kernel likewise, over the valid candidates: a
@@ -305,8 +318,14 @@ RollKernel roll_kernel(int kc, int inner) {
 }
 
 // ---------------------------------------------------------------------------
-// P2: one thread per (g, x) of the [g_rows, w] output.
-__global__ void __launch_bounds__(kThreads)
+// P2: one thread per (g, x) of the [g_rows, w] output, holding its 8 C and
+// 32 E values in registers. Each repetition XORs the C values in place
+// with (rep & mask) and feeds a minimum carried across repetitions, so no
+// repetition is folded into another or dead. The launch bound asks for
+// one CUDA block an SM at least, so ptxas is free to give the chain the
+// registers its schedule wants (80 on sm_90a); forms of the chain that
+// ptxas packed into 64 or fewer ran slower on the card.
+__global__ void __launch_bounds__(kThreads, 1)
 chain_kernel(const float* __restrict__ c, const float* __restrict__ e,
              float* __restrict__ out, int g_rows, int w, int reps,
              int mask) {
@@ -314,20 +333,18 @@ chain_kernel(const float* __restrict__ c, const float* __restrict__ e,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= g_rows * w) return;
   const int g = i / w, x = i - g * w;
-  float c0[kChainBlk], er[kPhase];
+  float cr[kChainBlk], er[kPhase];
 #pragma unroll
   for (int r = 0; r < kChainBlk; ++r)
-    c0[r] = c[static_cast<size_t>(r * g_rows + g) * w + x];
+    cr[r] = c[static_cast<size_t>(r * g_rows + g) * w + x];
 #pragma unroll
   for (int p = 0; p < kPhase; ++p)
     er[p] = e[static_cast<size_t>(p * g_rows + g) * w + x];
-  // The minimum runs on across repetitions (each gives the same value), so
-  // no repetition's work is dead.
   float total = __int_as_float(0x7f800000);  // +inf
+#pragma unroll 1
   for (int rep = 0; rep < reps; ++rep) {
-    float cr[kChainBlk];
 #pragma unroll
-    for (int r = 0; r < kChainBlk; ++r) cr[r] = flipped(c0[r], rep & mask);
+    for (int r = 0; r < kChainBlk; ++r) cr[r] = flipped(cr[r], rep & mask);
 #pragma unroll
     for (int dy = 0; dy < kChainK; ++dy) {
       float d = cr[0] - er[dy];
@@ -1158,12 +1175,13 @@ extern "C" int me_lab_p7(const void* cur, const void* ref, void* out_key,
 }
 
 // The resources of an instance into out[0..4]: registers and local (spill)
-// bytes per thread, threads a CUDA block, dynamic shared bytes, CUDA blocks
-// resident per SM. kind: 0-5 the me_lab_padded variant of that code; 6 and
-// 7 the roll mix's instances of 8 and 16 columns a thread for a row of
-// `cols` columns at `inner`; 8-14 the key kernel's instances: 8 the diff
-// form's key, 9 SAD's key, 10 the cross term's key, 11 the cross term's
-// pair, 12 SAD's pair, 13 nochain, 14 nofold. Returns a cudaError_t.
+// bytes per thread, threads a CUDA block, dynamic shared bytes, CUDA
+// blocks resident per SM. kind: 0-5 the me_lab_padded variant of that
+// code; 6 and 7 the roll mix's instances of 8 and 16 columns a thread for a
+// row of `cols` columns at `inner`; 8-14 the key kernel's instances: 8 the
+// diff form's key, 9 SAD's key, 10 the cross term's key, 11 the cross
+// term's pair, 12 SAD's pair, 13 nochain, 14 nofold; 15 P2's kernel.
+// Returns a cudaError_t.
 extern "C" int me_lab_occupancy(int kind, int cols, int inner, int* out) {
 #define ME_PADDED_OCC(V) \
   occupancy(lab_padded_kernel<V>, kPadThreads, pad_smem_bytes(V), out)
@@ -1189,6 +1207,7 @@ extern "C" int me_lab_occupancy(int kind, int cols, int inner, int* out) {
     case 12: return key_occupancy<kAbs, kPair>(out);
     case 13: return key_occupancy<kDot, kNochain>(out);
     case 14: return key_occupancy<kDot, kNofold>(out);
+    case 15: return occupancy(chain_kernel, kThreads, 0, out);
   }
 #undef ME_PADDED_OCC
   return static_cast<int>(cudaErrorInvalidValue);

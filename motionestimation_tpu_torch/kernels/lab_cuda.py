@@ -10,7 +10,7 @@ The PyTorch counterparts of the Pallas kernels of the JAX repo's
   columns a thread, their halo recomputed, no barrier a step).
 * `lab_chain` launches `me_lab_chain` (P2), the port of `run_chain`'s kernel
   (vpu_peak.py:99): the phase kernel's difference chain and dy minimum in
-  isolation.
+  isolation, one thread an element.
 * `lab_phase` launches `me_lab_phase` (L2), the port of `make_phase_kernel`
   (kern_lab.py:357): exact SSD by the cross term, or SAD, with the
   lexicographic (cost, flat) minimum; float32 cost and int32 index.
@@ -478,19 +478,22 @@ ROLL_INSTANCES = {"roll 8": 6, "roll 16": 7}
 KEY_INSTANCES = {"key ssd": 8, "key sad": 9, "key cross": 10,
                  "pair cross": 11, "pair sad": 12, "key nochain": 13,
                  "key nofold": 14}
+# P2's kernel.
+CHAIN_INSTANCES = {"chain": 15}
 
 
 def lab_occupancy(kernel: str, *, cols: int = 1024,
                   inner: int = 64) -> dict:
     """The resources on the current card of the instance that `lab_padded`
     launches for variant `kernel` ("NOP", "L0", "L1", "M1", "M2", "M3"), of
-    the key kernel's instance `kernel` (a `KEY_INSTANCES` name), or of the
+    the key kernel's instance `kernel` (a `KEY_INSTANCES` name), of the
     roll mix's instance `kernel` ("roll 8", "roll 16") on rows of
-    `cols` columns at `inner`: registers and local (spill) bytes per
-    thread, threads and dynamic shared bytes per CUDA block, CUDA blocks
-    and warps resident per SM
+    `cols` columns at `inner`, or of P2's kernel ("chain"): registers and
+    local (spill) bytes per thread, threads and dynamic shared bytes per
+    CUDA block, CUDA blocks and warps resident per SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a card."""
-    codes = {**PADDED_VARIANTS, **ROLL_INSTANCES, **KEY_INSTANCES}
+    codes = {**PADDED_VARIANTS, **ROLL_INSTANCES, **KEY_INSTANCES,
+             **CHAIN_INSTANCES}
     if kernel not in codes:
         check_padded_variant(kernel)
     code = codes[kernel]

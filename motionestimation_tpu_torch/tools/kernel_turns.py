@@ -20,13 +20,15 @@ runs can be seen to agree. Each cell of REPLAY_GROUPS (a staged level of
 `bench/matrix`'s diamond rows, on its content) does the same for
 `me_diamond_replay` through `kernels/diamond_cuda.replay_cuda` over the
 level's volume. Each cell of LAB_GROUPS (the speed-of-light tools' L1, the
-variants of L2-L7, and P1, on their tools' inputs, `kern_lab.make_inputs`
-and `vpu_peak.peak_input`) times its entries through `kern_lab.variant_fn`
+variants of L2-L7, P1 and P2, on their tools' inputs,
+`kern_lab.make_inputs`, `vpu_peak.peak_input` and `vpu_peak.chain_inputs`)
+times its entries through `kern_lab.variant_fn`
 (`kernels/lab_cuda.lab_padded`, or the wrappers `lab_phase`, `lab_diff`,
-`lab_p3`, `lab_p5`, `lab_p6`, `lab_p7`) or `lab_peak` in turns, as GROUPS
-does, with a digest of each entry's output. --group times only the cells with
-those labels (e.g. "4K 7x7 +-15 sad", "lazy 4K 8x8 +-31 mse", "replay
-worstcase-4k level 31", "lab key 2048x2048 tile_h 128").
+`lab_p3`, `lab_p5`, `lab_p6`, `lab_p7`), `lab_peak` or `lab_chain` in
+turns, as GROUPS does, with a digest of each entry's output. --group
+times only the cells with those labels (e.g. "4K 7x7 +-15 sad", "lazy 4K
+8x8 +-31 mse", "replay worstcase-4k level 31", "lab key 2048x2048 tile_h
+128", "lab P2 [8, 2048]").
 `chip_smoke.py` times its in-turns groups with `time_group`; the tool uses
 only the public wrappers of `kernels/full_search_cuda.py` (MSE, SAD),
 `kernels/ssim_cuda.py` (SSIM) and `kernels/diamond_cuda.py` (the walk and
@@ -222,10 +224,11 @@ def time_replay(content, blk, span, r, metric, seed=0, device=None):
 
 
 # The speed-of-light tools' L1, key and cross variants at the lab's
-# 2048x2048 8x8 +-12 (`kern_lab.make_inputs(seed)`) and P1's mixes on the
-# tool's input (`vpu_peak.peak_input`, INNER 64, OUTER 4096): (label, tool,
-# entries); an entry is an L1, key or cross variant at that label's tile_h
-# or a P1 mix at its rows.
+# 2048x2048 8x8 +-12 (`kern_lab.make_inputs(seed)`), P1's mixes on the
+# tool's input (`vpu_peak.peak_input`, INNER 64, OUTER 4096) and P2 on the
+# tool's (`vpu_peak.chain_inputs`, [8, w]): (label, tool, entries); an
+# entry is an L1, key or cross variant at that label's tile_h, a P1 mix at
+# its rows, or P2 ("chain") at its width.
 LAB_GROUPS = [
     ("lab L1 2048x2048 tile_h 128", "kern_lab 128",
      ["NOP", "L0", "L1", "M1", "M2", "M3"]),
@@ -239,6 +242,8 @@ LAB_GROUPS = [
     ("lab cross 2048x2048 tile_h 64", "kern_lab 64", ["P0", "P1"]),
     ("lab P1 64x1024", "vpu_peak 64", ["fma", "mix", "roll"]),
     ("lab P1 512x1024", "vpu_peak 512", ["fma", "mix", "roll"]),
+    ("lab P2 [8, 2048]", "vpu_peak chain 2048", ["chain"]),
+    ("lab P2 [8, 65536]", "vpu_peak chain 65536", ["chain"]),
 ]
 
 
@@ -247,8 +252,12 @@ def time_lab(tool, entries, seed=0, device=None):
     entry once (its output's digest), then LAUNCHES launches each between
     CUDA events behind a sleep, in turns."""
     dev = resolve_device(device)
-    name, size = tool.split()
-    if name == "kern_lab":
+    name, *_, size = tool.split()
+    if tool.startswith("vpu_peak chain"):
+        c, e = (t.to(dev) for t in vpu_peak.chain_inputs(int(size)))
+        fns = {s: functools.partial(lab.lab_chain, c, e, ch_g=vpu_peak.CH_G)
+               for s in entries}
+    elif name == "kern_lab":
         cur, ref_p = (torch.from_numpy(x).to(dev)
                       for x in kern_lab.make_inputs(seed))
         fns = {v: functools.partial(kern_lab.variant_fn(f"{v}:{size}")[0],

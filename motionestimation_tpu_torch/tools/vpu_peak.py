@@ -19,9 +19,10 @@ Prints T elem-ops/s for each mix, counting ops as the JAX tool does (for
 roll also the adds the card executes, `roll_adds`: the JAX tool counts a
 roll + add pair as two elem-ops, and a thread that rolls in registers
 executes only the add). Each time is taken with CUDA events around CHAIN
-back-to-back launches on one stream (the median of `reps` such runs,
-after one warm-up call that also builds the kernels), never with a host
-clock. The module constants are the
+back-to-back launches on one stream, queued behind a sleep on the card so
+that the events time the card and not the host's issue of a short launch
+(the median of `reps` such runs, after one warm-up call that also builds
+the kernels), never with a host clock. The module constants are the
 JAX tool's; `rows` (of `measure`) and `ch_w` (of `measure_chain`) can be
 raised to fill the card.
 """
@@ -42,6 +43,9 @@ OUTER = 4096            # iterations
 CHAIN = 4               # launches per timed run
 CH_G, CH_BLK, CH_K, CH_W = 8, lab.CHAIN_BLK, lab.CHAIN_K, 2048
 MIXES = tuple(lab.MIXES)
+# Card clock cycles of sleep queued per launch before a timed run: 100 us at
+# 2 GHz, more than the host takes to issue one launch.
+SLEEP_CYCLES = 200_000
 
 
 # The correctness check's inputs (not the tool's): at CHECK_OUTER
@@ -117,13 +121,15 @@ def run_chain(c, e, *, chain: int = CHAIN) -> torch.Tensor:
 
 
 def _per_call_s(fn, reps: int) -> float:
-    """Median device seconds per launch: CUDA events around CHAIN calls,
-    `reps` times, after one warm-up call."""
+    """Median device seconds per launch: CUDA events around CHAIN calls
+    queued behind a sleep on the card, `reps` times, after one warm-up
+    call."""
     fn(1)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     ts = []
     for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES * CHAIN)
         start.record()
         fn(CHAIN)
         end.record()

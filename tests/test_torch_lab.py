@@ -11,7 +11,8 @@ version):
 * L2 ("P0", "P1") and L4 ("P4", "P4S") at 256x256 8x8 +-12, tile_h 64 and
   128: exact at every block start, and a constant pair (cur 0, ref 255)
   whose SSD key wraps int32;
-* P2: exact (every value an integer below 2^24);
+* P2: exact (every value an integer below 2^24) at widths 128 and 37, and
+  the chain without any one dy row or term differs from it;
 * P1 per mix, within 1e-5 relative (the two sides round multiply and add
   in their own places), on inputs where one step fewer of any chain moves
   the result far past that tolerance;
@@ -165,12 +166,38 @@ def test_diff_key_wraps_like_jax(jax_lab):
     assert int(idx[0, 0]) == 12 * 25 + 12 and int(idx[2, 2]) == 0
 
 
-def test_chain_matches_jax(jax_peak):
-    c, e = tvp.chain_inputs(ch_w=CH_W)
-    (want,) = _last_outputs(jax_peak, jax_peak.run_chain(c.numpy(), e.numpy()))
+# 37: a width that is not a multiple of a warp's 32 lanes.
+@pytest.mark.parametrize("ch_w", [CH_W, 37])
+def test_chain_matches_jax(jax_peak, ch_w):
+    jax_tool = (jax_peak if ch_w == CH_W
+                else _load_tool("vpu_peak", CH_W=ch_w, **PEAK))
+    c, e = tvp.chain_inputs(ch_w=ch_w)
+    (want,) = _last_outputs(jax_tool, jax_tool.run_chain(c.numpy(), e.numpy()))
+    assert want.shape == (tvp.CH_G, ch_w)
     got = tvp.run_chain(c, e, chain=1)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_chain_check_sees_each_dy_and_term():
+    """On the tool's inputs at width 256 the chain with any one of its 25
+    dy rows, or any one of its 8 terms, left out differs from the full
+    chain in some element, so the card's exact check of P2 against
+    `chain_plain` cannot pass a kernel that drops a share of either."""
+    c, e = tvp.chain_inputs(ch_w=256)
+    g, w = tvp.CH_G, 256
+    windows = e.reshape(tvp.CH_BLK + tvp.CH_K - 1, g, w).unfold(
+        0, tvp.CH_BLK, 1).permute(0, 3, 1, 2)           # [K, BLK, g, w]
+    terms = (c.reshape(tvp.CH_BLK, g, w)[None] - windows) ** 2
+    rows = terms.sum(1)                                   # [K, g, w]
+    full = rows.amin(0)
+    assert torch.equal(full, lab.chain_plain(c, e, ch_g=g))
+    for dy in range(tvp.CH_K):
+        without = torch.cat([rows[:dy], rows[dy + 1:]]).amin(0)
+        assert not torch.equal(without, full), dy
+    for r in range(tvp.CH_BLK):
+        without = (rows - terms[:, r]).amin(0)
+        assert not torch.equal(without, full), r
 
 
 def _peak_rel(got, want):
@@ -297,10 +324,19 @@ def test_peak_kernel_matches_plain_cuda(cuda, mix, rows, cols):
         tvp.CHECK_TOL[mix])
 
 
-def test_chain_kernel_matches_plain_cuda(cuda):
-    c, e = (t.to(cuda) for t in tvp.chain_inputs(ch_w=256))
-    got = lab.lab_chain(c, e, ch_g=tvp.CH_G)
-    assert torch.equal(got, lab.chain_plain(c, e, ch_g=tvp.CH_G))
+# (G, w): the JAX tool's shape, the width chip_smoke.py fills the card at,
+# a width past a multiple of a CUDA block's 128 threads, one g row, and
+# one element a row.
+@pytest.mark.parametrize("g,w", [(8, 2048), (8, 65536), (8, 4100), (1, 33),
+                                 (3, 1)])
+def test_chain_kernel_matches_plain_cuda(cuda, g, w):
+    rng = np.random.default_rng(g * w)
+    c, e = (torch.from_numpy(rng.integers(0, 256, (n * g, w)).astype(
+        np.float32)).to(cuda) for n in (tvp.CH_BLK, tvp.CH_BLK + tvp.CH_K - 1))
+    before = lab.lab_chain.launches
+    got = lab.lab_chain(c, e, ch_g=g)
+    assert lab.lab_chain.launches == before + 1
+    assert torch.equal(got, lab.chain_plain(c, e, ch_g=g))
 
 
 @pytest.mark.parametrize("tile_h", [8, 64, 128])

@@ -55,7 +55,7 @@ from numpy.lib.stride_tricks import sliding_window_view
 from motionestimation_tpu_torch.bench import roofline
 from motionestimation_tpu_torch.kernels import lab_cuda as lab
 from motionestimation_tpu_torch.tools import kern_lab as tkl
-from motionestimation_tpu_torch.tools import kernel_turns, sass_loops
+from motionestimation_tpu_torch.tools import kernel_turns, sass_loops, vpu_peak
 from test_torch_lab import LAB_SIZE, _last_outputs, _load_tool, _torch
 
 torch.set_num_threads(1)
@@ -242,20 +242,27 @@ def test_names_route_as_jax_main(jax_lab, monkeypatch):
 def test_lab_groups_name_the_wrappers_variants():
     """Each cell of `kernel_turns.LAB_GROUPS` names a tool and size the
     timing reads, and entries that `kern_lab.variant_fn` (L1's, the key
-    and the cross variants) or `lab_peak` take; the L1 cells take every L1
-    variant, the key cells every key variant at tile_h 128 and L4's at
-    64, the cross cells every cross variant at 128 and L2's at 64; the
-    occupancy query refuses a name no instance has before it touches a
-    card."""
+    and the cross variants), `lab_peak` or `lab_chain` (P2, "chain")
+    take; the L1 cells take every L1 variant, the key cells every key
+    variant at tile_h 128 and L4's at 64, the cross cells every cross
+    variant at 128 and L2's at 64, the P2 cells its kernel at the tool's
+    width and at 65536; the occupancy query refuses a name no
+    instance has before it touches a card."""
     kinds = {"lab L1": lab.PADDED_VARIANTS, "lab key": tkl.KEY_VARIANTS,
              "lab cross": tkl.CROSS_VARIANTS}
     cells = {}  # (kind, tile_h) -> its variants
+    chains = {}  # width -> P2 entries
     for label, tool, entries in kernel_turns.LAB_GROUPS:
-        name, size = tool.split()
+        name, *what, size = tool.split()
         assert name in ("kern_lab", "vpu_peak") and int(size) > 0, label
+        assert what in ([], ["chain"]) and not (what and name == "kern_lab")
         known = ((*lab.PADDED_VARIANTS, *tkl.KEY_VARIANTS,
-                  *tkl.CROSS_VARIANTS) if name == "kern_lab" else lab.MIXES)
+                  *tkl.CROSS_VARIANTS) if name == "kern_lab"
+                 else lab.CHAIN_INSTANCES if what else lab.MIXES)
         assert entries and set(entries) <= set(known), label
+        if what:
+            assert label.startswith("lab P2"), label
+            chains.setdefault(int(size), set()).update(entries)
         if name == "kern_lab":
             assert tkl.H % int(size) == 0 and int(size) % BLK == 0
             kind = next(k for k, vs in kinds.items() if set(entries) <= set(vs))
@@ -267,6 +274,8 @@ def test_lab_groups_name_the_wrappers_variants():
         ("lab key", 128): set(tkl.KEY_VARIANTS), ("lab key", 64): {"P4", "P4S"},
         ("lab cross", 128): set(tkl.CROSS_VARIANTS),
         ("lab cross", 64): {"P0", "P1"}}
+    assert chains == {w: set(lab.CHAIN_INSTANCES)
+                      for w in (vpu_peak.CH_W, 65536)}
     with pytest.raises(ValueError):
         lab.lab_occupancy("Q1")
 
