@@ -18,8 +18,11 @@ processes the frames pairwise with `runner.run_gop` (one `mv_%05d.npz`
 per pair in the output directory, existing dumps skipped) and prints
 `GOP: N frame pairs -> DIR`. `--profile DIR` records the pair run with
 `torch.profiler` (CUDA activity on the card) and writes a Chrome trace
-into DIR. The run uses the CUDA card unless `--device cpu` is given;
-without CUDA the default raises.
+into DIR; it holds the program's spans (`core.trace`): a full or SSIM
+frame search as `me.search` around `me.operands`, `me.edges` and
+`me.decode`, each kernel launch as `me.launch`, and `me.kernel_load`
+where a kernel library is built or opened. The run uses the CUDA card
+unless `--device cpu` is given; without CUDA the default raises.
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--profile", metavar="DIR", default=None,
         help="record the pair run with torch.profiler and write a Chrome "
-        "trace into DIR",
+        "trace, with the program's me.* spans, into DIR",
     )
     p.add_argument(
         "--debug-block", nargs=2, type=int, metavar=("BY", "BX"), default=None

@@ -10,6 +10,10 @@ at its next use. Every source is compiled by its own nvcc process, all
 started together. Nothing is built when this module is imported: the first
 kernel launch builds what it needs, and `build()` builds everything up
 front. The build directory is listed in .gitignore.
+
+`load` counts in `load_s` the process's seconds spent building and opening
+libraries (none for one already open), each time under a `me.kernel_load`
+span (`core.trace`).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import threading
 import time
 from pathlib import Path
 
+from motionestimation_tpu_torch.core import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
@@ -31,6 +37,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+load_s = 0.0
 
 
 def nvcc() -> str:
@@ -92,12 +99,16 @@ def build(names: list[str] | None = None) -> dict[str, tuple[float, str]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, building it on first use."""
+    global load_s
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                build([name])
-            lib = ctypes.CDLL(str(path))
+            t0 = time.perf_counter()
+            with trace.span("me.kernel_load"):
+                path = library_path(name)
+                if not path.exists():
+                    build([name])
+                lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
+            load_s += time.perf_counter() - t0
         return lib

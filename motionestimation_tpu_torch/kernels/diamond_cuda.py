@@ -24,7 +24,8 @@ pass); `search.diamond._diamond_lazy` picks between them by the frames'
 device.
 
 Both wrappers raise on CPU tensors and count their launches in
-`launches`.
+`launches`; every launch here runs inside a `me.launch` span
+(`core.trace`).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import functools
 
 import torch
 
-from motionestimation_tpu_torch.core import geometry
+from motionestimation_tpu_torch.core import geometry, trace
 from motionestimation_tpu_torch.kernels import _build
 from motionestimation_tpu_torch.metrics import cost as cost_lib
 from motionestimation_tpu_torch.search.full_search import MotionField
@@ -122,9 +123,10 @@ def replay_cuda(volume, *, blk_dim: int, span: int, metric: str, early_term,
     traj = (torch.empty((max_steps + 1, nby, nbx, 2), dtype=torch.int32,
                         device=dev) if record_trajectory else None)
     if nby and nbx:
-        with torch.cuda.device(dev):
+        launcher = _lib().me_diamond_replay
+        with trace.span("me.launch"), torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _lib().me_diamond_replay(
+            err = launcher(
                 volume.data_ptr(), cy.data_ptr(), cx.data_ptr(),
                 best.data_ptr(), score.data_ptr(), escaped.data_ptr(),
                 traj.data_ptr() if traj is not None else None,
@@ -147,8 +149,9 @@ def replay_empty(nby: int, nbx: int, device=None) -> None:
     (the floor of a launch, for timing beside `replay_cuda`; not counted).
     Needs a card."""
     dev = torch.device("cuda") if device is None else torch.device(device)
-    with torch.cuda.device(dev):
-        err = _lib().me_diamond_replay_empty(
+    launcher = _lib().me_diamond_replay_empty
+    with trace.span("me.launch"), torch.cuda.device(dev):
+        err = launcher(
             nby, nbx, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"me_diamond_replay_empty failed: CUDA error "
@@ -213,9 +216,10 @@ def walk_cuda(cur, ref, *, blk_dim: int, span: int, metric: str, early_term,
     traj = (torch.empty((max_steps + 1, nby, nbx, 2), dtype=torch.int32,
                         device=dev) if record_trajectory else None)
     if nby and nbx:
-        with torch.cuda.device(dev):
+        launcher = _walk_lib().me_diamond_walk
+        with trace.span("me.launch"), torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _walk_lib().me_diamond_walk(
+            err = launcher(
                 cur.data_ptr(), ref.data_ptr(), cy.data_ptr(), cx.data_ptr(),
                 ccost.data_ptr(),
                 traj.data_ptr() if traj is not None else None,

@@ -40,7 +40,9 @@ built on `search.full_search.make_displacement_cost` over the same inputs
 and output layout. A wrapper takes the plain version only for tensors on
 the CPU; for CUDA tensors it launches its kernel or raises. Each wrapper
 counts its launches in its `launches` attribute, and those that write a
-volume (emit mode) in `volume_launches` as well.
+volume (emit mode) in `volume_launches` as well, each launch inside a
+`me.launch` span (`core.trace`). `full_search_frame_cuda` records its call
+as `me.search`, with `me.operands`, `me.edges` and `me.decode` inside.
 
 Operands (every wrapper):
   cur       uint8 [tile_h, tile_w], unit column stride; pixel (0, 0) is
@@ -59,7 +61,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from motionestimation_tpu_torch.core import geometry
+from motionestimation_tpu_torch.core import geometry, trace
 from motionestimation_tpu_torch.core.device import resolve_device, to_tensor
 from motionestimation_tpu_torch.kernels import _build
 from motionestimation_tpu_torch.search import full_search as fs
@@ -286,8 +288,9 @@ def _interior(wrapper, source, cur, ref_halo, *, return_volume=False, **kw):
                                 device=cur.device) for _ in range(2))
     else:
         fn = getattr(_lib(source), f"me_{wrapper.__name__}")
-        out = _launch(fn, cur, ref_halo, nby, nbx, volume=volume, **kw)
-        count_launch(wrapper, volume)
+        with trace.span("me.launch"):
+            out = _launch(fn, cur, ref_halo, nby, nbx, volume=volume, **kw)
+            count_launch(wrapper, volume)
     return (*out, volume) if return_volume else out
 
 
@@ -480,9 +483,10 @@ def int_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
         out = tuple(torch.empty((nby, nbx), dtype=torch.int32,
                                 device=cur.device) for _ in range(2))
     else:
-        out = _launch(_lib("int_search").me_int_search, cur, ref_halo, nby,
-                      nbx, volume=volume, **kw)
-        count_launch(int_search, volume)
+        fn = _lib("int_search").me_int_search
+        with trace.span("me.launch"):
+            out = _launch(fn, cur, ref_halo, nby, nbx, volume=volume, **kw)
+            count_launch(int_search, volume)
     return (*out, volume) if return_volume else out
 
 
@@ -562,14 +566,15 @@ def as_u8(frame: torch.Tensor) -> torch.Tensor:
 def frame_operands(cur, ref, span: int, device: torch.device):
     """(cur, ref_halo) uint8 tensors on `device` for a whole-frame search:
     the current frame and the reference zero-padded by `span` all round."""
-    cur_t = as_u8(to_tensor(cur, device))
-    ref_t = as_u8(to_tensor(ref, device))
-    if cur_t.shape != ref_t.shape or cur_t.dim() != 2:
-        raise ValueError(
-            f"current and reference frames must be 2-D of identical shapes, "
-            f"got {tuple(cur_t.shape)} vs {tuple(ref_t.shape)}"
-        )
-    return cur_t, F.pad(ref_t, (span, span, span, span))
+    with trace.span("me.operands"):
+        cur_t = as_u8(to_tensor(cur, device))
+        ref_t = as_u8(to_tensor(ref, device))
+        if cur_t.shape != ref_t.shape or cur_t.dim() != 2:
+            raise ValueError(
+                f"current and reference frames must be 2-D of identical "
+                f"shapes, got {tuple(cur_t.shape)} vs {tuple(ref_t.shape)}"
+            )
+        return cur_t, F.pad(ref_t, (span, span, span, span))
 
 
 def search_interior_and_edges(cur, ref_halo, interior, edge_bottom,
@@ -601,19 +606,20 @@ def search_interior_and_edges(cur, ref_halo, interior, edge_bottom,
     )
     if (nyf, nxf) == (nby, nbx):
         return list(inner)
-    out = [torch.empty((*g.shape[:-2], nby, nbx), dtype=g.dtype,
-                       device=g.device) for g in inner]
-    for o, g in zip(out, inner):
-        o[..., :nyf, :nxf] = g
-    if h % blk_dim:
-        for o, g in zip(out, edge_bottom(cur, ref_halo, blk_dim=blk_dim,
-                                         span=span, **where, **kw)):
-            o[..., nby - 1, :] = g[..., 0, :]
-    if w % blk_dim:
-        for o, g in zip(out, edge_right(cur, ref_halo, blk_dim=blk_dim,
-                                        span=span, **where, **kw)):
-            o[..., :, nbx - 1] = g[..., :, 0]
-    return out
+    with trace.span("me.edges"):
+        out = [torch.empty((*g.shape[:-2], nby, nbx), dtype=g.dtype,
+                           device=g.device) for g in inner]
+        for o, g in zip(out, inner):
+            o[..., :nyf, :nxf] = g
+        if h % blk_dim:
+            for o, g in zip(out, edge_bottom(cur, ref_halo, blk_dim=blk_dim,
+                                             span=span, **where, **kw)):
+                o[..., nby - 1, :] = g[..., 0, :]
+        if w % blk_dim:
+            for o, g in zip(out, edge_right(cur, ref_halo, blk_dim=blk_dim,
+                                            span=span, **where, **kw)):
+                o[..., :, nbx - 1] = g[..., :, 0]
+        return out
 
 
 def interior_search(blk_dim: int, span: int, metric: str,
@@ -658,35 +664,40 @@ def full_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
     result; they have no counterpart here. metric="ssim" raises ValueError,
     as `full_search_frame_pallas` does: SSIM lives in kernels/ssim_cuda.py.
     """
-    dev = resolve_device(device)
-    if metric == "ssim":
-        raise ValueError(_SSIM_ELSEWHERE)
-    if metric not in _METRIC_CODE:
-        raise ValueError(f"metric must be 'mse' or 'sad', got {metric!r}")
-    if phase and not phase_supported(blk_dim, span, metric):
-        raise ValueError(
-            f"phase kernel requires metric mse/sad, blk_dim in "
-            f"{_PHASE_BLOCKS} and span >= 1; got blk_dim={blk_dim} "
-            f"span={span} metric={metric!r}"
-        )
-    cur_t, ref_halo = frame_operands(cur, ref, span, dev)
-    interior = interior_search(blk_dim, span, metric, phase, operand_bf16)
-    h, w = cur_t.shape
-    nby, nbx = geometry.grid_shape(h, w, blk_dim)
-    kw = dict(blk_dim=blk_dim, span=span, metric=metric)
-    if interior is None:
-        cost, idx = int_search(
-            cur_t, ref_halo, frame_height=h, frame_width=w, **kw
-        )
-    else:
-        cost, idx = search_interior_and_edges(
-            cur_t, ref_halo, interior, _edge_slab_bottom, _edge_slab_right,
-            **kw,
-        )
-    _, _, blk_h, blk_w = geometry.block_extents(
-        0, 0, nby, nbx, blk_dim, h, w, dev
-    )
-    return fs.field_from_argmin(cost, idx, blk_h * blk_w, span, metric)
+    with trace.span("me.search"):
+        dev = resolve_device(device)
+        if metric == "ssim":
+            raise ValueError(_SSIM_ELSEWHERE)
+        if metric not in _METRIC_CODE:
+            raise ValueError(
+                f"metric must be 'mse' or 'sad', got {metric!r}")
+        if phase and not phase_supported(blk_dim, span, metric):
+            raise ValueError(
+                f"phase kernel requires metric mse/sad, blk_dim in "
+                f"{_PHASE_BLOCKS} and span >= 1; got blk_dim={blk_dim} "
+                f"span={span} metric={metric!r}"
+            )
+        cur_t, ref_halo = frame_operands(cur, ref, span, dev)
+        interior = interior_search(blk_dim, span, metric, phase,
+                                   operand_bf16)
+        h, w = cur_t.shape
+        nby, nbx = geometry.grid_shape(h, w, blk_dim)
+        kw = dict(blk_dim=blk_dim, span=span, metric=metric)
+        if interior is None:
+            cost, idx = int_search(
+                cur_t, ref_halo, frame_height=h, frame_width=w, **kw
+            )
+        else:
+            cost, idx = search_interior_and_edges(
+                cur_t, ref_halo, interior, _edge_slab_bottom,
+                _edge_slab_right, **kw,
+            )
+        with trace.span("me.decode"):
+            _, _, blk_h, blk_w = geometry.block_extents(
+                0, 0, nby, nbx, blk_dim, h, w, dev
+            )
+            return fs.field_from_argmin(cost, idx, blk_h * blk_w, span,
+                                        metric)
 
 
 def _volume_interior(blk_dim: int, span: int, metric: str):

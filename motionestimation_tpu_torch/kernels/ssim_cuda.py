@@ -28,7 +28,10 @@ built on `search.full_search.make_displacement_cost(metric="ssim")` and
 `scan_argmax` over the same inputs and output layout. A wrapper takes the
 plain version only for tensors on the CPU; for CUDA tensors it launches
 its kernel or raises. Each wrapper counts its launches in its `launches`
-attribute, and those that write a volume in `volume_launches` as well.
+attribute, and those that write a volume in `volume_launches` as well,
+each launch inside a `me.launch` span (`core.trace`).
+`ssim_search_frame_cuda` records its call as `me.search`, with
+`me.operands`, `me.edges` and `me.decode` inside.
 Kernels and plain version evaluate the score one IEEE float32 operation at
 a time in the same order, so they agree bit for bit.
 
@@ -49,7 +52,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from motionestimation_tpu_torch.core import geometry
+from motionestimation_tpu_torch.core import geometry, trace
 from motionestimation_tpu_torch.core.device import resolve_device
 from motionestimation_tpu_torch.kernels import _build
 from motionestimation_tpu_torch.kernels import full_search_cuda as fsc
@@ -228,10 +231,11 @@ def _run(wrapper, cur, ref_halo, grid, return_volume, **kw):
         out = (torch.empty((nby, nbx), dtype=torch.float32, device=cur.device),
                torch.empty((nby, nbx), dtype=torch.int32, device=cur.device))
     else:
-        lib = _lib(_SOURCE[wrapper.__name__])
-        out = _launch(getattr(lib, f"me_{wrapper.__name__}"), cur, ref_halo,
-                      nby, nbx, volume=volume, **kw)
-        fsc.count_launch(wrapper, volume)
+        name = wrapper.__name__
+        fn = getattr(_lib(_SOURCE[name]), f"me_{name}")
+        with trace.span("me.launch"):
+            out = _launch(fn, cur, ref_halo, nby, nbx, volume=volume, **kw)
+            fsc.count_launch(wrapper, volume)
     return (*out, volume) if return_volume else out
 
 
@@ -279,20 +283,23 @@ def ssim_search_frame_cuda(cur, ref, *, blk_dim: int, span: int,
     which overwrites the corner (:661-676); for blk > 32 the
     truncated-extent kernel over the whole frame.
     """
-    cur_t, ref_halo = fsc.frame_operands(cur, ref, span, resolve_device(device))
-    kw = dict(blk_dim=blk_dim, span=span)
-    if blk_dim <= FAST_MAX_BLK:
-        score, idx = fsc.search_interior_and_edges(
-            cur_t, ref_halo, ssim_fast_search, _ssim_edge_bottom,
-            _ssim_edge_right, **kw,
-        )
-    else:
-        h, w = cur_t.shape
-        score, idx = ssim_search(
-            cur_t, ref_halo, frame_height=h, frame_width=w, **kw
-        )
-    mv_y, mv_x = geometry.mv_from_flat_index(idx, span)
-    return fs.MotionField(mv_y, mv_x, idx, score)
+    with trace.span("me.search"):
+        cur_t, ref_halo = fsc.frame_operands(cur, ref, span,
+                                             resolve_device(device))
+        kw = dict(blk_dim=blk_dim, span=span)
+        if blk_dim <= FAST_MAX_BLK:
+            score, idx = fsc.search_interior_and_edges(
+                cur_t, ref_halo, ssim_fast_search, _ssim_edge_bottom,
+                _ssim_edge_right, **kw,
+            )
+        else:
+            h, w = cur_t.shape
+            score, idx = ssim_search(
+                cur_t, ref_halo, frame_height=h, frame_width=w, **kw
+            )
+        with trace.span("me.decode"):
+            mv_y, mv_x = geometry.mv_from_flat_index(idx, span)
+            return fs.MotionField(mv_y, mv_x, idx, score)
 
 
 def ssim_volume_cuda(cur, ref, *, blk_dim: int, span: int,
