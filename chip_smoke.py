@@ -11,7 +11,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    started together); registers, spills, shared memory and resident CUDA
    blocks per SM of the chunked kernel at 4K 7x7 +-15, 4K 8x8 +-12, 4K
    16x16 +-15 and 1080p 7x7 +-7, of the phase kernel (MSE and SAD) at 4K
-   8x8 +-12, 16x16 +-15 and 32x32 +-31, of the wide kernel at 1080p
+   8x8 +-12, 16x16 +-15 and 32x32 +-31, of its register ring (MSE at blk
+   8) at 4K 8x8 +-12 and +-31, of the wide kernel at 1080p
    24x24 +-15 and 4K 32x32 +-31, of the fast SSIM kernel at 4K 16x16
    +-7, 1080p 16x16 +-15 and 4K 32x32 +-7, and of the truncated-extent
    kernels over the 4K 7x7 +-15 (SAD) and 64x64 +-15 (SSIM) frames and on
@@ -130,7 +131,8 @@ Run from the root of a checkout. Phases, each of which raises on failure:
    and volume entry, and of every float32 SSIM score and -inf: kernel and
    plain version round each step alike), the phase kernel at every blk it
    covers (MSE and SAD, with and without its volume, off the origin, on
-   constant frames), the fast SSIM kernel at every blk 1..32 (spans 0 and
+   constant frames) and on its register ring at 4K 8x8 +-31 MSE (the
+   ring's launch count asserted), the fast SSIM kernel at every blk 1..32 (spans 0 and
    5, with and without its volume, on a 400x300 frame's tile off the
    origin), the packed-byte chunked kernel at 4K 7x7 +-15 and 8x8 +-12,
    `ssim_volume_cuda` against the golden SSIM volume, and the
@@ -305,6 +307,8 @@ CHUNKED_CONFIGS = CONFIGS[3:]
 # The JAX package's own A/B config of its half-width-operand kernel
 # (tools/kern_bench.py): phase=False, operand_bf16=True.
 U8_CONFIG = ("4K 8x8 +-12", 2160, 3840, 8, 12)
+# The benchmark's MSE cell (BASELINE.json config 4), on the register ring.
+RING_CONFIG = ("4K 8x8 +-31", 2160, 3840, 8, 31)
 # The JAX bench's config4 row at blk 32 (bench/matrix.py:297-302): K1 and
 # K7 on the same work.
 WIDE_CONFIG = ("4K 32x32 +-31", 2160, 3840, 32, 31)
@@ -1671,6 +1675,9 @@ def main(argv=None) -> int:
         for label, h, w, blk, span in (U8_CONFIG, CONFIGS[2], WIDE_CONFIG)
         for metric in ("mse", "sad")]
     occupancies += [
+        (f"me_phase_ring at {label}", kc.ring_occupancy(span, h // 8, w // 8))
+        for label, h, w, blk, span in (U8_CONFIG, RING_CONFIG)]
+    occupancies += [
         (f"me_wide_search at {label}", kc.wide_occupancy(blk, span, w // blk))
         for label, h, w, blk, span in (CONFIGS[4], WIDE_CONFIG)]
     occupancies += [
@@ -2043,6 +2050,19 @@ def main(argv=None) -> int:
         kc.phase_search, kc.search_plain, (cur_t, halo),
         dict(kw, metric="mse"), (h, w, blk, span, (h, w), (0, 0)),
     )
+    # The benchmark's MSE cell: the register ring's own instance and tile
+    # at 4K 8x8 +-31, which must be the path taken.
+    label, h, w, blk, span = RING_CONFIG
+    ring_ops = operands(h, w, span, args.seed + 31)
+    ring_kw = dict(blk_dim=blk, span=span, metric="mse", frame_height=h,
+                   frame_width=w)
+    rings = kc.phase_search.ring_launches
+    got = kc.phase_search(*ring_ops, **ring_kw)
+    if kc.phase_search.ring_launches != rings + 1:
+        fail(f"me_phase_search at {label} mse did not take the ring")
+    compare(["me_phase_search"], got, kc.search_plain(*ring_ops, **ring_kw),
+            f"me_phase_search {w}x{h} {blk}x{blk} +-{span} mse (ring)")
+    del ring_ops, got
     # The phase kernel at every blk, MSE and SAD, with and without its
     # volume, on the whole blocks of a 1080p frame (the volume holds
     # INT32_MAX past its edges), on a tile off the frame's origin, and on

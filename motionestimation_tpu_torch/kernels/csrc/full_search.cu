@@ -6,6 +6,9 @@
 //   with an optional cost volume (its `emit_volume` mode, :872-888), behind
 //   an extern "C" launcher loaded with ctypes. Blocks with truncated
 //   extents go to me_int_search (int_search.cu).
+// me_phase_ring — the same search at blk 8, SSD, no volume, span 1..63, on
+//   the register ring of ring_search.cuh (its note gives the design); the
+//   wrapper routes those calls here (full_search_cuda.ring_route).
 //
 // Contract (shared with the plain PyTorch version in full_search_cuda.py):
 //   cur:  uint8 [tile_h, tile_w] (row stride cur_ld), pixel (0, 0) at global
@@ -39,11 +42,15 @@
 // blk 32. At 4K 8x8 +-12 the SASS holds 16 __dp4a and 17 shared loads
 // among 66 instructions per candidate: one shared load per __dp4a, and
 // the load pipe (one warp-wide load per SM per clock) is the first limit.
+// The ring takes no shared load a pixel-candidate: 22.2 instructions and
+// 16 __dp4a a candidate, 0.762 ms at 4K 8x8 +-31 against the warp body's
+// 1.947 (0.184 against 0.302 at +-12; H100, in turns).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "ring_search.cuh"
 #include "warp_search.cuh"
 
 #define ME_PHASE_BLOCKS(CASE) CASE(1) CASE(2) CASE(4) CASE(8) CASE(16) CASE(32)
@@ -97,4 +104,75 @@ extern "C" int me_phase_occupancy(int blk, int span, int metric, int nbx,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef ME_OCCUPANCY_CASE
+}
+
+// The register ring's shape for a span (ring_search.cuh): G offset columns
+// a thread, tby x tbx macroblocks a CUDA block. Measured at 4K 8x8 on the
+// H100 over 28 spans 1..63, against 14 shapes each (G 5 or 8, seven
+// tiles), this rule's is the fastest or within 4% at all but +-16 (10%).
+//
+// G is 8 or 5, whichever computes fewer columns ceil(K / G) * G, a column
+// of 5 counted as 1.08 of one of 8: at G = 8 every thread's columns start
+// a word, at 5 each row's words take a funnel shift more (ms, 4 x 16:
+// +-7 G8 0.0907, G5 0.1133; +-12 G5 6 x 8 0.1839, G8 4 x 16 0.1938).
+//
+// The tile is the first of 4 x 16, 6 x 8 and 4 x 8 macroblocks that keeps
+// 12 warps or more resident per SM (the launch bound's 128 registers a
+// thread allow 16; the tile's shared memory may allow fewer), else 4 x 8:
+// the more macroblocks, the less staging a candidate, and below 12 warps
+// the SM idles (ms: +-20 G8 4 x 16 0.4380, 4 x 8 0.5106; +-12 G5 6 x 8
+// 0.1839, 4 x 16 0.2479; +-31 G8 4 x 16 0.7586, 4 x 8 0.7409).
+struct RingShape {
+  int g, tby, tbx;
+};
+
+static RingShape ring_shape(int span) {
+  constexpr int kSmemPerSm = 228 * 1024, kSmemPerBlock = 227 * 1024;
+  constexpr int kTiles[3][2] = {{4, 16}, {6, 8}, {4, 8}};
+  const int k = 2 * span + 1;
+  const int g = 100 * ((k + 7) / 8 * 8) <= 108 * ((k + 4) / 5 * 5) ? 8 : 5;
+  const int words =
+      g == 8 ? me::RingRow<8>::kWords : me::RingRow<5>::kWords;
+  for (const auto& tile : kTiles) {
+    const me::RingLayout l =
+        me::ring_layout(g, words, tile[0], tile[1], span);
+    const int smem = static_cast<int>(me::ring_smem_bytes(l));
+    if (l.threads > me::kRingMaxThreads || smem > kSmemPerBlock) continue;
+    const int w = l.threads / 32;
+    const int by_regs = 16 / w, by_smem = kSmemPerSm / (smem + 1024);
+    if ((by_regs < by_smem ? by_regs : by_smem) * w >= 12)
+      return {g, tile[0], tile[1]};
+  }
+  return {g, 4, 8};
+}
+
+// me_phase_search's SSD at blk 8 without a volume on the register ring
+// (ring_search.cuh): the same arguments and contract; blk must be 8,
+// metric 0 and vol null. Returns the cudaError_t of the launch.
+extern "C" int me_phase_ring(const void* cur, const void* ref,
+                             void* out_cost, void* out_idx, void* vol,
+                             int cur_ld, int ref_ld, int out_ld, int nby,
+                             int nbx, int blk, int span, int metric,
+                             int frame_h, int frame_w, int y_origin,
+                             int x_origin, void* stream) {
+  if (blk != me::kRingBlk || metric != 0 || vol != nullptr || span < 1 ||
+      span > me::kRingMaxSpan)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RingShape r = ring_shape(span);
+  auto launch = r.g == 8 ? me::launch_ring<8> : me::launch_ring<5>;
+  return launch(cur, ref, out_cost, out_idx, cur_ld, ref_ld, out_ld, nby,
+                nbx, span, frame_h, frame_w, y_origin, x_origin, r.tby,
+                r.tbx, static_cast<cudaStream_t>(stream));
+}
+
+// me_phase_ring's resources for a grid of nby x nbx macroblocks: out[6] =
+// {registers per thread, local (spill) bytes per thread, dynamic shared
+// memory bytes, macroblocks per CUDA block, resident CUDA blocks per SM,
+// threads per CUDA block}. Returns the cudaError_t of the queries.
+extern "C" int me_ring_occupancy(int span, int nby, int nbx, int* out) {
+  if (span < 1 || span > me::kRingMaxSpan || nby < 1 || nbx < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RingShape r = ring_shape(span);
+  auto occupancy = r.g == 8 ? me::ring_occupancy<8> : me::ring_occupancy<5>;
+  return occupancy(span, nby, nbx, r.tby, r.tbx, out);
 }

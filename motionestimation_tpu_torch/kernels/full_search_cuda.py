@@ -6,7 +6,9 @@ The PyTorch counterpart of `motionestimation_tpu.kernels.full_search_pallas`:
 * `phase_search` launches `me_phase_search`, the port of the Pallas kernel
   `_kernel_phase` (full_search_pallas.py:729): all full interior blocks,
   blk in {1, 2, 4, 8, 16, 32}, span >= 1; optionally with the cost volume
-  (its `emit_volume` mode).
+  (its `emit_volume` mode). At blk 8 SSD without a volume (`ring_route`)
+  it launches `me_phase_ring` instead, the same search on a register ring
+  of sums (csrc/ring_search.cuh).
 * `int_search` launches `me_int_search`, the port of `_kernel_int`
   (:1076): blocks with truncated extents, any blk; optionally with the cost
   volume (the JAX package computes the volume's edge slabs with its golden
@@ -40,8 +42,9 @@ built on `search.full_search.make_displacement_cost` over the same inputs
 and output layout. A wrapper takes the plain version only for tensors on
 the CPU; for CUDA tensors it launches its kernel or raises. Each wrapper
 counts its launches in its `launches` attribute, and those that write a
-volume (emit mode) in `volume_launches` as well, each launch inside a
-`me.launch` span (`core.trace`). `full_search_frame_cuda` records its call
+volume (emit mode) in `volume_launches` as well (`phase_search` those on
+the ring in `ring_launches`), each launch inside a `me.launch` span
+(`core.trace`). `full_search_frame_cuda` records its call
 as `me.search`, with `me.operands`, `me.edges` and `me.decode` inside.
 
 Operands (every wrapper):
@@ -79,7 +82,9 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "full_search": {
         "me_phase_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
+        "me_phase_ring": [_PTR] * 5 + [_INT] * 12 + [_PTR],
         "me_phase_occupancy": [_INT] * 4 + [_PTR],
+        "me_ring_occupancy": [_INT] * 3 + [_PTR],
     },
     "int_search": {
         "me_int_search": [_PTR] * 5 + [_INT] * 12 + [_PTR],
@@ -93,8 +98,9 @@ _SIGNATURES = {
         "me_wide_occupancy": [_INT] * 3 + [_PTR],
     },
 }
-_EMITTERS = ("me_phase_search", "me_int_search", "me_chunked_search")
-_TAKE_METRIC = ("me_phase_search", "me_int_search")
+_EMITTERS = ("me_phase_search", "me_phase_ring", "me_int_search",
+             "me_chunked_search")
+_TAKE_METRIC = ("me_phase_search", "me_phase_ring", "me_int_search")
 
 
 @functools.cache
@@ -112,6 +118,21 @@ def phase_supported(blk_dim: int, span: int, metric: str) -> bool:
     full_search_pallas.py:1402): MSE/SAD, blk dividing 128 and <= 32,
     span >= 1."""
     return metric in _METRIC_CODE and blk_dim in _PHASE_BLOCKS and span >= 1
+
+
+_RING_MAX_SPAN = 63  # kRingMaxSpan, csrc/ring_search.cuh
+
+
+def ring_route(blk_dim: int, span: int, metric: str,
+               return_volume: bool) -> bool:
+    """Whether `phase_search` takes the register ring (`me_phase_ring`)
+    rather than the warp body: blk 8 SSD without a volume, span 1..63. The
+    ring holds 8 offset rows of sums a thread, one per row of an 8x8
+    block, and its staged window and Qref plane outgrow shared memory past
+    about +-90; SAD, the emit mode, other blk and wider spans keep
+    `me_phase_search`."""
+    return (blk_dim == 8 and metric == "mse" and not return_volume
+            and 1 <= span <= _RING_MAX_SPAN)
 
 
 def chunked_supported(blk_dim: int, span: int) -> bool:
@@ -263,18 +284,22 @@ def search_plain(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
                           return_volume=return_volume)
 
 
-def count_launch(wrapper, volume) -> None:
+def count_launch(wrapper, volume, counter=None) -> None:
     """Count one launch of `wrapper`'s kernel, in emit mode when `volume`
-    is not None."""
+    is not None, and in its attribute `counter` too where one is named."""
     wrapper.launches += 1
     if volume is not None:
         wrapper.volume_launches += 1
+    if counter is not None:
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
-def _interior(wrapper, source, cur, ref_halo, *, return_volume=False, **kw):
+def _interior(wrapper, source, cur, ref_halo, *, return_volume=False,
+              launcher=None, counter=None, **kw):
     """An interior wrapper's body: the plain version for CPU tensors, else
-    one launch of `wrapper`'s kernel, the launcher `me_<wrapper name>` of
-    csrc/<source>.cu, counted by `count_launch`."""
+    one launch of `wrapper`'s kernel, the launcher `launcher` (default
+    `me_<wrapper name>`) of csrc/<source>.cu, counted by `count_launch`
+    (also in `counter`, where one is named)."""
     check_interior_tile(cur.shape, kw["blk_dim"], kw["frame_height"],
                         kw["frame_width"], kw["y_origin"], kw["x_origin"])
     if cur.device.type == "cpu":
@@ -287,10 +312,10 @@ def _interior(wrapper, source, cur, ref_halo, *, return_volume=False, **kw):
         out = tuple(torch.empty((nby, nbx), dtype=torch.int32,
                                 device=cur.device) for _ in range(2))
     else:
-        fn = getattr(_lib(source), f"me_{wrapper.__name__}")
+        fn = getattr(_lib(source), launcher or f"me_{wrapper.__name__}")
         with trace.span("me.launch"):
             out = _launch(fn, cur, ref_halo, nby, nbx, volume=volume, **kw)
-            count_launch(wrapper, volume)
+            count_launch(wrapper, volume, counter)
     return (*out, volume) if return_volume else out
 
 
@@ -299,10 +324,12 @@ def phase_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
                  x_origin: int = 0, return_volume: bool = False):
     """Exact search of full interior blocks (`me_phase_search`, the port of
     `_kernel_phase`), on the chunked kernel's warp-per-macroblock body with
-    an SSD or SAD cost. Every block of the tile must lie inside the frame;
-    returns int32 (cost, idx), [tile_h // blk_dim, tile_w // blk_dim], and
-    with `return_volume` the int32 [K², nby, nbx] cost volume (INT32_MAX at
-    invalid candidates; the kernel's emit mode)."""
+    an SSD or SAD cost, or where `ring_route` holds on the register ring
+    (`me_phase_ring`, counted in `ring_launches` too). Every block of the
+    tile must lie inside the frame; returns int32 (cost, idx), [tile_h //
+    blk_dim, tile_w // blk_dim], and with `return_volume` the int32 [K²,
+    nby, nbx] cost volume (INT32_MAX at invalid candidates; the kernel's
+    emit mode)."""
     _check_operands(cur, ref_halo, span, metric)
     if not phase_supported(blk_dim, span, metric):
         raise ValueError(
@@ -314,10 +341,13 @@ def phase_search(cur, ref_halo, *, blk_dim: int, span: int, metric: str,
         span=span, metric=metric, frame_height=frame_height,
         frame_width=frame_width, y_origin=y_origin, x_origin=x_origin,
         return_volume=return_volume,
+        **(dict(launcher="me_phase_ring", counter="ring_launches")
+           if ring_route(blk_dim, span, metric, return_volume) else {}),
     )
 
 
 phase_search.launches = phase_search.volume_launches = 0
+phase_search.ring_launches = 0
 
 
 def _check_mse(metric, kernel):
@@ -357,16 +387,18 @@ def occupancy(launcher, *args: int) -> dict:
     """A search instance's resources on the current card, from its ctypes
     launcher `me_<...>_occupancy(*args, out)`: registers and local (spill)
     bytes per thread, dynamic shared memory and macroblocks per CUDA block,
-    and the CUDA blocks and warps resident per SM
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs a card."""
-    out = (ctypes.c_int * 5)()
+    the CUDA blocks resident per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), threads per CUDA
+    block (a sixth field the launcher may write; 128 if it does not) and
+    the warps resident per SM from them. Needs a card."""
+    out = (ctypes.c_int * 6)(*[0] * 5, 128)  # 128 threads unless written
     err = launcher(*args, out)
     if err != 0:
         raise RuntimeError(f"{launcher.__name__} failed with CUDA error {err}")
-    regs, local, smem, tbx, blocks = out
+    regs, local, smem, tbx, blocks, threads = out
     return dict(registers=regs, local_bytes=local, smem_bytes=smem, tbx=tbx,
-                blocks_per_sm=blocks,
-                warps_per_sm=blocks * 4)  # 128 threads per CUDA block
+                blocks_per_sm=blocks, threads=threads,
+                warps_per_sm=blocks * threads // 32)
 
 
 def chunked_occupancy(blk_dim: int, span: int, nbx: int) -> dict:
@@ -387,6 +419,15 @@ def phase_occupancy(blk_dim: int, span: int, metric: str, nbx: int) -> dict:
                          f"span={span} metric={metric!r} nbx={nbx}")
     return occupancy(_lib("full_search").me_phase_occupancy, blk_dim, span,
                      _METRIC_CODE[metric], nbx)
+
+
+def ring_occupancy(span: int, nby: int, nbx: int) -> dict:
+    """`me_phase_ring`'s resources (`occupancy`) for an [nby, nbx] grid;
+    the ring writes its threads per CUDA block into the sixth field."""
+    if not ring_route(8, span, "mse", False) or min(nby, nbx) < 1:
+        raise ValueError(f"no ring kernel for span={span} "
+                         f"grid={nby}x{nbx}")
+    return occupancy(_lib("full_search").me_ring_occupancy, span, nby, nbx)
 
 
 def int_occupancy(blk_dim: int, span: int, metric: str, nby: int,

@@ -68,6 +68,13 @@ GROUPS = [
         ("K1 me_phase_search sad", "phase_search", "sad", False),
         ("K5 me_chunked_search", "chunked_search", "mse", False),
         ("K6 me_chunked_u8_search", "chunked_u8_search", "mse", False)]),
+    # The benchmark's MSE cell (BASELINE.json config 4): K1's MSE on the
+    # register ring, its SAD on the warp body, and K5, the warp body's 8x8
+    # SSD instance (K1's design before the ring).
+    ("4K 8x8 +-31", 2160, 3840, 8, 31, [
+        ("K1 me_phase_search", "phase_search", "mse", False),
+        ("K1 me_phase_search sad", "phase_search", "sad", False),
+        ("K5 me_chunked_search", "chunked_search", "mse", False)]),
     ("4K 7x7 +-15", 2160, 3840, 7, 15, [
         ("K5 me_chunked_search", "chunked_search", "mse", False),
         ("K6 me_chunked_u8_search", "chunked_u8_search", "mse", False)]),

@@ -277,10 +277,13 @@ def cuda():
 
 # (blk, span): span 1 (K = 3: most lanes of a warp idle) and wider
 # windows; at blk 32, +-15 and +-31 make two and four warps share a
-# macroblock.
+# macroblock. At blk 8, MSE without a volume takes the register ring
+# (`ring_route`) and SAD the warp body: spans 2, 7, 15, 31 and 63 give the
+# ring its first, whole and last chunks of rows in every combination, and
+# at 63 more offset rows than a 3-bit place in a chunk could name.
 PHASE_CUDA = [(1, 1), (1, 3), (1, 31), (2, 1), (2, 5), (4, 1), (4, 5),
               (8, 1), (8, 12), (16, 1), (16, 15), (32, 1), (32, 4), (32, 15),
-              (32, 31)]
+              (32, 31), (8, 2), (8, 7), (8, 15), (8, 31), (8, 63)]
 
 
 @pytest.mark.parametrize("metric", ["mse", "sad"])
@@ -296,9 +299,12 @@ def test_phase_kernel_matches_plain_cuda(cuda, blk, span, metric):
     kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=h,
               frame_width=w)
     tile = cur_t[: h // blk * blk, : w // blk * blk]
-    before = kc.phase_search.launches, kc.phase_search.volume_launches
+    before = (kc.phase_search.launches, kc.phase_search.volume_launches,
+              kc.phase_search.ring_launches)
     got = kc.phase_search(tile, halo, **kw)
     assert kc.phase_search.launches == before[0] + 1
+    assert kc.phase_search.ring_launches == before[2] + (
+        blk == 8 and metric == "mse")
     _assert_exact(got, kc.search_plain(tile, halo, **kw))
     got = kc.phase_search(tile, halo, return_volume=True, **kw)
     assert kc.phase_search.volume_launches == before[1] + 1
@@ -315,6 +321,119 @@ def test_phase_kernel_matches_plain_cuda(cuda, blk, span, metric):
 def _assert_exact(got, want):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_ring_route():
+    """The register ring takes blk 8 SSD without a volume at spans 1..63,
+    and nothing else: SAD, the emit mode, every other blk and wider spans
+    keep the warp body."""
+    for span in (1, 2, 12, 31, 63):
+        assert kc.ring_route(8, span, "mse", False)
+    assert not kc.ring_route(8, 64, "mse", False)
+    assert not kc.ring_route(8, 12, "sad", False)
+    assert not kc.ring_route(8, 12, "mse", True)
+    for blk in (1, 2, 4, 16, 32):
+        assert not kc.ring_route(blk, 12, "mse", False)
+
+
+@pytest.mark.parametrize(
+    "blk,span,metric,volume,launcher",
+    [(8, 3, "mse", False, "me_phase_ring"),
+     (8, 3, "sad", False, "me_phase_search"),
+     (8, 3, "mse", True, "me_phase_search"),
+     (8, 64, "mse", False, "me_phase_search"),
+     (16, 3, "mse", False, "me_phase_search"),
+     (4, 3, "sad", True, "me_phase_search")],
+)
+def test_phase_search_launcher_and_ring_count(monkeypatch, blk, span, metric,
+                                              volume, launcher):
+    """`phase_search` on device tensors launches `me_phase_ring` where
+    `ring_route` holds and `me_phase_search` elsewhere, and counts a launch
+    in `ring_launches` only on the ring (the launchers are stood in for on
+    the meta device: no card needed)."""
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def fn(*args):
+                return 0
+            fn.__name__ = name
+            return fn
+
+    def fake_launch(fn, cur, ref_halo, nby, nbx, *, volume=None, **kw):
+        called.append(fn.__name__)
+        return tuple(torch.empty((nby, nbx), dtype=torch.int32,
+                                 device=cur.device) for _ in range(2))
+
+    monkeypatch.setattr(kc, "_lib", lambda source: Lib())
+    monkeypatch.setattr(kc, "_launch", fake_launch)
+    monkeypatch.setattr(kc.phase_search, "launches", 0)
+    monkeypatch.setattr(kc.phase_search, "volume_launches", 0)
+    monkeypatch.setattr(kc.phase_search, "ring_launches", 0)
+    cur = torch.empty((2 * blk, 3 * blk), dtype=torch.uint8, device="meta")
+    halo = torch.empty((2 * blk + 2 * span, 3 * blk + 2 * span),
+                       dtype=torch.uint8, device="meta")
+    kw = dict(blk_dim=blk, span=span, metric=metric, frame_height=2 * blk,
+              frame_width=3 * blk, return_volume=volume)
+    for _ in range(2):
+        kc.phase_search(cur, halo, **kw)
+    assert called == [launcher, launcher]
+    assert kc.phase_search.launches == 2
+    assert kc.phase_search.volume_launches == 2 * volume
+    assert kc.phase_search.ring_launches == 2 * (launcher == "me_phase_ring")
+
+
+def test_ring_occupancy_rejects_what_the_kernel_does_not_cover():
+    """The ring's resource query checks its config before it reaches the
+    card."""
+    for span, nby, nbx in ((0, 270, 480), (64, 270, 480), (31, 0, 480),
+                           (31, 270, 0)):
+        with pytest.raises(ValueError, match="no ring kernel"):
+            kc.ring_occupancy(span, nby, nbx)
+
+
+@pytest.mark.parametrize("span", [12, 31])
+def test_ring_occupancy_cuda(cuda, span):
+    """The ring at 3840x2160 8x8 +-12 and +-31 spills nothing and keeps
+    two CUDA blocks or 16 warps resident per SM."""
+    occ = kc.ring_occupancy(span, 2160 // 8, 3840 // 8)
+    assert occ["local_bytes"] == 0, occ
+    assert occ["blocks_per_sm"] >= 2 or occ["warps_per_sm"] >= 16, occ
+
+
+def test_ring_on_a_4k_wide_tile_off_the_origin_cuda(cuda):
+    """The ring at +-31 on a 4K-wide tile one block in from every edge of
+    a 3840x80 frame: blocks near each border have masked candidates on
+    that side, all against the plain version."""
+    h, w, span = 80, 3840, 31
+    cur, ref = random_pair(31, h, w)
+    cur_t = torch.from_numpy(cur).to(cuda)
+    halo = F.pad(torch.from_numpy(ref).to(cuda), (span, span, span, span))
+    kw = dict(blk_dim=8, span=span, metric="mse", frame_height=h,
+              frame_width=w, y_origin=8, x_origin=8)
+    tile = (cur_t[8 : h - 8, 8 : w - 8], halo[8:, 8:])
+    before = kc.phase_search.ring_launches
+    got = kc.phase_search(*tile, **kw)
+    assert kc.phase_search.ring_launches == before + 1
+    _assert_exact(got, kc.search_plain(*tile, **kw))
+
+
+@pytest.mark.parametrize("span", [7, 31])
+def test_ring_flat_content_first_candidate_wins_cuda(cuda, span):
+    """On flat frames every valid candidate costs 0: each block takes its
+    first valid candidate in raster order, (oy_lo, ox_lo)."""
+    h, w = 64, 96
+    cur_t = torch.full((h, w), 90, dtype=torch.uint8, device=cuda)
+    halo = F.pad(cur_t, (span, span, span, span))
+    kw = dict(blk_dim=8, span=span, metric="mse", frame_height=h,
+              frame_width=w)
+    cost, idx = kc.phase_search(cur_t, halo, **kw)
+    _assert_exact((cost, idx), kc.search_plain(cur_t, halo, **kw))
+    k = 2 * span + 1
+    gy = torch.arange(h // 8, device=cuda)[:, None] * 8
+    gx = torch.arange(w // 8, device=cuda)[None, :] * 8
+    first = (span - gy).clamp(min=0) * k + (span - gx).clamp(min=0)
+    assert bool((cost == 0).all()) and torch.equal(idx, first.to(torch.int32))
 
 
 @pytest.mark.parametrize(
