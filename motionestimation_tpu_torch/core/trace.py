@@ -15,14 +15,20 @@ ms to a search call of four to seven spans, enough to leave the card
 idle in a traced window.
 
 The spans, in `kernels/full_search_cuda.py`, `kernels/ssim_cuda.py`,
-`kernels/diamond_cuda.py` and `kernels/_build.py`:
+`kernels/diamond_cuda.py`, `kernels/_build.py` and `search/diamond.py`:
 
-* `me.search`: one whole-frame search call;
+* `me.search`: one whole-frame search call (full search, SSIM, diamond);
 * `me.operands`: its operands on the device, uint8, the reference's halo;
-* `me.launch`: a kernel's output tensors and its ctypes launch;
+* `me.launch`: a kernel's output tensors and its ctypes launch, or the
+  launch of a staged diamond level's CUDA graph;
 * `me.edges`: the truncated bottom row and right column, and the merge;
 * `me.decode`: MVs and scores from the block grids;
-* `me.kernel_load`: a kernel library built or opened.
+* `me.kernel_load`: a kernel library built or opened;
+* `me.level`: one staged diamond level, its volume and its replay;
+* `me.escape_wait`: the host's wait on a staged level's escape mask.
+
+Counters are attributes of the functions that count: a kernel wrapper's
+`launches`, `diamond_search_frame.calls`, `_diamond_staged.levels`.
 """
 from __future__ import annotations
 

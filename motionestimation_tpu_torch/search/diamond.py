@@ -45,14 +45,27 @@ host branch on whether any block is still active in the plain replay); its
 `lax.cond` around an escalation, a host branch on whether any block
 escaped a level. `diamond_search_tile` runs the staged path on one mesh
 shard's tile, its level volumes from the kernels' tile entries.
+
+On the card a staged level runs eagerly the first time its frame shape
+and configuration come, and from a CUDA graph, captured the second time,
+every time after that (`_graph_level`): after each host wait on the
+escape mask the card has the next level in one launch.
+
+Spans (`core.trace`): `me.search` around a `diamond_search_frame` call,
+`me.level` around each staged level (its volume and replay), and
+`me.escape_wait` around each host wait on a level's escape mask. Counters:
+`diamond_search_frame.calls`, and `_diamond_staged.levels`, the staged
+levels run.
 """
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
 
+from motionestimation_tpu_torch.core import trace
 from motionestimation_tpu_torch.core.device import resolve_device, to_tensor
 from motionestimation_tpu_torch.kernels import diamond_cuda as dc
 from motionestimation_tpu_torch.kernels import full_search_cuda as fsc
@@ -238,6 +251,185 @@ def _merge(esc, new: MotionField, old: MotionField) -> MotionField:
     return MotionField(*(torch.where(esc, a, b) for a, b in zip(new, old)))
 
 
+def _any_escaped(esc) -> bool:
+    """Whether any block escaped a level: the host waits on the card for
+    the escape mask here."""
+    with trace.span("me.escape_wait"):
+        return bool(esc.any())
+
+
+def _level(cur, ref, r: int, *, blk_dim: int, span: int, metric: str,
+           early_term, max_steps: int, record_trajectory: bool):
+    """One staged level: the radius-r volume and its replay, (field,
+    trajectory or None, escaped)."""
+    frame_height, frame_width = cur.shape
+    if metric == "ssim":
+        volume = sc.ssim_volume_cuda(cur, ref, blk_dim=blk_dim, span=r,
+                                     device=cur.device)
+    else:
+        volume = fsc.full_search_volume_cuda(cur, ref, blk_dim=blk_dim,
+                                             span=r, metric=metric,
+                                             device=cur.device)
+    return _replay(volume, blk_dim=blk_dim, span=r, metric=metric,
+                   early_term=early_term, max_steps=max_steps,
+                   record_trajectory=record_trajectory,
+                   frame_height=frame_height, frame_width=frame_width,
+                   track_escape=r < span)
+
+
+# Staged levels on the card, replayed from CUDA graphs. Between levels the
+# host waits on the escape mask, and the card idles until the host has
+# issued the next level: ~15 operations and three launches through Python
+# as eager calls, one graph launch as a replay. Per frame shape, stream and
+# host thread (two threads on one stream must not share input buffers):
+# the uint8 input buffers every graph of that shape reads, a memory pool
+# its graphs share and the capture stream. The pool is safe to share: the
+# graphs' outputs stay allocated, so no later capture takes their memory,
+# and a call reads its graphs' outputs before it returns. Per level and
+# configuration: the graph, its outputs and the kernel launches its
+# capture counted.
+_graph_inputs: dict = {}
+_level_graphs: dict = {}
+
+
+def _launch_counters():
+    """(wrapper, attribute) of every kernel launch counter a level can
+    move."""
+    return [(fn, name) for module in (fsc, sc, dc)
+            for fn in vars(module).values() if callable(fn)
+            for name in ("launches", "volume_launches", "ring_launches")
+            if isinstance(getattr(fn, name, None), int)]
+
+
+def _graph_frames(cur, ref):
+    """The input buffers of this frame shape on the current stream and
+    thread, holding (cur, ref) as uint8 once the copies issued here have
+    run."""
+    stream = torch.cuda.current_stream(cur.device)
+    key = (cur.device, stream.cuda_stream, threading.get_ident(),
+           tuple(cur.shape))
+    if key not in _graph_inputs:
+        _graph_inputs[key] = (
+            torch.empty(cur.shape, dtype=torch.uint8, device=cur.device),
+            torch.empty(cur.shape, dtype=torch.uint8, device=cur.device),
+            torch.cuda.graph_pool_handle(), torch.cuda.Stream(cur.device))
+    cur_in, ref_in, _, _ = _graph_inputs[key]
+    cur_in.copy_(fsc.as_u8(cur))
+    ref_in.copy_(fsc.as_u8(ref))
+    return key
+
+
+def _graph_level(key, r: int, kw: dict):
+    """Level r on the input buffers of `key`: eager the first time, so that
+    a search made once captures nothing; captured the second time and
+    replayed from then on. A replay adds to the launch counters what the
+    capture counted, so they read as eager calls'. Returns the level's
+    outputs; a replay's are the graph's own tensors, which its next replay
+    overwrites."""
+    cur_in, ref_in, pool, stream = _graph_inputs[key]
+    lkey = (key, r, tuple(sorted(kw.items())))
+    if lkey not in _level_graphs:
+        _level_graphs[lkey] = None
+        return _level(cur_in, ref_in, r, **kw)
+    if _level_graphs[lkey] is None:
+        counters = _launch_counters()
+        before = [getattr(fn, name) for fn, name in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(cur_in.device), torch.cuda.graph(
+                graph, pool=pool, stream=stream,
+                capture_error_mode="thread_local"):
+            outputs = _level(cur_in, ref_in, r, **kw)
+        counts = []
+        for (fn, name), n in zip(counters, before):
+            if getattr(fn, name) != n:
+                counts.append((fn, name, getattr(fn, name) - n))
+                setattr(fn, name, n)
+        _level_graphs[lkey] = (graph, outputs, counts)
+    graph, outputs, counts = _level_graphs[lkey]
+    with trace.span("me.launch"):
+        graph.replay()
+    for fn, name, n in counts:
+        setattr(fn, name, getattr(fn, name) + n)
+    return outputs
+
+
+def _staged_search(cur, ref, *, blk_dim: int, span: int, metric: str,
+                   early_term, max_steps: int, record_trajectory: bool,
+                   escape_policy: str = "canonical"):
+    """`_diamond_staged` up to the crossover's full search: (field,
+    trajectory or None, escaped), where `escaped` is the mask of the blocks
+    that are still to take the full-search optimum under "crossover", else
+    None. Each level (its volume and replay) is a `me.level` span, counted
+    in `_diamond_staged.levels`; on CUDA frames a level from its second
+    call on is a CUDA graph's replay (`_graph_level`)."""
+    if escape_policy not in ("canonical", "crossover"):
+        raise ValueError(f"unknown escape_policy {escape_policy!r}")
+    if escape_policy == "crossover" and (
+        record_trajectory or metric == "ssim"
+    ):
+        raise ValueError(
+            "escape_policy='crossover' supports MSE/SAD without "
+            "trajectory recording (escaped blocks take the full-search "
+            "argmin, which has no diamond trajectory)"
+        )
+    levels = _staged_levels(span)
+    kw = dict(blk_dim=blk_dim, span=span, metric=metric,
+              early_term=early_term, max_steps=max_steps,
+              record_trajectory=record_trajectory)
+    graphs = (cur.device.type == "cuda"
+              and not torch.cuda.is_current_stream_capturing())
+    if graphs:
+        key = _graph_frames(cur, ref)
+
+    def run_level(r):
+        with trace.span("me.level"):
+            _diamond_staged.levels += 1
+            if graphs:
+                return _graph_level(key, r, kw)
+            return _level(cur, ref, r, **kw)
+
+    field, traj, esc = run_level(levels[0])
+    if graphs:
+        # A later level's outputs are merged into new tensors; the first
+        # level's may be a graph's own, which the next call overwrites.
+        field = MotionField(*(t.clone() for t in field))
+        traj = None if traj is None else traj.clone()
+    if escape_policy == "crossover":
+        if len(levels) > 1 and _any_escaped(esc):
+            return field, traj, esc
+        return field, traj, None
+    for r in levels[1:]:
+        if not _any_escaped(esc):
+            break
+        f2, t2, e2 = run_level(r)
+        field = _merge(esc, f2, field)
+        if record_trajectory:
+            traj = torch.where(esc[None, :, :, None], t2, traj)
+        esc = esc & e2
+    if metric == "ssim":
+        # Level volumes index flat displacements by their own radius; the
+        # other paths index by the search span.
+        k = 2 * span + 1
+        field = field._replace(
+            best_cost_i32=(field.mv_y + span) * k + (field.mv_x + span))
+    return field, traj, None
+
+
+def _crossover(cur, ref, esc, field, *, blk_dim: int, span: int,
+               metric: str) -> MotionField:
+    """`field` with the blocks of `esc` taking the full-search optimum
+    (`full_search_frame_cuda` on CUDA frames, a search call of its own)."""
+    if cur.device.type == "cuda":
+        best = fsc.full_search_frame_cuda(
+            cur, ref, blk_dim=blk_dim, span=span, metric=metric,
+            device=cur.device,
+        )
+    else:
+        best = fs.full_search_frame(cur, ref, blk_dim=blk_dim, span=span,
+                                    metric=metric)
+    return _merge(esc, best, field)
+
+
 def _diamond_staged(cur, ref, *, blk_dim: int, span: int, metric: str,
                     early_term, max_steps: int, record_trajectory: bool,
                     escape_policy: str = "canonical"):
@@ -251,67 +443,35 @@ def _diamond_staged(cur, ref, *, blk_dim: int, span: int, metric: str,
     next level (skipped when none escaped; the last level is the full
     span, where none can escape); "crossover" (MSE/SAD, no trajectory)
     gives every block that escaped the first level the full-search optimum
-    instead. Returns (field, trajectory or None).
+    instead. Returns (field, trajectory or None). The levels run are
+    counted in `_diamond_staged.levels`.
     """
-    if escape_policy not in ("canonical", "crossover"):
-        raise ValueError(f"unknown escape_policy {escape_policy!r}")
-    if escape_policy == "crossover" and (
-        record_trajectory or metric == "ssim"
-    ):
-        raise ValueError(
-            "escape_policy='crossover' supports MSE/SAD without "
-            "trajectory recording (escaped blocks take the full-search "
-            "argmin, which has no diamond trajectory)"
-        )
-    frame_height, frame_width = cur.shape
-    levels = _staged_levels(span)
-
-    def run_level(r):
-        if metric == "ssim":
-            volume = sc.ssim_volume_cuda(cur, ref, blk_dim=blk_dim, span=r,
-                                         device=cur.device)
-        else:
-            volume = fsc.full_search_volume_cuda(
-                cur, ref, blk_dim=blk_dim, span=r, metric=metric,
-                device=cur.device,
-            )
-        return _replay(
-            volume, blk_dim=blk_dim, span=r, metric=metric,
-            early_term=early_term, max_steps=max_steps,
-            record_trajectory=record_trajectory, frame_height=frame_height,
-            frame_width=frame_width, track_escape=r < span,
-        )
-
-    field, traj, esc = run_level(levels[0])
-    if escape_policy == "crossover":
-        if len(levels) > 1 and bool(esc.any()):
-            if cur.device.type == "cuda":
-                best = fsc.full_search_frame_cuda(
-                    cur, ref, blk_dim=blk_dim, span=span, metric=metric,
-                    device=cur.device,
-                )
-            else:
-                best = fs.full_search_frame(cur, ref, blk_dim=blk_dim,
-                                            span=span, metric=metric)
-            field = _merge(esc, best, field)
-    else:
-        for r in levels[1:]:
-            if not bool(esc.any()):
-                break
-            f2, t2, e2 = run_level(r)
-            field = _merge(esc, f2, field)
-            if record_trajectory:
-                traj = torch.where(esc[None, :, :, None], t2, traj)
-            esc = esc & e2
-    if metric == "ssim":
-        # Level volumes index flat displacements by their own radius; the
-        # other paths index by the search span.
-        k = 2 * span + 1
-        field = field._replace(
-            best_cost_i32=(field.mv_y + span) * k + (field.mv_x + span))
+    field, traj, esc = _staged_search(
+        cur, ref, blk_dim=blk_dim, span=span, metric=metric,
+        early_term=early_term, max_steps=max_steps,
+        record_trajectory=record_trajectory, escape_policy=escape_policy)
+    if esc is not None:
+        field = _crossover(cur, ref, esc, field, blk_dim=blk_dim, span=span,
+                           metric=metric)
     return field, traj
 
 
+_diamond_staged.levels = 0
+
+
+def _counted(fn):
+    """`fn`, its calls counted in the attribute `calls` of what it returns
+    (a closure, so a caller that replaces the module's name still counts)."""
+    @functools.wraps(fn)
+    def counted(*args, **kwargs):
+        counted.calls += 1
+        return fn(*args, **kwargs)
+
+    counted.calls = 0
+    return counted
+
+
+@_counted
 def diamond_search_frame(
     cur,
     ref,
@@ -354,6 +514,10 @@ def diamond_search_frame(
     Returns a MotionField (tensors on `device`), or (MotionField,
     trajectory) with `record_trajectory`: int32 [max_steps + 1, nby, nbx,
     2], equal to `diamond_search_np`'s.
+
+    A call is one `me.search` span (`core.trace`), counted in
+    `diamond_search_frame.calls`; under "crossover" the full search of
+    the escaped blocks follows it as a search call of its own.
     """
     if tuple(cur.shape) != tuple(ref.shape):
         raise ValueError(
@@ -376,41 +540,49 @@ def diamond_search_frame(
             f"path (volume_mode auto/staged; blk_dim={blk_dim}, "
             f"span={span}, metric={metric!r} not covered)"
         )
-    dev = resolve_device(device)
-    cur_t, ref_t = to_tensor(cur, dev), to_tensor(ref, dev)
-    kw = dict(blk_dim=blk_dim, span=span, metric=metric,
-              early_term=early_term, max_steps=max_steps,
-              record_trajectory=record_trajectory)
-    if volume_mode in ("auto", "staged"):
-        use_staged = staged_supported(blk_dim, span, metric)
-        if metric == "ssim" and volume_mode == "auto":
-            use_staged = use_staged and dev.type == "cuda"
-        if use_staged:
-            field, traj = _diamond_staged(cur_t, ref_t,
-                                          escape_policy=escape_policy, **kw)
-        else:
-            volume_mode = "lazy"
-    if volume_mode == "lazy":
-        if dev.type == "cuda":
-            cur_t, ref_t = (fsc.as_u8(t).contiguous() for t in (cur_t, ref_t))
-        field, traj = _diamond_lazy(cur_t, ref_t, **kw)
-    elif volume_mode == "full":
-        if metric == "ssim" and sc.ssim_supported(blk_dim, span):
-            volume = sc.ssim_volume_cuda(cur_t, ref_t, blk_dim=blk_dim,
-                                         span=span, device=dev)
-        elif fsc.volume_supported(blk_dim, span, metric):
-            volume = fsc.full_search_volume_cuda(
-                cur_t, ref_t, blk_dim=blk_dim, span=span, metric=metric,
-                device=dev,
-            )
-        else:
-            _, volume = fs.full_search_frame(
-                cur_t, ref_t, blk_dim=blk_dim, span=span, metric=metric,
-                return_cost_volume=True,
-            )
-        frame_height, frame_width = cur_t.shape
-        field, traj, _ = _replay(volume, frame_height=frame_height,
-                                 frame_width=frame_width, **kw)
+    with trace.span("me.search"):
+        dev = resolve_device(device)
+        cur_t, ref_t = to_tensor(cur, dev), to_tensor(ref, dev)
+        kw = dict(blk_dim=blk_dim, span=span, metric=metric,
+                  early_term=early_term, max_steps=max_steps,
+                  record_trajectory=record_trajectory)
+        esc = None
+        if volume_mode in ("auto", "staged"):
+            use_staged = staged_supported(blk_dim, span, metric)
+            if metric == "ssim" and volume_mode == "auto":
+                use_staged = use_staged and dev.type == "cuda"
+            if use_staged:
+                field, traj, esc = _staged_search(
+                    cur_t, ref_t, escape_policy=escape_policy, **kw)
+            else:
+                volume_mode = "lazy"
+        if volume_mode == "lazy":
+            if dev.type == "cuda":
+                cur_t, ref_t = (fsc.as_u8(t).contiguous()
+                                for t in (cur_t, ref_t))
+            field, traj = _diamond_lazy(cur_t, ref_t, **kw)
+        elif volume_mode == "full":
+            if metric == "ssim" and sc.ssim_supported(blk_dim, span):
+                volume = sc.ssim_volume_cuda(cur_t, ref_t, blk_dim=blk_dim,
+                                             span=span, device=dev)
+            elif fsc.volume_supported(blk_dim, span, metric):
+                volume = fsc.full_search_volume_cuda(
+                    cur_t, ref_t, blk_dim=blk_dim, span=span, metric=metric,
+                    device=dev,
+                )
+            else:
+                _, volume = fs.full_search_frame(
+                    cur_t, ref_t, blk_dim=blk_dim, span=span, metric=metric,
+                    return_cost_volume=True,
+                )
+            frame_height, frame_width = cur_t.shape
+            field, traj, _ = _replay(volume, frame_height=frame_height,
+                                     frame_width=frame_width, **kw)
+    if esc is not None:
+        # The crossover's full search is a whole-frame search call with its
+        # own `me.search`, so it runs after this call's span has closed.
+        field = _crossover(cur_t, ref_t, esc, field, blk_dim=blk_dim,
+                           span=span, metric=metric)
     if record_trajectory:
         return field, traj
     return field

@@ -218,7 +218,7 @@ def test_auto_routes_unstaged_configs_to_lazy(monkeypatch, blk, span, metric,
         raise AssertionError("the staged path ran")
 
     monkeypatch.setattr(td, "_diamond_lazy", lazy)
-    monkeypatch.setattr(td, "_diamond_staged", staged)
+    monkeypatch.setattr(td, "_staged_search", staged)
     cur, ref = _pair(4, h, w, shift=(3, -2))
     kw = dict(blk_dim=blk, span=span, metric=metric)
     field, traj = _port(cur, ref, **kw)
